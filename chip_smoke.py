@@ -18,7 +18,23 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. breakdown: the int8 fit's parts — planning (probe featurize and the
    quantization gate), the streamed accumulation, the Gram-form solve —
    timed cold and then warm in a fresh child process (``--breakdown``, for
-   this script's own use).
+   this script's own use);
+7. K2 (flash attention) and K4 (int8-dequant matmul) against their plain
+   versions at the LM path's shapes and ragged ones, timed beside their
+   plain versions, a PyTorch library call and their bounds;
+8. LM main path: the bench's decode model (vocab 32,768, dim 1,024,
+   depth 8, 16 heads, bf16, batch 8, 128-token prompts, 256 new tokens)
+   made by ``TransformerLM.create`` on the card, in three legs — float,
+   int8 weights through ``quantization.mm``, int8 weights through K4 —
+   each timed by the delta method (prefill ms, ms per step, tokens/s).
+   K2 must launch once per layer per prefill; K4 6·depth·255 times in the
+   K4 leg and never in the others;
+9. the same weights in f32: prefill and 32 teacher-forced decode steps
+   through the kernels (flash, K4) and through the plain path (dense
+   attention, ``quantization.mm``) give logits within 1e-4 of max|logit|
+   and the same argmax on ≥ 99 % of positions;
+10. serving: a ``DecodeLoop`` of 8 slots (s_max 512, int8 weights through
+   K4, bf16) answers 16 requests of seeded prompt lengths and lengths.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits non-zero
@@ -46,9 +62,24 @@ MAX_TEST_ERROR = 0.01
 MIN_AGREEMENT = 0.995
 K1_MAX_REL_ERR = 1e-6
 
-# H100 SXM datasheet peaks (dense): int8 tensor cores, HBM3 bandwidth
+# H100 SXM datasheet peaks (dense): int8 and bf16 tensor cores, HBM3
+# bandwidth
 INT8_PEAK_OPS = 1.979e15
+BF16_PEAK_OPS = 9.89e14
 HBM_BYTES_PER_S = 3.35e12
+
+# --- LM path: the bench's decode model (bench.py LM_* and bench_lm_decode)
+LM_CONF = dict(vocab=32_768, max_seq=2048, dim=1024, depth=8, num_heads=16)
+LM_BATCH, LM_PROMPT, LM_MAX_NEW = 8, 128, 256
+K2_BF16_TOL = 8e-3  # of max|plain|: one bf16 step after an f32 sum in another order
+K2_F32_TOL = 1e-5
+K2_LSE_TOL = 1e-5  # absolute
+K4_BF16_TOL = 8e-3
+K4_F32_TOL = 1e-5
+EQUIV_TOL = 1e-4  # of max|logit|, f32 kernel path vs plain path
+EQUIV_ARGMAX = 0.99
+EQUIV_STEPS = 32
+SERVE_SLOTS, SERVE_S_MAX, SERVE_REQUESTS = 8, 512, 16
 
 
 def check(cond: bool, msg: str) -> None:
@@ -72,6 +103,39 @@ def time_ms(fn, reps: int = 5, rounds: int = 3) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20, rounds: int = 3) -> float | None:
+    """Device time per call: ``reps`` calls captured in one CUDA graph,
+    replayed, timed with CUDA events (median of ``rounds``). Unlike
+    :func:`time_ms` it leaves out the host's cost of issuing each call,
+    which for a microsecond kernel is most of an eager call. None if the
+    function cannot be captured."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    except RuntimeError as exc:
+        print(f"  (not capturable in a CUDA graph: {str(exc).splitlines()[0]})")
+        torch.cuda.synchronize()
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
     return statistics.median(times)
 
 
@@ -169,6 +233,413 @@ def phase_k1(device) -> dict:
     }
 
 
+def _rel(a, b) -> float:
+    """max|a − b| / max|b|, in f32."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def phase_k2(device) -> dict:
+    """K2 against its plain version: the prefill shape, the model's
+    max_seq, and ragged f32 cases with offsets (non-causal, and causal with
+    fully masked rows) and the lse. Timed at the prefill and max_seq
+    shapes."""
+    import torch.nn.functional as F
+
+    from keystone_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(2)
+
+    def qkv(b, h, s_q, s_k, d, dtype):
+        return tuple(
+            torch.randn((b, h, s, d), generator=gen, device=device).to(dtype)
+            for s in (s_q, s_k, s_k)
+        )
+
+    timed = {}
+    for name, shape in (("prefill", (8, 16, 128, 64)), ("max_seq", (8, 16, 2048, 64))):
+        b, h, s, d = shape
+        q, k, v = qkv(b, h, s, s, d, torch.bfloat16)
+        out = fa.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_plain(q, k, v, causal=True)
+        err = _rel(out, ref)
+        max_abs = float((out.float() - ref.float()).abs().max())
+        print(f"K2 {shape} bf16 causal: max|kernel-plain| / max|plain| = {err:.3e}")
+        check(bool(torch.isfinite(out).all()), f"K2 {shape} not finite")
+        check(err <= K2_BF16_TOL, f"K2 {shape} disagrees with its plain version ({err:.3e})")
+        kernel_ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=True))
+        plain_ms = device_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), reps=2)
+        library_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+        eager_ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True), reps=20)
+        ops = 4.0 * b * h * d * s * (s + 1) / 2  # the causal triangle
+        traffic = 4.0 * b * h * s * d * 2  # q, k, v read once, o written once
+        ops_ms, bytes_ms = 1e3 * ops / BF16_PEAK_OPS, 1e3 * traffic / HBM_BYTES_PER_S
+        timed[name] = {
+            "shape": list(shape), "max_abs_err": max_abs, "max_rel_err": err,
+            "ms": kernel_ms, "eager_call_ms": eager_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        }
+        print(f"K2 {shape} device times: kernel {kernel_ms} ms, plain {plain_ms} ms, "
+              f"sdpa {library_ms} ms, bound {max(ops_ms, bytes_ms):.4f} ms; "
+              f"eager kernel call {eager_ms:.4f} ms")
+
+    ragged = {}
+    for causal, q_off, k_off in ((False, 5, 3), (True, 3, 40)):
+        q, k, v = qkv(2, 3, 77, 50, 40, torch.float32)
+        kw = dict(causal=causal, q_offset=q_off, k_offset=k_off, return_lse=True)
+        out, lse = fa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, **kw)
+        err, lse_err = _rel(out, ref), float((lse - ref_lse).abs().max())
+        dead = int((ref_lse[0, 0] <= -1e29).sum())
+        print(f"K2 (2,3,77,40) vs S_k 50 f32 causal={causal} offsets ({q_off},{k_off}): "
+              f"relative {err:.3e}, lse {lse_err:.3e}, fully masked rows {dead}")
+        check(err <= K2_F32_TOL, f"K2 ragged f32 disagrees ({err:.3e})")
+        check(lse_err <= K2_LSE_TOL, f"K2 lse disagrees ({lse_err:.3e})")
+        check(not causal or dead > 0, "K2 ragged causal case has no fully masked row")
+        check(bool((out[:, :, :dead] == 0).all()), "K2 fully masked rows are not 0")
+        ragged[f"causal={causal}"] = {"max_rel_err": err, "lse_max_abs_err": lse_err,
+                                      "fully_masked_rows": dead}
+    main = timed["prefill"]
+    return {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "keystone_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "keystone_tpu/ops/flash_attention.py:372",
+        "shape": main["shape"],
+        "launches": None,  # filled from the main path's run
+        "max_abs_err": main["max_abs_err"],
+        "max_rel_err": main["max_rel_err"],
+        "ms": main["ms"],
+        "eager_call_ms": main["eager_call_ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "library": "torch.nn.functional.scaled_dot_product_attention(is_causal=True)",
+        "timing": "device time, CUDA-graph replay; eager_call_ms is a Python call",
+        "at_max_seq": timed["max_seq"],
+        "ragged_f32": ragged,
+    }
+
+
+def phase_k4(device) -> dict:
+    """K4 against its plain version at the decode step's shapes (M = 8
+    rows against the block matrices) and M = 64 and a ragged case, in
+    f32 and bf16; timed at each M = 8 shape."""
+    from keystone_tpu_torch.ops import int8_matmul as im
+    from keystone_tpu_torch.ops.quantization import mm, quantize_int8
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    cases = [(8, 1024, 1024), (8, 1024, 4096), (8, 4096, 1024), (64, 1024, 4096), (3, 1000, 300)]
+    shapes = []
+    for m, k, n in cases:
+        w = quantize_int8(torch.randn((k, n), generator=gen, device=device))
+        y32 = torch.randn((m, k), generator=gen, device=device)
+        for dt, tol in ((torch.float32, K4_F32_TOL), (torch.bfloat16, K4_BF16_TOL)):
+            y = y32.to(dt)
+            out = im.mm_fused(y, w)
+            torch.cuda.synchronize()
+            ref = im.mm_fused_plain(y, w)
+            err = _rel(out, ref)
+            max_abs = float((out.float() - ref.float()).abs().max())
+            check(out.dtype == dt and bool(torch.isfinite(out).all()), f"K4 {m}x{k}x{n} output")
+            check(err <= tol, f"K4 {m}x{k}x{n} {dt} disagrees with its plain version ({err:.3e})")
+            row = {"m": m, "k": k, "n": n, "dtype": str(dt).split(".")[-1],
+                   "max_abs_err": max_abs, "max_rel_err": err}
+            if m == 8:
+                row["ms"] = device_ms(lambda: im.mm_fused(y, w))
+                row["plain_ms"] = device_ms(lambda: im.mm_fused_plain(y, w))
+                row["eager_call_ms"] = time_ms(lambda: im.mm_fused(y, w), reps=20)
+                row["eager_mm_ms"] = time_ms(lambda: mm(y, w, dt), reps=20)
+                traffic = k * n + y.element_size() * m * k + 4 * n + y.element_size() * m * n
+                ops = 2.0 * m * k * n
+                ops_ms = 1e3 * ops / (BF16_PEAK_OPS if dt == torch.bfloat16 else 6.7e13)
+                bytes_ms = 1e3 * traffic / HBM_BYTES_PER_S
+                row["bound_ms"] = max(ops_ms, bytes_ms)
+                row["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+                row["two_call_ms"] = device_ms(lambda: (y @ w.q.to(dt)))
+            print(f"K4 {m}x{k}x{n} {row['dtype']}: relative {err:.3e}"
+                  + (f", device: kernel {row['ms']} ms, plain {row['plain_ms']} ms, "
+                     f"bound {row['bound_ms']:.5f} ms, y @ q.to(dt) {row['two_call_ms']} ms; "
+                     f"eager call: kernel {row['eager_call_ms']:.4f} ms, "
+                     f"quantization.mm {row['eager_mm_ms']:.4f} ms"
+                     if m == 8 else ""))
+            shapes.append(row)
+
+    # the library yardstick: one PyTorch call for the same function, if
+    # this build runs it on CUDA
+    m, k, n = 8, 1024, 4096
+    w = quantize_int8(torch.randn((k, n), generator=gen, device=device))
+    y = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+    q_nk, scales = w.q.t().contiguous(), w.scale[0].to(torch.bfloat16).contiguous()
+    try:
+        torch._weight_int8pack_mm(y, q_nk, scales)
+        torch.cuda.synchronize()
+        library_ms = device_ms(lambda: torch._weight_int8pack_mm(y, q_nk, scales))
+        library = "torch._weight_int8pack_mm"
+    except (RuntimeError, NotImplementedError) as exc:
+        library_ms, library = None, f"no single PyTorch call ({type(exc).__name__})"
+    print(f"K4 library: {library}, {library_ms}")
+    main = next(r for r in shapes if (r["m"], r["k"], r["n"], r["dtype"]) == (8, 1024, 4096, "bfloat16"))
+    return {
+        "name": "int8_matmul",
+        "route": "cuda",
+        "source": "keystone_tpu_torch/csrc/int8_matmul.cu",
+        "replaces": "keystone_tpu/ops/int8_matmul.py:121",
+        "shape": [main["m"], main["k"], main["n"]],
+        "launches": None,  # filled from the main path's run
+        "max_abs_err": main["max_abs_err"],
+        "max_rel_err": main["max_rel_err"],
+        "ms": main["ms"],
+        "eager_call_ms": main["eager_call_ms"],
+        "eager_mm_ms": main["eager_mm_ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": library_ms,
+        "library": library,
+        "timing": "device time, CUDA-graph replay; eager_* are Python calls",
+        "two_call_ms": main["two_call_ms"],
+        "shapes": shapes,
+    }
+
+
+def _counts() -> dict:
+    from keystone_tpu_torch.ops import flash_attention, gram, int8_matmul
+
+    return {k.name: k.launches for k in
+            (gram.INT8_GRAM, flash_attention.FLASH_ATTENTION, int8_matmul.INT8_MATMUL)}
+
+
+def _zero_counts() -> None:
+    from keystone_tpu_torch.ops import flash_attention, gram, int8_matmul
+
+    for k in (gram.INT8_GRAM, flash_attention.FLASH_ATTENTION, int8_matmul.INT8_MATMUL):
+        k.launches = 0
+
+
+def _wall(fn, iters: int) -> float:
+    """Seconds per call of an already warm ``fn``, as bench.py's _timed:
+    ``iters`` calls and one synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters
+
+
+def decode_profile(model, prompt, steps: int = 8) -> dict | None:
+    """``steps`` decode steps under torch.profiler: the device's busy share
+    of the wall time, kernels launched per step, and the kernels that take
+    the most device time. None, with the reason printed, when the profiler
+    shows no device time on this machine."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from keystone_tpu_torch.models.lm import decode
+
+    logits, cache = decode.prefill(model, prompt, LM_PROMPT + steps + 2)
+    tok = logits.argmax(-1)
+    for _ in range(2):
+        logits, cache = decode.decode_step(model, tok, cache)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = decode.decode_step(model, tok, cache)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side rows only (kernels, copies, memsets): an operator's row
+    # also carries the device time of the kernels it launched, and summing
+    # both would count that time twice
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        on_device = getattr(e, "device_type", None) == DeviceType.CUDA
+        if us > 0 and (on_device or e.self_cpu_time_total == 0):
+            rows.append((us, e.count, e.key))
+    if not rows:
+        print("decode profile: the profiler shows no device time here")
+        return None
+    rows.sort(reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    kernels = sum(r[1] for r in rows)
+    return {
+        "steps": steps,
+        "wall_ms_per_step": wall * 1e3 / steps,
+        "device_busy_ms_per_step": busy_us / 1e3 / steps,
+        "device_busy_share": busy_us / 1e6 / wall,
+        "device_kernels_per_step": kernels / steps,
+        "top": [{"name": k[:80], "calls_per_step": c / steps, "ms_per_step": us / 1e3 / steps}
+                for us, c, k in rows[:8]],
+    }
+
+
+def phase_lm(device) -> dict:
+    """The LM main path at the bench's width, three legs."""
+    import numpy as np
+
+    from keystone_tpu_torch.models.lm import TransformerLM, decode, generate, quantize_for_decode
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = TransformerLM.create(**LM_CONF, compute_dtype="bfloat16", device=device,
+                                 generator=gen)
+    qmodel = quantize_for_decode(model)
+    depth = LM_CONF["depth"]
+    print(f"LM: {model.num_params():,} parameters, int8 model "
+          f"{qmodel.num_params():,} values")
+    prompt = torch.from_numpy(
+        np.random.default_rng(1).integers(0, LM_CONF["vocab"], size=(LM_BATCH, LM_PROMPT))
+    ).to(device)
+    legs = {"float": model, "int8_mm": qmodel, "int8_kernel": qmodel.replace(int8_kernel="kernel")}
+    res = {}
+    for name, m in legs.items():
+        generate(m, prompt, max_new=2)  # first use: cuBLAS, kernels loaded
+        torch.cuda.synchronize()
+        _zero_counts()
+        generate(m, prompt, max_new=1)
+        torch.cuda.synchronize()
+        prefill_counts = _counts()
+        # the main path's run: counts from zero, one generate
+        _zero_counts()
+        out = generate(m, prompt, max_new=LM_MAX_NEW)
+        torch.cuda.synchronize()
+        counts = _counts()
+        k4_want = 6 * depth * (LM_MAX_NEW - 1) if name == "int8_kernel" else 0
+        print(f"LM [{name}] launches: prefill {prefill_counts}, generate {counts}")
+        check(prefill_counts["flash_attention"] == depth,
+              f"{name}: K2 launched {prefill_counts['flash_attention']} times in a prefill")
+        check(counts["flash_attention"] == depth, f"{name}: K2 launches {counts}")
+        check(counts["int8_matmul"] == k4_want, f"{name}: K4 launched "
+              f"{counts['int8_matmul']} times, want {k4_want}")
+        check(out.shape == (LM_BATCH, LM_MAX_NEW) and out.dtype == torch.int32,
+              f"{name}: output {tuple(out.shape)} {out.dtype}")
+        check(bool(((out >= 0) & (out < LM_CONF["vocab"])).all()), f"{name}: token out of range")
+        logits, cache = decode.prefill(m, prompt, LM_PROMPT + 2)
+        nan = bool(torch.isnan(logits).any())
+        logits, _ = decode.decode_step(m, out[:, 0], cache)
+        check(not nan and not bool(torch.isnan(logits).any()), f"{name}: NaN logits")
+        prof = decode_profile(m, prompt)
+        if prof is not None:
+            print(f"LM [{name}] decode step profile: wall {prof['wall_ms_per_step']:.3f} ms, "
+                  f"device busy {prof['device_busy_ms_per_step']:.3f} ms "
+                  f"({prof['device_busy_share']:.1%}), {prof['device_kernels_per_step']:.0f} "
+                  f"kernels a step; top: "
+                  + "; ".join(f"{t['name'][:40]} {t['ms_per_step']:.3f} ms" for t in prof["top"][:4]))
+        res[name] = {"decode_profile": prof, "launches": counts}
+
+    # the legs in turns (float, mm, kernel, kernel, mm, float): the host's
+    # load moves between calls, so each leg is read twice, apart
+    for name in [*legs, *reversed(legs)]:
+        m = legs[name]
+        sec_prefill = _wall(lambda: generate(m, prompt, max_new=1), iters=2)
+        sec_full = _wall(lambda: generate(m, prompt, max_new=LM_MAX_NEW), iters=1)
+        step_s = max(sec_full - sec_prefill, 1e-9) / (LM_MAX_NEW - 1)
+        res[name].setdefault("turns", []).append(
+            {"prefill_ms": sec_prefill * 1e3, "generate_ms": sec_full * 1e3,
+             "ms_per_step": step_s * 1e3})
+        print(f"LM [{name}]: prefill {sec_prefill * 1e3:.2f} ms, {step_s * 1e3:.3f} ms/step, "
+              f"{LM_BATCH / step_s:.1f} tokens/s")
+    for name, r in res.items():
+        for key in ("prefill_ms", "generate_ms", "ms_per_step"):
+            r[key] = statistics.mean(t[key] for t in r["turns"])
+        r["tokens_per_s"] = LM_BATCH / (r["ms_per_step"] / 1e3)
+    return {
+        "config": {**LM_CONF, "batch": LM_BATCH, "prompt": LM_PROMPT, "max_new": LM_MAX_NEW,
+                   "compute_dtype": "bfloat16", "params": model.num_params()},
+        "legs": res,
+        "kernel_leg_launches": res["int8_kernel"]["launches"],
+        "model": model,
+        "qmodel": legs["int8_kernel"],
+    }
+
+
+def phase_equivalence(device, model) -> dict:
+    """The same weights in f32, int8: prefill plus teacher-forced decode
+    steps through the kernels and through the plain path."""
+    import numpy as np
+
+    from keystone_tpu_torch.models.lm import decode, quantize_for_decode
+
+    q32 = quantize_for_decode(model.replace(compute_dtype="float32"))
+    toks = torch.from_numpy(
+        np.random.default_rng(4).integers(0, LM_CONF["vocab"],
+                                          size=(LM_BATCH, LM_PROMPT + EQUIV_STEPS))
+    ).to(device)
+    s_max = LM_PROMPT + EQUIV_STEPS
+
+    def run(m):
+        logits, cache = decode.prefill(m, toks[:, :LM_PROMPT], s_max)
+        out = [logits]
+        for j in range(EQUIV_STEPS):
+            logits, cache = decode.decode_step(m, toks[:, LM_PROMPT + j], cache)
+            out.append(logits)
+        return torch.stack(out)
+
+    _zero_counts()
+    kern = run(q32.replace(int8_kernel="kernel"))
+    counts = _counts()
+    os.environ["KST_LOCAL_ATTN"] = "dense"
+    try:
+        plain = run(q32.replace(int8_kernel="mm"))
+    finally:
+        del os.environ["KST_LOCAL_ATTN"]
+    check(counts["flash_attention"] == LM_CONF["depth"] and
+          counts["int8_matmul"] == 6 * LM_CONF["depth"] * EQUIV_STEPS,
+          f"equivalence: the kernel path launched {counts}")
+    check(_counts() == counts, "equivalence: the plain path launched a kernel")
+    err = _rel(kern, plain)
+    agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+    print(f"f32 equivalence, {EQUIV_STEPS} steps: max|kernel-plain| / max|logit| = "
+          f"{err:.3e}, argmax agreement {agree:.4%}")
+    check(bool(torch.isfinite(kern).all()), "equivalence: logits not finite")
+    check(err <= EQUIV_TOL, f"equivalence: logits differ by {err:.3e} of max")
+    check(agree >= EQUIV_ARGMAX, f"equivalence: argmax agreement {agree:.4%}")
+    return {"max_rel_err": err, "argmax_agreement": agree, "steps": EQUIV_STEPS}
+
+
+def phase_serving(device, qmodel) -> dict:
+    """A DecodeLoop answering seeded requests; aggregate tokens/s."""
+    import numpy as np
+
+    from keystone_tpu_torch.serve.decode_loop import DecodeLoop
+
+    rng = np.random.default_rng(5)
+    lens = rng.integers(4, 257, size=SERVE_REQUESTS)
+    news = rng.integers(32, 129, size=SERVE_REQUESTS)
+    prompts = [rng.integers(0, LM_CONF["vocab"], size=int(n)) for n in lens]
+    loop = DecodeLoop(qmodel, slots=SERVE_SLOTS, s_max=SERVE_S_MAX, max_new=32)
+    warm_s = loop.warm()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futs = [loop.submit(p, max_new=int(n)) for p, n in zip(prompts, news)]
+    steps = 0
+    while not all(f.done() for f in futs):
+        if loop.step():
+            steps += 1
+        elif not loop.pending():
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    outs = [f.result(timeout=0) for f in futs]
+    for o, n in zip(outs, news):
+        check(len(o) == n, f"serving: a request got {len(o)} tokens, asked {n}")
+        check(bool(((o >= 0) & (o < LM_CONF["vocab"])).all()), "serving: token out of range")
+    check(loop.tokens_out == int(news.sum()), f"serving: tokens_out {loop.tokens_out}")
+    fill = loop.occupancy_steps / max(steps * SERVE_SLOTS, 1)
+    print(f"serving: {SERVE_REQUESTS} requests, {loop.tokens_out} tokens in {wall:.3f} s "
+          f"({loop.tokens_out / wall:.1f} tokens/s), {steps} steps, mean slot fill {fill:.3f}, "
+          f"warm {warm_s:.2f} s")
+    return {"requests": SERVE_REQUESTS, "tokens": loop.tokens_out, "wall_s": wall,
+            "tokens_per_s": loop.tokens_out / wall, "steps": steps, "mean_slot_fill": fill,
+            "warm_s": warm_s}
+
+
 def run_main(gram_op: str) -> dict:
     from keystone_tpu_torch.models import mnist_random_fft as m
 
@@ -257,8 +728,10 @@ def main() -> None:
     if sys.argv[1:] == ["--breakdown"]:
         print(json.dumps(fit_breakdown(device)))
         return
+    from keystone_tpu_torch.ops import flash_attention, int8_matmul
+
     smi = phase_card()
-    kernels = [gram.INT8_GRAM]
+    kernels = [gram.INT8_GRAM, flash_attention.FLASH_ATTENTION, int8_matmul.INT8_MATMUL]
     phase_build(kernels)
     k1 = phase_k1(device)
 
@@ -281,6 +754,17 @@ def main() -> None:
     check(agree >= MIN_AGREEMENT, f"int8/fp32 agreement {agree:.4%}")
 
     breakdown = phase_breakdown()
+
+    k2 = phase_k2(device)
+    k4 = phase_k4(device)
+    lm = phase_lm(device)
+    k2["launches"] = lm["kernel_leg_launches"]["flash_attention"]
+    k4["launches"] = lm["kernel_leg_launches"]["int8_matmul"]
+    equiv = phase_equivalence(device, lm.pop("model"))
+    serving = phase_serving(device, lm.pop("qmodel"))
+    print(json.dumps({"lm_path": {"card": smi, **lm, "equivalence": equiv,
+                                  "serving": serving}}))
+
     summary = {
         "card": smi,
         "int8_fit_breakdown": breakdown,
@@ -294,7 +778,7 @@ def main() -> None:
     }
     print(json.dumps({"main_path": summary}))
     print(smi)
-    print(json.dumps({"kernels": [k1]}))
+    print(json.dumps({"kernels": [k1, k2, k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

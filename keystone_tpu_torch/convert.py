@@ -8,13 +8,15 @@ the caller hands over plain arrays (``np.asarray`` of each leaf).
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
 
+from keystone_tpu_torch.models.lm.model import LMBlock, TransformerLM
 from keystone_tpu_torch.models.mnist_random_fft import FeaturizerBank
 from keystone_tpu_torch.ops.linear import BlockLinearMapper, NormalEqState
+from keystone_tpu_torch.ops.quantization import QTensor
 from keystone_tpu_torch.ops.stats import LinearRectifier, PaddedFFT, RandomSignNode
 
 
@@ -73,4 +75,52 @@ def normal_eq_state(
         mean_a=_t(mean_a, device),
         mean_b=_t(mean_b, device),
         n=_t(n, device),
+    )
+
+
+# the JAX package names its int8 matmul routes by backend; the port names
+# what runs
+_INT8_KERNEL = {"xla": "mm", "pallas": "kernel"}
+
+
+def _lm_leaf(x, device):
+    """A float leaf as an f32 tensor; a leaf with ``q`` and ``scale``
+    (the JAX package's QTensor) as the port's :class:`QTensor`."""
+    if hasattr(x, "q") and hasattr(x, "scale"):
+        return QTensor(
+            q=torch.tensor(np.asarray(x.q), dtype=torch.int8, device=device),
+            scale=_t(x.scale, device),
+        )
+    return _t(x, device)
+
+
+def transformer_lm(
+    leaves: Mapping,
+    *,
+    num_heads: int,
+    num_kv_heads: int = 0,
+    pos_encoding: str = "learned",
+    compute_dtype: str = "float32",
+    int8_kernel: str = "xla",
+    device: torch.device | str = "cpu",
+) -> TransformerLM:
+    """A :class:`TransformerLM` from the JAX model's leaves: ``{"embed",
+    "pos_embed", "blocks": [{"wq", "wk", "wv", "wo", "w1", "w2"}, ...]}``,
+    each an array or a QTensor-like leaf. ``int8_kernel`` takes the JAX
+    package's names: "xla" → "mm", "pallas" → "kernel"."""
+    if int8_kernel not in _INT8_KERNEL:
+        raise ValueError(f"int8_kernel={int8_kernel!r}; expected xla|pallas")
+    blocks = [
+        LMBlock(*(_lm_leaf(b[n], device) for n in ("wq", "wk", "wv", "wo", "w1", "w2")))
+        for b in leaves["blocks"]
+    ]
+    return TransformerLM(
+        _lm_leaf(leaves["embed"], device),
+        _lm_leaf(leaves["pos_embed"], device),
+        blocks,
+        num_heads=num_heads,
+        num_kv_heads=num_kv_heads,
+        pos_encoding=pos_encoding,
+        compute_dtype=compute_dtype,
+        int8_kernel=_INT8_KERNEL[int8_kernel],
     )

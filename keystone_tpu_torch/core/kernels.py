@@ -68,6 +68,7 @@ class Kernel:
         self.ptxas_info = ""
         self._lib: ctypes.CDLL | None = None
         self._lock = threading.Lock()
+        self._functions: dict[str, ctypes._CFuncPtr] = {}
 
     def _target(self) -> str:
         with open(self.source, "rb") as f:
@@ -111,6 +112,32 @@ class Kernel:
                 self._finish(self._compile())
                 self._lib = ctypes.CDLL(self._target())
             return self._lib
+
+    def function(self, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
+        """The library's C function ``symbol``, returning an int error
+        code, with its argument types set; looked up once, since a
+        wrapper on the decode path calls it thousands of times."""
+        fn = self._functions.get(symbol)
+        if fn is None:
+            fn = getattr(self.lib(), symbol)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
+            self._functions[symbol] = fn
+        return fn
+
+
+def launch_on(device, launch) -> int:
+    """Call ``launch(stream)`` with ``device`` current and its current
+    stream's handle; returns ``launch``'s error code. The device is
+    switched only when it is not current already."""
+    import torch
+
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(index).cuda_stream
+    if index == torch.cuda.current_device():
+        return launch(stream)
+    with torch.cuda.device(index):
+        return launch(stream)
 
 
 def build_all(kernels: list[Kernel]) -> None:

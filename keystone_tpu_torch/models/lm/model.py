@@ -1,0 +1,386 @@
+"""Decoder-only transformer LM — port of ``keystone_tpu/models/lm/model.py``
+for serving.
+
+Pre-LN blocks, tied-embedding logits, learned or rotary positions, MHA or
+grouped-query attention, and a compute dtype apart from the f32 weights
+(LayerNorm statistics and the logits stay f32). The local attention is the
+flash kernel K2 on the card and dense attention on the CPU
+(``KST_LOCAL_ATTN`` = auto | flash | dense, read per call). Weight-only
+int8 block matrices multiply through :func:`model_mm`: the plain
+``quantization.mm`` (``int8_kernel="mm"``, the JAX package's "xla") or
+kernel K4 (``"kernel"``, the JAX package's "pallas") for decode-sized rows.
+
+Float weights are ``nn.Parameter``s that need no gradient: this slice
+serves. Mixture-of-experts layers, rematerialization and the sequence-
+parallel attention modes come with later slices and raise here.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from keystone_tpu_torch.core.runtime import resolve_device
+from keystone_tpu_torch.ops.attention import dense_attention
+from keystone_tpu_torch.ops.flash_attention import flash_attention_trainable
+from keystone_tpu_torch.ops.int8_matmul import mm_fused
+from keystone_tpu_torch.ops.quantization import QTensor, mm
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_WEIGHTS = ("wq", "wk", "wv", "wo", "w1", "w2")
+
+
+def _leaf(w):
+    """A float tensor becomes a Parameter that needs no gradient; a
+    QTensor stays as it is."""
+    if isinstance(w, QTensor):
+        return w
+    return nn.Parameter(w, requires_grad=False)
+
+
+class LMBlock(nn.Module):
+    """One block's matrices: wq (d, d), wk/wv (d, kv_dim), wo (d, d),
+    w1 (d, ff), w2 (ff, d); each a tensor or a :class:`QTensor`."""
+
+    def __init__(self, wq, wk, wv, wo, w1, w2):
+        super().__init__()
+        for name, w in zip(_WEIGHTS, (wq, wk, wv, wo, w1, w2)):
+            setattr(self, name, _leaf(w))
+
+    def leaves(self) -> tuple:
+        return tuple(getattr(self, n) for n in _WEIGHTS)
+
+
+def _layer_norm(x, eps: float = 1e-6):
+    """Copy of ``keystone_tpu/ops/vit.py::_layer_norm``: population
+    variance, eps inside the rsqrt, no affine."""
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, correction=0)
+    return (x - mu) * torch.rsqrt(var + eps)
+
+
+def _ln(x, cdt):
+    # statistics in f32 even under a bf16 policy
+    return _layer_norm(x.to(torch.float32)).to(cdt)
+
+
+def model_mm(model):
+    """The matmul the model's weights go through: plain ``mm`` or, under
+    ``int8_kernel="kernel"``, K4 for per-output-channel QTensors with at
+    most 64 rows (float weights always take ``mm``)."""
+    if model.int8_kernel == "mm":
+        return mm
+    if model.int8_kernel != "kernel":
+        raise ValueError(
+            f"int8_kernel={model.int8_kernel!r}; expected mm|kernel"
+        )
+
+    def kernel_mm(y, w, dt):
+        m_rows = math.prod(y.shape[:-1])
+        if (
+            isinstance(w, QTensor)
+            and tuple(w.scale.shape) == (1, w.q.shape[1])
+            and m_rows <= 64
+        ):
+            return mm_fused(y.to(dt).contiguous(), w).to(dt)
+        return mm(y, w, dt)
+
+    return kernel_mm
+
+
+def _split_heads(y, w, h, mm_fn=mm):
+    n, s, _ = y.shape
+    out = mm_fn(y, w, y.dtype)  # (n, s, h·hd) — rectangular for GQA K/V
+    return out.reshape(n, s, h, out.shape[-1] // h).transpose(1, 2)
+
+
+def _rope(x, positions, base: float = 10_000.0):
+    """Rotary position embedding. x: (..., S, hd), hd even; positions (S,)
+    or (B, S) (each batch row at its own phase). Angles in f32, the
+    rotated result back in x's dtype."""
+    hd = x.shape[-1]
+    half = hd // 2
+    inv = base ** (
+        -torch.arange(half, dtype=torch.float32, device=x.device) / half
+    )
+    freqs = positions.to(torch.float32)[..., None] * inv  # (..., S, half)
+    cos, sin = torch.cos(freqs), torch.sin(freqs)
+    if freqs.ndim == 3:
+        cos, sin = cos[:, None], sin[:, None]
+    x1 = x[..., :half].to(torch.float32)
+    x2 = x[..., half:].to(torch.float32)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
+
+
+def _block_apply(x, blk: LMBlock, cdt, attn, mm_fn=mm):
+    """Pre-LN residual block shared by the forward, prefill and decode:
+    ``attn(y, blk) -> (attention output (N, S, d), aux)``. Returns
+    (x, aux). The GELU is the tanh approximation, ``jax.nn.gelu``'s
+    default."""
+    a, aux = attn(_ln(x, cdt), blk)
+    x = x + a
+    y = _ln(x, cdt)
+    hdn = mm_fn(y, blk.w1, cdt)
+    return x + mm_fn(F.gelu(hdn, approximate="tanh"), blk.w2, cdt), aux
+
+
+def _gather_embed(embed, tokens):
+    """Embedding rows for ``tokens``; an int8 row-quantized table applies
+    each row's scale to the gathered row."""
+    if isinstance(embed, QTensor):
+        return embed.q[tokens].to(torch.float32) * embed.scale[tokens]
+    return embed[tokens]
+
+
+def _embed(model, tokens, cdt):
+    """Token embedding (× √d) plus learned positions, in the compute
+    dtype."""
+    d = model.embed.shape[-1]
+    x = _gather_embed(model.embed, tokens) * math.sqrt(d)
+    if model.pos_encoding == "learned":
+        x = x + model.pos_embed[: tokens.shape[1]]
+    return x.to(cdt)
+
+
+def _tied_logits(x, embed, cdt):
+    """Logits against the tied embedding, in f32. The JAX package multiplies
+    compute-dtype operands with an f32 result; here the operands are
+    rounded to the compute dtype and then widened to f32, where a product
+    of two bf16 values is exact, so only the order of the f32 sum
+    differs."""
+    a = _ln(x, cdt).to(torch.float32)
+    if isinstance(embed, QTensor):
+        # (V, 1) row scales become per-output-channel under the transpose
+        return (a @ embed.q.T.to(torch.float32)) * embed.scale[:, 0]
+    return a @ embed.T.to(cdt).to(torch.float32)
+
+
+def _use_flash(x) -> bool:
+    """True for the flash kernel: ``KST_LOCAL_ATTN`` = flash | dense, or
+    auto (the default) = flash for a CUDA tensor, dense for a CPU one."""
+    mode = os.environ.get("KST_LOCAL_ATTN", "auto")
+    if mode not in ("auto", "flash", "dense"):
+        raise ValueError(f"KST_LOCAL_ATTN={mode!r}; expected auto|flash|dense")
+    if mode == "auto":
+        return x.device.type == "cuda"
+    return mode == "flash"
+
+
+class TransformerLM(nn.Module):
+    """Pre-LN decoder-only LM; logits tied to the token embedding."""
+
+    def __init__(
+        self,
+        embed,
+        pos_embed,
+        blocks: Sequence[LMBlock],
+        *,
+        num_heads: int = 8,
+        seq_mode: str = "local",
+        remat: bool = False,
+        compute_dtype: str = "float32",
+        moe_layers: tuple = (),
+        pos_encoding: str = "learned",
+        num_kv_heads: int = 0,
+        int8_kernel: str = "mm",
+    ):
+        super().__init__()
+        if any(m is not None for m in moe_layers):
+            raise NotImplementedError(
+                "mixture-of-experts layers come with the MoE slice (ops/moe.py)"
+            )
+        if remat:
+            raise NotImplementedError("rematerialization comes with the training slice")
+        if compute_dtype not in _DTYPES:
+            raise ValueError(f"compute_dtype={compute_dtype!r}; expected float32|bfloat16")
+        self.embed = _leaf(embed)
+        self.pos_embed = _leaf(pos_embed)
+        self.blocks = nn.ModuleList(blocks)
+        self.num_heads = num_heads
+        self.seq_mode = seq_mode
+        self.remat = remat
+        self.compute_dtype = compute_dtype
+        self.moe_layers = ()
+        self.pos_encoding = pos_encoding
+        self.num_kv_heads = num_kv_heads
+        self.int8_kernel = int8_kernel
+
+    def replace(self, **changes) -> "TransformerLM":
+        """A model sharing this one's tensors, with ``changes`` applied
+        (the counterpart of ``dataclasses.replace``)."""
+        kw = dict(
+            embed=self.embed, pos_embed=self.pos_embed, blocks=list(self.blocks),
+            num_heads=self.num_heads, seq_mode=self.seq_mode, remat=self.remat,
+            compute_dtype=self.compute_dtype, moe_layers=self.moe_layers,
+            pos_encoding=self.pos_encoding, num_kv_heads=self.num_kv_heads,
+            int8_kernel=self.int8_kernel,
+        )
+        kw.update(changes)
+        embed, pos_embed, blocks = kw.pop("embed"), kw.pop("pos_embed"), kw.pop("blocks")
+        return TransformerLM(embed, pos_embed, blocks, **kw)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    @property
+    def cdt(self) -> torch.dtype:
+        return _DTYPES[self.compute_dtype]
+
+    @property
+    def kv_heads(self) -> int:
+        return self.num_kv_heads or self.num_heads
+
+    def _qkv_heads(self, x, blk: LMBlock, positions=None):
+        """(q with H heads, k/v with KV heads, rope applied). ``positions``
+        defaults to 0..S-1; decode passes its token's global position."""
+        mm_fn = model_mm(self)
+        q = _split_heads(x, blk.wq, self.num_heads, mm_fn)
+        k = _split_heads(x, blk.wk, self.kv_heads, mm_fn)
+        v = _split_heads(x, blk.wv, self.kv_heads, mm_fn)
+        if self.pos_encoding == "rope":
+            if positions is None:
+                positions = torch.arange(x.shape[1], device=x.device)
+            q = _rope(q, positions)
+            k = _rope(k, positions)
+        return q, k, v
+
+    def _attention(self, x, blk: LMBlock, return_kv: bool = False):
+        n, s, d = x.shape
+        h = self.num_heads
+        if self.seq_mode != "local":
+            raise NotImplementedError(
+                f"seq_mode={self.seq_mode!r}: ring and Ulysses attention come "
+                f"with the multi-device slice (ROADMAP A8)"
+            )
+        q, k, v = self._qkv_heads(x, blk)
+        kv_raw = (k, v)  # pre-broadcast: what the decode cache stores
+        if self.kv_heads != h:
+            g = h // self.kv_heads
+            k = k.repeat_interleave(g, dim=1)
+            v = v.repeat_interleave(g, dim=1)
+        if _use_flash(x):
+            out = flash_attention_trainable(
+                q.contiguous(), k.contiguous(), v.contiguous(), True
+            )
+        else:
+            out = dense_attention(q, k, v, causal=True)
+        proj = model_mm(self)(
+            out.transpose(1, 2).reshape(n, s, d).to(x.dtype), blk.wo, x.dtype
+        )
+        if return_kv:
+            return proj, kv_raw
+        return proj
+
+    def forward(self, tokens):
+        """(B, S) int tokens → (B, S, V) float32 logits."""
+        return self.forward_with_aux(tokens)[0]
+
+    def backbone(self, tokens):
+        """(final hidden states (B, S, d) before the logits, aux loss)."""
+        cdt = self.cdt
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        x = _embed(self, tokens, cdt)
+        mm_fn = model_mm(self)
+        for blk in self.blocks:
+            x, _ = _block_apply(
+                x, blk, cdt, lambda y, b: (self._attention(y, b), None), mm_fn=mm_fn
+            )
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def forward_with_aux(self, tokens):
+        """(logits (B, S, V) f32, aux loss — 0 without experts)."""
+        x, aux = self.backbone(tokens)
+        return _tied_logits(x, self.embed, self.cdt), aux
+
+    @staticmethod
+    def create(
+        vocab: int = 256,
+        max_seq: int = 512,
+        dim: int = 256,
+        depth: int = 4,
+        num_heads: int = 8,
+        ff_mult: int = 4,
+        seq_mode: str = "local",
+        compute_dtype: str = "float32",
+        moe_every: int = 0,
+        pos_encoding: str = "learned",
+        num_kv_heads: int = 0,
+        device=None,
+        generator: torch.Generator | None = None,
+    ) -> "TransformerLM":
+        """A model with random weights drawn on ``device`` (the card unless
+        the caller asks for the CPU) from ``generator`` (seed 0 when None).
+        The weights follow the JAX package's recipe, not its bits."""
+        if moe_every:
+            raise NotImplementedError("moe_every: MoE layers come with the MoE slice")
+        if pos_encoding not in ("learned", "rope"):
+            raise ValueError(f"pos_encoding={pos_encoding!r}; expected learned|rope")
+        if pos_encoding == "rope" and (dim // num_heads) % 2:
+            raise ValueError(
+                f"rope needs an even head dim; got dim/num_heads = "
+                f"{dim}/{num_heads} = {dim // num_heads}"
+            )
+        kvh = num_kv_heads or num_heads
+        if kvh <= 0 or num_heads % kvh:
+            raise ValueError(
+                f"num_heads={num_heads} not divisible by num_kv_heads={kvh}"
+            )
+        num_kv_heads = 0 if kvh == num_heads else kvh
+        kv_dim = kvh * (dim // num_heads)
+        dev = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+
+        def normal(shape, std):
+            return torch.randn(shape, generator=generator, device=dev) * std
+
+        embed = normal((vocab, dim), 0.02)
+        pos_embed = (
+            torch.zeros((0, dim), device=dev)
+            if pos_encoding == "rope"
+            else normal((max_seq, dim), 0.02)
+        )
+        blocks = [
+            LMBlock(
+                wq=normal((dim, dim), dim**-0.5),
+                wk=normal((dim, kv_dim), dim**-0.5),
+                wv=normal((dim, kv_dim), dim**-0.5),
+                wo=normal((dim, dim), dim**-0.5),
+                w1=normal((dim, ff_mult * dim), dim**-0.5),
+                w2=normal((ff_mult * dim, dim), (ff_mult * dim) ** -0.5),
+            )
+            for _ in range(depth)
+        ]
+        return TransformerLM(
+            embed, pos_embed, blocks, num_heads=num_heads, seq_mode=seq_mode,
+            compute_dtype=compute_dtype, pos_encoding=pos_encoding,
+            num_kv_heads=num_kv_heads,
+        )
+
+    def leaves(self) -> list:
+        out = [self.embed, self.pos_embed]
+        for blk in self.blocks:
+            out.extend(blk.leaves())
+        return out
+
+    def num_params(self) -> int:
+        """Number of stored values, a QTensor's codes and scales both
+        counted (as the JAX package counts its leaves)."""
+        total = 0
+        for leaf in self.leaves():
+            if isinstance(leaf, QTensor):
+                total += leaf.q.numel() + leaf.scale.numel()
+            else:
+                total += leaf.numel()
+        return total
+
+
+def has_quantized_leaves(model) -> bool:
+    """True if any leaf is an int8 :class:`QTensor` (a serving model)."""
+    return any(isinstance(leaf, QTensor) for leaf in model.leaves())

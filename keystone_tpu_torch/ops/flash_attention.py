@@ -1,0 +1,187 @@
+"""Fused flash-attention forward — port of
+``keystone_tpu/ops/flash_attention.py``.
+
+:func:`flash_attention` is kernel K2's wrapper (``csrc/flash_attention.cu``):
+q (B, H, S_q, D) against k, v (B, H, S_k, D), the online softmax in f32,
+causal masking begin-aligned at ``q_offset``/``k_offset``, masked scores at
+−1e30 with their p set to 0 (a fully masked row outputs 0), and optionally
+the row logsumexp. A CUDA tensor launches the kernel (or raises); a CPU
+tensor takes :func:`flash_attention_plain`, a blockwise online softmax with
+the kernel's rounding points.
+
+:func:`flash_attention_trainable` carries the forward only: its backward
+comes with the training slice. ``flash_attention_step`` (the per-hop update
+of ring attention) comes with the multi-device slice.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from keystone_tpu_torch.core.kernels import Kernel, check_launch, launch_on
+
+FLASH_ATTENTION = Kernel("flash_attention", "flash_attention.cu")
+
+_NEG = -1e30  # masked-score value: exp(_NEG - m) underflows to exactly 0
+_BLOCK_K = 64  # keys per tile, the kernel's
+_MAX_D = 128
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _scale(d: int, dtype: torch.dtype) -> float:
+    """1/√D rounded to ``dtype``, as the TPU kernel casts it."""
+    return float(torch.tensor(1.0 / math.sqrt(d), dtype=dtype))
+
+
+def flash_attention_plain(
+    q, k, v, *, causal: bool = False, q_offset: int = 0, k_offset: int = 0,
+    return_lse: bool = False, out_dtype: torch.dtype | None = None,
+):
+    """K2's plain version, on inputs already in the kernel's dtype: q·scale
+    rounded to q's dtype, f32 scores, a 64-key online softmax whose p is
+    rounded to v's dtype before the PV product, ``acc / max(l, 1e-30)``
+    rounded once to ``out_dtype`` (default q's dtype), lse = ``m +
+    log(max(l, 1e-30))``."""
+    b, h, s_q, d = q.shape
+    s_k = k.shape[2]
+    # a Python scalar holding the rounded scale: q's dtype times it rounds
+    # once, as the kernel does
+    qs = (q * _scale(d, q.dtype)).to(torch.float32)
+    q_pos = q_offset + torch.arange(s_q, device=q.device)[:, None]
+    m = torch.full((b, h, s_q, 1), _NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, s_q, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, s_q, d), dtype=torch.float32, device=q.device)
+    for start in range(0, s_k, _BLOCK_K):
+        k_blk = k[:, :, start : start + _BLOCK_K]
+        v_blk = v[:, :, start : start + _BLOCK_K]
+        s = qs @ k_blk.to(torch.float32).transpose(-1, -2)
+        k_pos = k_offset + start + torch.arange(k_blk.shape[2], device=q.device)
+        # the blocks end at S_k, so only causality masks a key here
+        valid = q_pos >= k_pos[None, :] if causal else torch.ones_like(k_pos, dtype=torch.bool)
+        s = torch.where(valid, s, _NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where(valid, torch.exp(s - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        pv = p.to(v.dtype).to(torch.float32) @ v_blk.to(torch.float32)
+        acc = acc * alpha + pv
+        m = m_new
+    den = torch.clamp_min(l, 1e-30)
+    out = (acc / den).to(out_dtype or q.dtype)
+    if return_lse:
+        return out, (m + torch.log(den))[..., 0]
+    return out
+
+
+def _launch(q, k, v, *, causal, q_offset, k_offset, out_dtype, return_lse):
+    b, h, s_q, d = q.shape
+    s_k = k.shape[2]
+    if k.shape != (b, h, s_k, d) or v.shape != k.shape:
+        raise ValueError(
+            f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)} do not match"
+        )
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"flash_attention takes float32 or bfloat16 q, k, v of one dtype; "
+            f"got {q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    if not (q.device == k.device == v.device):
+        raise ValueError("flash_attention: q, k and v must be on one device")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention takes contiguous tensors")
+    if not 0 < d <= _MAX_D:
+        raise ValueError(f"flash_attention: head dim {d} outside 1..{_MAX_D}")
+    # the f32 kernel writes f32; an f32 result cast once to bf16 is the
+    # same single rounding the kernel would do
+    kernel_out = torch.float32 if q.dtype == torch.float32 else out_dtype
+    out = torch.empty((b, h, s_q, d), dtype=kernel_out, device=q.device)
+    lse = (
+        torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
+        if return_lse
+        else None
+    )
+    if b * h and s_q:
+        fn = FLASH_ATTENTION.function(
+            "keystone_flash_attention",
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+        )
+        code = launch_on(q.device, lambda s: fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            b * h, s_q, s_k, d, int(q_offset), int(k_offset), int(causal),
+            _scale(d, q.dtype), _DTYPES[q.dtype], _DTYPES[kernel_out], s,
+        ))
+        check_launch(FLASH_ATTENTION, code)
+        FLASH_ATTENTION.launches += 1
+    out = out.to(out_dtype)
+    return (out, lse) if return_lse else out
+
+
+def flash_attention(
+    q,
+    k,
+    v,
+    *,
+    causal: bool = False,
+    block_q: int | None = None,
+    block_k: int | None = None,
+    q_offset: int = 0,
+    k_offset: int = 0,
+    mxu_dtype=None,
+    kv_resident: bool | None = None,
+    return_lse: bool = False,
+):
+    """Fused attention. q: (B, H, S_q, D); k, v: (B, H, S_k, D), f32 or
+    bf16, D ≤ 128. Returns q's dtype, and with ``return_lse`` also the row
+    logsumexp (B, H, S_q) f32.
+
+    ``mxu_dtype`` casts q, k, v before the products (the output keeps q's
+    dtype). ``block_q``, ``block_k`` and ``kv_resident`` sized the TPU
+    kernel's VMEM blocks; the Hopper kernel picks its own tiles, so they
+    are accepted and ignored."""
+    del block_q, block_k, kv_resident
+    out_dtype = q.dtype
+    if mxu_dtype is not None:
+        q, k, v = (x.to(mxu_dtype) for x in (q, k, v))
+    if q.device.type == "cpu":
+        return flash_attention_plain(
+            q, k, v, causal=causal, q_offset=q_offset, k_offset=k_offset,
+            return_lse=return_lse, out_dtype=out_dtype,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return _launch(
+        q, k, v, causal=causal, q_offset=q_offset, k_offset=k_offset,
+        out_dtype=out_dtype, return_lse=return_lse,
+    )
+
+
+class _FlashTrainable(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        return flash_attention(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(
+            "flash_attention_trainable's backward comes with the training "
+            "slice (ROADMAP: the LM training slice)"
+        )
+
+
+def flash_attention_trainable(q, k, v, causal: bool = False):
+    """Fused attention with the forward of the JAX package's trainable
+    wrapper. Causal cross-attention (S_q ≠ S_k) is rejected: the flash
+    forward masks begin-aligned, dense attention end-aligned, and the two
+    agree only at S_q = S_k."""
+    if causal and q.shape[2] != k.shape[2]:
+        raise ValueError(
+            f"flash_attention_trainable: causal cross-attention with "
+            f"s_q={q.shape[2]} != s_k={k.shape[2]} is ambiguous"
+        )
+    return _FlashTrainable.apply(q, k, v, causal)

@@ -22,7 +22,7 @@ import os
 import numpy as np
 import torch
 
-from keystone_tpu_torch.core.kernels import Kernel, check_launch
+from keystone_tpu_torch.core.kernels import Kernel, check_launch, launch_on
 from keystone_tpu_torch.ops.quantization import symmetric_int8
 
 ENV_GRAM_OP = "KEYSTONE_GRAM_OP"
@@ -97,19 +97,12 @@ def int8_gram(q: torch.Tensor) -> torch.Tensor:
     out = torch.empty((d, d), dtype=torch.float32, device=q.device)
     if d == 0:
         return out
-    lib = INT8_GRAM.lib()
-    fn = lib.keystone_int8_gram
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
-        ctypes.c_void_p,
-        ctypes.c_void_p,
-        ctypes.c_longlong,
-        ctypes.c_longlong,
-        ctypes.c_void_p,
-    ]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = fn(q.data_ptr(), out.data_ptr(), n, d, stream)
+    fn = INT8_GRAM.function(
+        "keystone_int8_gram",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+         ctypes.c_void_p],
+    )
+    code = launch_on(q.device, lambda s: fn(q.data_ptr(), out.data_ptr(), n, d, s))
     check_launch(INT8_GRAM, code)
     INT8_GRAM.launches += 1
     return out

@@ -89,3 +89,177 @@ def test_apply_in_chunks_on_card_matches_cpu(card):
     got = apply_in_chunks(lambda b: b @ w.to(card), x, 128, card)
     assert got.shape == (1000, 3) and got.is_cuda
     torch.testing.assert_close(got.cpu(), x @ w, rtol=1e-5, atol=1e-5)
+
+
+# --- K2, flash attention ----------------------------------------------------
+
+K2_BF16_TOL = 8e-3  # of max|plain|: one bf16 step after an f32 sum in another order
+K2_F32_TOL = 1e-5
+K4_BF16_TOL = 8e-3
+K4_F32_TOL = 1e-5
+
+
+def _rel(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _qkv(card, seed, b, h, s_q, s_k, d, dtype):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    return tuple(
+        torch.randn((b, h, s, d), generator=gen, device=card).to(dtype) for s in (s_q, s_k, s_k)
+    )
+
+
+@pytest.mark.parametrize(
+    "shape,dtype,causal,offsets",
+    [
+        ((8, 16, 128, 128, 64), torch.bfloat16, True, (0, 0)),  # LM prefill
+        ((8, 16, 2048, 2048, 64), torch.bfloat16, True, (0, 0)),  # max_seq
+        ((2, 3, 77, 50, 40), torch.float32, False, (5, 3)),  # ragged, offsets
+        ((2, 3, 77, 50, 40), torch.float32, True, (3, 40)),  # fully masked rows
+        ((1, 4, 300, 200, 128), torch.bfloat16, False, (0, 0)),  # D = 128
+        ((2, 2, 100, 130, 36), torch.bfloat16, True, (0, 30)),  # D not a multiple of 8
+        ((1, 2, 65, 65, 100), torch.float32, True, (0, 0)),
+    ],
+)
+def test_k2_matches_plain(card, shape, dtype, causal, offsets):
+    from keystone_tpu_torch.ops import flash_attention as fa
+
+    b, h, s_q, s_k, d = shape
+    q, k, v = _qkv(card, sum(shape), b, h, s_q, s_k, d, dtype)
+    kw = dict(causal=causal, q_offset=offsets[0], k_offset=offsets[1], return_lse=True)
+    before = fa.FLASH_ATTENTION.launches
+    out, lse = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.FLASH_ATTENTION.launches == before + 1
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, **kw)
+    assert out.dtype == dtype and out.shape == (b, h, s_q, d)
+    tol = K2_F32_TOL if dtype == torch.float32 else K2_BF16_TOL
+    assert _rel(out, ref) <= tol
+    # the lse is f32 in both dtypes, from scores of the same rounded q, k
+    assert float((lse - ref_lse).abs().max()) <= 1e-5 * max(1.0, float(ref_lse[ref_lse > -1e29].abs().max()))
+
+
+def test_k2_bf16_in_f32_out(card):
+    from keystone_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = _qkv(card, 3, 2, 2, 96, 96, 64, torch.float32)
+    out = fa.flash_attention(q, k, v, causal=True, mxu_dtype=torch.bfloat16)
+    ref = fa.flash_attention_plain(
+        *(x.to(torch.bfloat16) for x in (q, k, v)), causal=True, out_dtype=torch.float32
+    )
+    assert out.dtype == torch.float32
+    assert _rel(out, ref) <= 1e-5
+
+
+def test_k2_wrapper_rejects_bad_inputs(card):
+    from keystone_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = _qkv(card, 4, 1, 2, 16, 16, 32, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(*_qkv(card, 5, 1, 1, 8, 8, 160, torch.float32))
+
+
+# --- K4, int8-dequant matmul ------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "m,k,n",
+    [(8, 1024, 1024), (8, 1024, 4096), (8, 4096, 1024), (64, 1024, 4096), (3, 1000, 300),
+     (256, 96, 40), (1, 7, 5)],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_matches_plain(card, m, k, n, dtype):
+    from keystone_tpu_torch.ops import int8_matmul as im
+    from keystone_tpu_torch.ops.quantization import quantize_int8
+
+    gen = torch.Generator(device=card).manual_seed(m + k + n)
+    w = quantize_int8(torch.randn((k, n), generator=gen, device=card))
+    y = torch.randn((m, k), generator=gen, device=card).to(dtype)
+    before = im.INT8_MATMUL.launches
+    got = im.mm_fused(y, w)
+    torch.cuda.synchronize()
+    assert im.INT8_MATMUL.launches == before + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    tol = K4_F32_TOL if dtype == torch.float32 else K4_BF16_TOL
+    assert _rel(got, im.mm_fused_plain(y, w)) <= tol
+    # the same inputs give the same bits: the split sums run in a fixed order
+    assert torch.equal(got, im.mm_fused(y, w))
+
+
+def test_k4_route_above_256_rows_is_no_launch(card):
+    from keystone_tpu_torch.ops import int8_matmul as im
+    from keystone_tpu_torch.ops.quantization import mm, quantize_int8
+
+    w = quantize_int8(torch.randn((64, 32), device=card))
+    y = torch.randn((300, 64), device=card)
+    before = im.INT8_MATMUL.launches
+    assert torch.equal(im.mm_fused(y, w), mm(y, w, torch.float32))
+    assert im.INT8_MATMUL.launches == before
+
+
+def test_k4_wrapper_rejects_bad_inputs(card):
+    from keystone_tpu_torch.ops import int8_matmul as im
+    from keystone_tpu_torch.ops.quantization import quantize_int8
+
+    w = quantize_int8(torch.randn((64, 32), device=card))
+    y = torch.randn((64, 4), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        im.mm_fused(y.t(), w)
+    with pytest.raises(TypeError):
+        im.mm_fused(y.t().contiguous().half(), w)
+
+
+# --- the LM serving path ----------------------------------------------------
+
+
+def _tiny_lm_pair(card):
+    from keystone_tpu_torch import convert
+    from keystone_tpu_torch.models.lm import TransformerLM, quantize_for_decode
+
+    cpu = quantize_for_decode(
+        TransformerLM.create(vocab=97, max_seq=64, dim=64, depth=2, num_heads=4, device="cpu")
+    )
+
+    def leaf(x):
+        return x if hasattr(x, "q") else x.detach().numpy()
+
+    leaves = {
+        "embed": leaf(cpu.embed),
+        "pos_embed": leaf(cpu.pos_embed),
+        "blocks": [dict(zip(("wq", "wk", "wv", "wo", "w1", "w2"), map(leaf, b.leaves())))
+                   for b in cpu.blocks],
+    }
+    dev = convert.transformer_lm(leaves, num_heads=4, int8_kernel="pallas", device=card)
+    return cpu, dev
+
+
+def test_tiny_lm_on_card_matches_cpu(card):
+    """f32: flash (K2) and K4 on the card against dense attention and the
+    plain int8 matmul on the CPU."""
+    from keystone_tpu_torch.models.lm import decode, generate
+    from keystone_tpu_torch.ops import flash_attention, int8_matmul
+
+    cpu, dev = _tiny_lm_pair(card)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 97, size=(3, 24)))
+    k2, k4 = flash_attention.FLASH_ATTENTION.launches, int8_matmul.INT8_MATMUL.launches
+    lc, cc = decode.prefill(cpu, toks[:, :12], 24)
+    ld, cd = decode.prefill(dev, toks[:, :12].to(card), 24)
+    torch.testing.assert_close(ld.cpu(), lc, rtol=0, atol=1e-4)
+    for j in range(11):
+        lc, cc = decode.decode_step(cpu, toks[:, 12 + j], cc)
+        ld, cd = decode.decode_step(dev, toks[:, 12 + j].to(card), cd)
+        torch.testing.assert_close(ld.cpu(), lc, rtol=0, atol=1e-4)
+    assert flash_attention.FLASH_ATTENTION.launches == k2 + 2  # one per layer
+    # 36 prefill rows and every decode step are at most 64 rows: K4 throughout
+    assert int8_matmul.INT8_MATMUL.launches == k4 + 6 * 2 * 12
+    got = generate(dev, toks[:, :8].to(card), max_new=8)
+    want = generate(cpu, toks[:, :8], max_new=8)
+    assert got.is_cuda and (got.cpu() == want).float().mean() >= 0.9

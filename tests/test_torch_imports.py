@@ -22,6 +22,13 @@ from keystone_tpu_torch import convert
 from keystone_tpu_torch.models import mnist_random_fft as m
 res = m.main(["--synthetic", "600", "--num-ffts", "1", "--block-size", "512"], device="cpu")
 assert res["device"] == "cpu"
+from keystone_tpu_torch.models.lm import TransformerLM, generate, quantize_for_decode
+from keystone_tpu_torch.ops import flash_attention
+from keystone_tpu_torch.serve.decode_loop import DecodeLoop
+lm = TransformerLM.create(vocab=32, max_seq=24, dim=16, depth=1, num_heads=2, device="cpu")
+toks = generate(quantize_for_decode(lm).replace(int8_kernel="kernel"), [[1, 2, 3]], max_new=4)
+assert toks.shape == (1, 4) and toks.device.type == "cpu"
+assert len(DecodeLoop(lm, slots=1, s_max=16).run([[4, 5]], max_new=3)[0]) == 3
 bad = sorted(
     k for k in sys.modules
     if k.split(".")[0] == "jax" or k.startswith("jaxlib")
@@ -92,3 +99,12 @@ def test_entry_point_without_device_raises_without_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         m.main(["--synthetic", "60", "--num-ffts", "1", "--block-size", "512"])
+
+
+def test_lm_create_without_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the model would be made on it")
+    from keystone_tpu_torch.models.lm import TransformerLM
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TransformerLM.create(vocab=16, max_seq=8, dim=8, depth=1, num_heads=2)
