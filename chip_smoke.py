@@ -34,7 +34,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    attention, ``quantization.mm``) give logits within 1e-4 of max|logit|
    and the same argmax on ≥ 99 % of positions;
 10. serving: a ``DecodeLoop`` of 8 slots (s_max 512, int8 weights through
-   K4, bf16) answers 16 requests of seeded prompt lengths and lengths.
+   K4, bf16) answers 16 requests of seeded prompt lengths and lengths;
+11. K3 (the ring hop) against its plain version at the ring's hop shape
+   (2, 16, 2,048, 64), bf16 in and f32 state — a diagonal, a past and a
+   future hop, the future one bit for bit — and at a ragged f32 shape;
+   timed beside its plain version and its bound;
+12. ring and Ulysses attention on ``create_mesh(data=4, devices=[card] *
+   4)`` at (2, 16, 8,192, 64), causal: the ring (K3, 16 launches) against
+   full-sequence K2 in f32 and against the plain ring, Ulysses (K2, 4
+   launches) against full-sequence K2 in bf16; and in bf16, K2 against its
+   plain version at the scoring path's own shapes — the local call (2, 16,
+   8,192, 64), one Ulysses position's call (2, 4, 8,192, 64) and the
+   Ulysses output;
+13. LM scoring: ``evaluate_perplexity`` at the bench's LM width with rope
+   (bf16) over 4 windows of 8,193 tokens from ``synthetic_corpus``, batch
+   2, ``logit_chunk`` 2,048, in ``seq_mode`` ring, Ulysses and local on
+   the same weights: loss, tokens/s, ms per forward, launches (K3 256 in
+   the ring run and never in the others, K2 64 in the Ulysses run), and a
+   profile of one forward of each; ring and Ulysses losses within 1e-4
+   relative of local, and one window's bf16 logits within 5e-2 (ring) and
+   8e-3 (Ulysses) of max|logit| of local;
+14. the same weights in f32, one window: ring (K3) and local (K2) logits
+   within 1e-4 of max|logit|, argmax agreement ≥ 99 %.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits non-zero
@@ -80,6 +101,17 @@ EQUIV_TOL = 1e-4  # of max|logit|, f32 kernel path vs plain path
 EQUIV_ARGMAX = 0.99
 EQUIV_STEPS = 32
 SERVE_SLOTS, SERVE_S_MAX, SERVE_REQUESTS = 8, 512, 16
+
+# --- scoring path: the same width with rope, 8,192 tokens over a 4-position
+# ring on one card; each position holds a 2,048-token shard
+SCORE_CONF = dict(LM_CONF, pos_encoding="rope")
+SCORE_SEQ, SCORE_RING, SCORE_BATCH, SCORE_WINDOWS, SCORE_CHUNK = 8192, 4, 2, 4, 2048
+HOP = (2, 16, SCORE_SEQ // SCORE_RING, 64)  # (B, H, S_local, D) of one ring hop
+K3_TOL = 1e-5  # of max|plain|: f32 arithmetic summed in another order
+RING_TOL = 1e-5  # of max|out|, f32 ring against full-sequence K2
+SCORE_MODE_TOL = 1e-4  # relative, bf16 losses of ring and Ulysses against local
+SCORE_LOGIT_TOL = 5e-2  # of max|logit|, bf16 ring (K3, f32 sums) against local (K2)
+F32_PEAK_OPS = 6.7e13  # H100 SXM datasheet, f32 on CUDA cores
 
 
 def check(cond: bool, msg: str) -> None:
@@ -408,17 +440,19 @@ def phase_k4(device) -> dict:
     }
 
 
-def _counts() -> dict:
+def _kernels() -> list:
     from keystone_tpu_torch.ops import flash_attention, gram, int8_matmul
 
-    return {k.name: k.launches for k in
-            (gram.INT8_GRAM, flash_attention.FLASH_ATTENTION, int8_matmul.INT8_MATMUL)}
+    return [gram.INT8_GRAM, flash_attention.FLASH_ATTENTION,
+            flash_attention.FLASH_ATTENTION_STEP, int8_matmul.INT8_MATMUL]
+
+
+def _counts() -> dict:
+    return {k.name: k.launches for k in _kernels()}
 
 
 def _zero_counts() -> None:
-    from keystone_tpu_torch.ops import flash_attention, gram, int8_matmul
-
-    for k in (gram.INT8_GRAM, flash_attention.FLASH_ATTENTION, int8_matmul.INT8_MATMUL):
+    for k in _kernels():
         k.launches = 0
 
 
@@ -433,25 +467,19 @@ def _wall(fn, iters: int) -> float:
     return (time.perf_counter() - t0) / iters
 
 
-def decode_profile(model, prompt, steps: int = 8) -> dict | None:
-    """``steps`` decode steps under torch.profiler: the device's busy share
-    of the wall time, kernels launched per step, and the kernels that take
-    the most device time. None, with the reason printed, when the profiler
-    shows no device time on this machine."""
+def device_profile(step, steps: int) -> dict | None:
+    """``steps`` calls of an already warm ``step`` under torch.profiler:
+    the device's busy share of the wall time, kernels launched per call,
+    and the kernels that take the most device time. None, with the reason
+    printed, when the profiler shows no device time on this machine."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from keystone_tpu_torch.models.lm import decode
-
-    logits, cache = decode.prefill(model, prompt, LM_PROMPT + steps + 2)
-    tok = logits.argmax(-1)
-    for _ in range(2):
-        logits, cache = decode.decode_step(model, tok, cache)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            logits, cache = decode.decode_step(model, tok, cache)
+            step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side rows only (kernels, copies, memsets): an operator's row
@@ -464,7 +492,7 @@ def decode_profile(model, prompt, steps: int = 8) -> dict | None:
         if us > 0 and (on_device or e.self_cpu_time_total == 0):
             rows.append((us, e.count, e.key))
     if not rows:
-        print("decode profile: the profiler shows no device time here")
+        print("profile: the profiler shows no device time here")
         return None
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
@@ -478,6 +506,22 @@ def decode_profile(model, prompt, steps: int = 8) -> dict | None:
         "top": [{"name": k[:80], "calls_per_step": c / steps, "ms_per_step": us / 1e3 / steps}
                 for us, c, k in rows[:8]],
     }
+
+
+def decode_profile(model, prompt, steps: int = 8) -> dict | None:
+    """:func:`device_profile` of ``steps`` decode steps after a prefill."""
+    from keystone_tpu_torch.models.lm import decode
+
+    logits, cache = decode.prefill(model, prompt, LM_PROMPT + steps + 2)
+    tok = logits.argmax(-1)
+    state = {"cache": cache}
+    for _ in range(2):
+        _, state["cache"] = decode.decode_step(model, tok, state["cache"])
+
+    def step():
+        _, state["cache"] = decode.decode_step(model, tok, state["cache"])
+
+    return device_profile(step, steps)
 
 
 def phase_lm(device) -> dict:
@@ -640,6 +684,312 @@ def phase_serving(device, qmodel) -> dict:
             "warm_s": warm_s}
 
 
+def _state_rel(got, want) -> dict:
+    """K3's error against its plain version: m on the rows some key
+    reached (the others must keep their m bit for bit), l and acc
+    everywhere, each relative to max|plain|."""
+    m, l, acc = got
+    m_ref, l_ref, acc_ref = want
+    live = m_ref > -1e29
+    check(torch.equal(m[~live], m_ref[~live]), "K3 changed m on a row no key reached")
+    return {
+        "m": _rel(m[live], m_ref[live]) if bool(live.any()) else 0.0,
+        "l": _rel(l, l_ref),
+        "acc": _rel(acc, acc_ref),
+        "max_abs_err": max(float((g - w).abs().max()) if g.numel() else 0.0
+                           for g, w in ((m[live], m_ref[live]), (l, l_ref), (acc, acc_ref))),
+        "rows_no_key": int((~live).sum()),
+    }
+
+
+def phase_k3(device) -> dict:
+    """K3 against its plain version at the ring's hop shape (bf16 in, f32
+    state): a diagonal hop, a past hop, a future hop (bit for bit), and a
+    ragged f32 shape causal and not, with rows no key reaches. Timed at
+    the diagonal and past hops."""
+    import torch.nn.functional as F
+
+    from keystone_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(8)
+    b, h, s, d = HOP
+
+    def inputs(s_q, s_k, dd, dtype, fresh):
+        q, k, v = (torch.randn((b, h, n, dd), generator=gen, device=device).to(dtype)
+                   for n in (s_q, s_k, s_k))
+        if fresh:
+            st = (torch.full((b, h, s_q), -1e30, device=device),
+                  torch.zeros((b, h, s_q), device=device),
+                  torch.zeros((b, h, s_q, dd), device=device))
+        else:  # a state some earlier hop left
+            st = (torch.randn((b, h, s_q), generator=gen, device=device),
+                  torch.rand((b, h, s_q), generator=gen, device=device) + 0.5,
+                  torch.randn((b, h, s_q, dd), generator=gen, device=device))
+        return (q, k, v), st
+
+    hops = {}
+    for name, (q_off, k_off, fresh) in (("diagonal", (s, s, True)), ("past", (2 * s, 0, False)),
+                                        ("future", (0, s, False))):
+        qkv, st = inputs(s, s, d, torch.bfloat16, fresh)
+        kw = dict(q_offset=q_off, k_offset=k_off, causal=True)
+        got = fa.flash_attention_step(*qkv, *st, **kw)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_step_plain(*qkv, *st, **kw)
+        check(all(bool(torch.isfinite(x).all()) for x in got[1:]), f"K3 {name} hop not finite")
+        row = {"offsets": [q_off, k_off], **_state_rel(got, ref)}
+        if name == "future":
+            same = all(torch.equal(g, x) for g, x in zip(got, st))
+            check(same, "K3 future hop changed its state")
+            row["state_unchanged_bit_for_bit"] = same
+        else:
+            check(max(row["m"], row["l"], row["acc"]) <= K3_TOL,
+                  f"K3 {name} hop disagrees with its plain version {row}")
+        # the operations these inputs need: valid (q, k) pairs × 4·D
+        pairs = {"diagonal": s * (s + 1) / 2, "past": float(s) * s, "future": 0.0}[name]
+        ops = 4.0 * b * h * d * pairs
+        state_bytes = 2 * 4.0 * b * h * s * (d + 2)  # m, l, acc read and written
+        qkv_bytes = 2.0 * b * h * 3 * s * d if pairs else 0.0  # a masked hop needs none
+        ops_ms = 1e3 * ops / F32_PEAK_OPS
+        bytes_ms = 1e3 * (state_bytes + qkv_bytes) / HBM_BYTES_PER_S
+        row.update(bound_ms=max(ops_ms, bytes_ms),
+                   bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+        row["ms"] = device_ms(lambda: fa.flash_attention_step(*qkv, *st, **kw))
+        row["eager_call_ms"] = time_ms(lambda: fa.flash_attention_step(*qkv, *st, **kw), reps=20)
+        row["plain_ms"] = device_ms(lambda: fa.flash_attention_step_plain(*qkv, *st, **kw), reps=2)
+        if name == "past":
+            # a labelled yardstick, not the same function: SDPA over the
+            # same (q, k) rectangle, bf16, without the carried state
+            row["sdpa_rectangle_ms"] = device_ms(lambda: F.scaled_dot_product_attention(*qkv))
+        if row["ms"]:
+            row["needed_tflops"] = ops / row["ms"] / 1e9
+        print(f"K3 {name} hop {HOP} bf16 offsets ({q_off},{k_off}): relative m {row['m']:.3e} "
+              f"l {row['l']:.3e} acc {row['acc']:.3e}; device: kernel {row['ms']} ms, plain "
+              f"{row['plain_ms']} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+              f"eager kernel call {row['eager_call_ms']:.4f} ms"
+              + (f"; SDPA over the rectangle {row['sdpa_rectangle_ms']} ms" if name == "past" else ""))
+        hops[name] = row
+
+    ragged = {}
+    for causal, q_off, k_off in ((True, 100, 300), (False, 0, 300)):
+        qkv, st = inputs(777, 500, 40, torch.float32, causal)
+        kw = dict(q_offset=q_off, k_offset=k_off, causal=causal)
+        got = fa.flash_attention_step(*qkv, *st, **kw)
+        torch.cuda.synchronize()
+        row = _state_rel(got, fa.flash_attention_step_plain(*qkv, *st, **kw))
+        print(f"K3 (2,16,777,40) vs S_k 500 f32 causal={causal} offsets ({q_off},{k_off}): "
+              f"relative m {row['m']:.3e} l {row['l']:.3e} acc {row['acc']:.3e}, "
+              f"rows no key reached {row['rows_no_key']}")
+        check(max(row["m"], row["l"], row["acc"]) <= K3_TOL, f"K3 ragged disagrees {row}")
+        check(not causal or row["rows_no_key"] > 0, "K3 ragged causal case has no masked row")
+        ragged[f"causal={causal}"] = row
+    main = hops["past"]
+    return {
+        "name": "flash_attention_step",
+        "route": "cuda",
+        "source": "keystone_tpu_torch/csrc/flash_attention_step.cu",
+        "replaces": "keystone_tpu/ops/flash_attention.py:544",
+        "shape": list(HOP),
+        "launches": None,  # filled from the main path's run
+        "max_abs_err": main["max_abs_err"],
+        "max_rel_err": max(main["m"], main["l"], main["acc"]),
+        "ms": main["ms"],
+        "eager_call_ms": main["eager_call_ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": None,
+        "library": "none: no one PyTorch call updates a carried softmax state",
+        "timing": "device time, CUDA-graph replay, of the past (fully live) hop; "
+                  "eager_call_ms is a Python call",
+        "hops": hops,
+        "ragged_f32": ragged,
+    }
+
+
+def phase_ring(device) -> dict:
+    """Ring and Ulysses attention on one card named four times, at the
+    scoring path's attention shape."""
+    from keystone_tpu_torch.ops import attention
+    from keystone_tpu_torch.ops import flash_attention as fa
+    from keystone_tpu_torch.parallel import create_mesh
+
+    mesh = create_mesh(data=SCORE_RING, devices=[device] * SCORE_RING)
+    b, h, _, d = HOP
+    gen = torch.Generator(device=device).manual_seed(9)
+    q, k, v = (torch.randn((b, h, SCORE_SEQ, d), generator=gen, device=device) for _ in range(3))
+    _zero_counts()
+    ring = attention.ring_attention(q, k, v, mesh, causal=True)
+    torch.cuda.synchronize()
+    counts = _counts()
+    check(counts["flash_attention_step"] == SCORE_RING ** 2 and counts["flash_attention"] == 0,
+          f"ring launches {counts}")
+    full = fa.flash_attention(q, k, v, causal=True)
+    plain = attention.ring_attention(q, k, v, mesh, causal=True, use_flash=False)
+    torch.cuda.synchronize()
+    err_k2, err_plain = _rel(ring, full), _rel(ring, plain)
+    print(f"ring {tuple(q.shape)} f32 causal over {SCORE_RING} positions: K3 launches "
+          f"{counts['flash_attention_step']}; relative to full K2 {err_k2:.3e}, "
+          f"to the plain ring {err_plain:.3e}")
+    check(bool(torch.isfinite(ring).all()), "ring output not finite")
+    check(err_k2 <= RING_TOL and err_plain <= RING_TOL, "ring disagrees")
+    del plain
+
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    _zero_counts()
+    uly = attention.ulysses_attention(qb, kb, vb, mesh, causal=True)
+    torch.cuda.synchronize()
+    u_counts = _counts()
+    full_b = fa.flash_attention(qb, kb, vb, causal=True)
+    err_uly = _rel(uly, full_b)
+    print(f"Ulysses bf16: K2 launches {u_counts['flash_attention']}, relative to full K2 "
+          f"{err_uly:.3e}")
+    check(u_counts["flash_attention"] == SCORE_RING and u_counts["flash_attention_step"] == 0,
+          f"Ulysses launches {u_counts}")
+    check(err_uly <= K2_BF16_TOL, f"Ulysses disagrees ({err_uly:.3e})")
+
+    # K2 against its plain version at the scoring path's own shapes: the
+    # local mode's call over all heads, and one Ulysses position's call over
+    # its H/n heads of the full sequence (position 1's, as seq_to_heads
+    # gathers them); the Ulysses result against the plain version too
+    plain_b = fa.flash_attention_plain(qb, kb, vb, causal=True)
+    hs = slice(h // SCORE_RING, 2 * h // SCORE_RING)
+    qp, kp, vp = (x[:, hs].contiguous() for x in (qb, kb, vb))
+    pos_out = fa.flash_attention(qp, kp, vp, causal=True)
+    pos_plain = fa.flash_attention_plain(qp, kp, vp, causal=True)
+    torch.cuda.synchronize()
+    k2_plain = {
+        "local": {"shape": list(qb.shape), "max_rel_err": _rel(full_b, plain_b),
+                  "max_abs_err": float((full_b.float() - plain_b.float()).abs().max())},
+        "ulysses_position": {"shape": list(qp.shape), "max_rel_err": _rel(pos_out, pos_plain),
+                             "max_abs_err": float((pos_out.float() - pos_plain.float())
+                                                  .abs().max())},
+        "ulysses_output": {"shape": list(uly.shape), "max_rel_err": _rel(uly, plain_b)},
+    }
+    for name, r in k2_plain.items():
+        print(f"K2 bf16 causal at the scoring shape, {name} {tuple(r['shape'])}: "
+              f"max|kernel-plain| / max|plain| = {r['max_rel_err']:.3e}")
+        check(r["max_rel_err"] <= K2_BF16_TOL,
+              f"K2 {name} disagrees with its plain version ({r['max_rel_err']:.3e})")
+    del plain_b, pos_plain
+    times = {
+        "ring_bf16_ms": time_ms(lambda: attention.ring_attention(qb, kb, vb, mesh, causal=True),
+                                reps=2),
+        "ulysses_bf16_ms": time_ms(lambda: attention.ulysses_attention(qb, kb, vb, mesh,
+                                                                       causal=True), reps=2),
+        "k2_full_bf16_ms": time_ms(lambda: fa.flash_attention(qb, kb, vb, causal=True), reps=2),
+    }
+    print("attention at (2,16,8192,64) bf16 causal, eager: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    return {"shape": list(q.shape), "positions": SCORE_RING, "ring_launches": counts,
+            "ring_vs_k2_f32": err_k2, "ring_vs_plain_ring_f32": err_plain,
+            "ulysses_launches": u_counts, "ulysses_vs_k2_bf16": err_uly,
+            "k2_vs_plain_bf16": k2_plain, **times}
+
+
+def phase_scoring(device) -> dict:
+    """Held-out scoring at full width in the three attention modes, on
+    the same weights."""
+    import numpy as np
+
+    from keystone_tpu_torch.evaluation import evaluate_perplexity
+    from keystone_tpu_torch.models.lm import TransformerLM, synthetic_corpus
+    from keystone_tpu_torch.parallel import create_mesh
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = TransformerLM.create(**SCORE_CONF, compute_dtype="bfloat16", device=device,
+                                 generator=gen)
+    mesh = create_mesh(data=SCORE_RING, devices=[device] * SCORE_RING)
+    window = SCORE_SEQ + 1
+    held = synthetic_corpus(SCORE_WINDOWS * window, SCORE_CONF["vocab"], seed=7)
+    forwards = -(-SCORE_WINDOWS // SCORE_BATCH)
+    depth = SCORE_CONF["depth"]
+    want = {"ring": {"flash_attention_step": forwards * depth * SCORE_RING ** 2},
+            "ulysses": {"flash_attention": forwards * depth * SCORE_RING},
+            "local": {"flash_attention": forwards * depth}}
+    kw = dict(seq=SCORE_SEQ, batch=SCORE_BATCH, logit_chunk=SCORE_CHUNK)
+    batch0 = torch.from_numpy(held[: SCORE_BATCH * window].reshape(SCORE_BATCH, window)).to(device)
+    res = {}
+    for mode in ("ring", "ulysses", "local"):
+        m = model.replace(seq_mode=mode, mesh=None if mode == "local" else mesh)
+        evaluate_perplexity(m, held[: SCORE_BATCH * window], **kw)  # warm
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        ev = evaluate_perplexity(m, held, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        expect = {k: want[mode].get(k, 0) for k in counts}
+        check(counts == expect, f"scoring [{mode}]: launches {counts}, want {expect}")
+        check(math.isfinite(ev["loss"]), f"scoring [{mode}]: loss {ev['loss']}")
+        check(ev["tokens_scored"] == SCORE_WINDOWS * SCORE_SEQ, f"scoring [{mode}]: {ev}")
+
+        def forward(m=m):
+            with torch.inference_mode():
+                m.backbone(batch0[:, :-1])
+
+        prof = device_profile(forward, 1)
+        res[mode] = {**ev, "wall_s": wall, "ms_per_forward": wall * 1e3 / forwards,
+                     "tokens_per_s": ev["tokens_scored"] / wall, "launches": counts,
+                     "backbone_profile": prof}
+        print(f"scoring [{mode}]: loss {ev['loss']:.6f}, {ev['tokens_scored']} tokens in "
+              f"{wall:.3f} s ({ev['tokens_scored'] / wall:.0f} tokens/s, "
+              f"{wall * 1e3 / forwards:.1f} ms per forward), launches {counts}")
+        if prof is not None:
+            print(f"scoring [{mode}] backbone profile: wall {prof['wall_ms_per_step']:.2f} ms, "
+                  f"device busy {prof['device_busy_ms_per_step']:.2f} ms "
+                  f"({prof['device_busy_share']:.1%}), {prof['device_kernels_per_step']:.0f} "
+                  f"kernels; top: " + "; ".join(f"{t['name'][:40]} {t['ms_per_step']:.2f} ms"
+                                                for t in prof["top"][:4]))
+    ref = res["local"]["loss"]
+    with torch.inference_mode():
+        toks = batch0[:1, :-1]
+        local = model.replace(seq_mode="local", mesh=None)(toks)
+        for mode, tol in (("ring", SCORE_LOGIT_TOL), ("ulysses", K2_BF16_TOL)):
+            rel = abs(res[mode]["loss"] - ref) / ref
+            logits = model.replace(seq_mode=mode, mesh=mesh)(toks)
+            err = _rel(logits, local)
+            agree = float((logits.argmax(-1) == local.argmax(-1)).float().mean())
+            del logits
+            res[mode].update(loss_rel_to_local=rel, logits_rel_to_local=err,
+                             argmax_agreement_with_local=agree)
+            print(f"scoring [{mode}] bf16 against local: loss {rel:.3e} relative, one "
+                  f"window's logits {err:.3e} of max|logit|, argmax agreement {agree:.4%}")
+            check(rel <= SCORE_MODE_TOL,
+                  f"scoring [{mode}]: loss {res[mode]['loss']} vs local {ref}")
+            check(err <= tol, f"scoring [{mode}]: bf16 logits differ from local by {err:.3e}")
+        del local
+    return {"config": {**SCORE_CONF, "seq": SCORE_SEQ, "ring_positions": SCORE_RING,
+                       "batch": SCORE_BATCH, "windows": SCORE_WINDOWS,
+                       "logit_chunk": SCORE_CHUNK, "compute_dtype": "bfloat16",
+                       "params": model.num_params()},
+            "modes": res, "model": model, "mesh": mesh, "held": held}
+
+
+def phase_scoring_equivalence(device, model, mesh, held) -> dict:
+    """The same weights in f32, one window: the ring (K3 every hop)
+    against local attention (K2)."""
+    toks = torch.from_numpy(held[: SCORE_SEQ].reshape(1, SCORE_SEQ)).to(device)
+    f32 = model.replace(compute_dtype="float32")
+    _zero_counts()
+    with torch.inference_mode():
+        ring = f32.replace(seq_mode="ring", mesh=mesh)(toks)
+        torch.cuda.synchronize()
+        counts = _counts()
+        local = f32(toks)
+    want = SCORE_CONF["depth"] * SCORE_RING ** 2
+    check(counts["flash_attention_step"] == want and counts["flash_attention"] == 0,
+          f"f32 ring launches {counts}")
+    err = _rel(ring, local)
+    agree = float((ring.argmax(-1) == local.argmax(-1)).float().mean())
+    print(f"scoring f32 equivalence, {SCORE_SEQ} tokens: max|ring-local| / max|logit| = "
+          f"{err:.3e}, argmax agreement {agree:.4%}")
+    check(bool(torch.isfinite(ring).all()), "f32 ring logits not finite")
+    check(err <= EQUIV_TOL, f"f32 ring and local logits differ by {err:.3e} of max")
+    check(agree >= EQUIV_ARGMAX, f"f32 ring/local argmax agreement {agree:.4%}")
+    return {"max_rel_err": err, "argmax_agreement": agree, "k3_launches": counts}
+
+
 def run_main(gram_op: str) -> dict:
     from keystone_tpu_torch.models import mnist_random_fft as m
 
@@ -728,11 +1078,8 @@ def main() -> None:
     if sys.argv[1:] == ["--breakdown"]:
         print(json.dumps(fit_breakdown(device)))
         return
-    from keystone_tpu_torch.ops import flash_attention, int8_matmul
-
     smi = phase_card()
-    kernels = [gram.INT8_GRAM, flash_attention.FLASH_ATTENTION, int8_matmul.INT8_MATMUL]
-    phase_build(kernels)
+    phase_build(_kernels())
     k1 = phase_k1(device)
 
     gram.INT8_GRAM.launches = 0
@@ -765,6 +1112,16 @@ def main() -> None:
     print(json.dumps({"lm_path": {"card": smi, **lm, "equivalence": equiv,
                                   "serving": serving}}))
 
+    k3 = phase_k3(device)
+    ring = phase_ring(device)
+    k2["at_scoring_seq"] = ring["k2_vs_plain_bf16"]
+    scoring = phase_scoring(device)
+    k3["launches"] = scoring["modes"]["ring"]["launches"]["flash_attention_step"]
+    score_equiv = phase_scoring_equivalence(
+        device, scoring.pop("model"), scoring.pop("mesh"), scoring.pop("held"))
+    print(json.dumps({"scoring_path": {"card": smi, "ring_attention": ring, **scoring,
+                                       "f32_equivalence": score_equiv}}))
+
     summary = {
         "card": smi,
         "int8_fit_breakdown": breakdown,
@@ -778,7 +1135,7 @@ def main() -> None:
     }
     print(json.dumps({"main_path": summary}))
     print(smi)
-    print(json.dumps({"kernels": [k1, k2, k4]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,9 @@
 The JAX package draws its random signs with ``jax.random``, which no torch
 seed reproduces; to run the two packages on the same model, its
 parameters are carried across as numpy arrays. Nothing here imports JAX:
-the caller hands over plain arrays (``np.asarray`` of each leaf).
+the caller hands over plain arrays (``np.asarray`` of each leaf). Every
+helper puts its tensors on ``device``: the card unless the caller asks for
+the CPU.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
+from keystone_tpu_torch.core.runtime import resolve_device
 from keystone_tpu_torch.models.lm.model import LMBlock, TransformerLM
 from keystone_tpu_torch.models.mnist_random_fft import FeaturizerBank
 from keystone_tpu_torch.ops.linear import BlockLinearMapper, NormalEqState
@@ -29,11 +32,12 @@ def _t(x, device) -> torch.Tensor:
 def featurizer_bank(
     signs: Sequence[Sequence[np.ndarray]],
     *,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
     impl: str = "auto",
 ) -> FeaturizerBank:
     """A :class:`FeaturizerBank` from per-batch, per-chain ``signs`` (the
     ``RandomSignNode.signs`` of each chain of the JAX bank's batches)."""
+    device = resolve_device(device)
     return FeaturizerBank(
         batches=tuple(
             tuple(
@@ -53,10 +57,11 @@ def block_linear_mapper(
     means: Sequence[np.ndarray] | None,
     *,
     block_size: int = 4096,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> BlockLinearMapper:
     """A :class:`BlockLinearMapper` from per-block weights, intercept and
     per-block feature means."""
+    device = resolve_device(device)
     return BlockLinearMapper(
         xs=tuple(_t(x, device) for x in xs),
         b=None if b is None else _t(b, device),
@@ -66,9 +71,10 @@ def block_linear_mapper(
 
 
 def normal_eq_state(
-    ata, atb, mean_a, mean_b, n, *, device: torch.device | str = "cpu"
+    ata, atb, mean_a, mean_b, n, *, device: torch.device | str | None = None
 ) -> NormalEqState:
     """A :class:`NormalEqState` from the accumulated statistics."""
+    device = resolve_device(device)
     return NormalEqState(
         ata=_t(ata, device),
         atb=_t(atb, device),
@@ -102,14 +108,20 @@ def transformer_lm(
     pos_encoding: str = "learned",
     compute_dtype: str = "float32",
     int8_kernel: str = "xla",
-    device: torch.device | str = "cpu",
+    seq_mode: str = "local",
+    mesh=None,
+    seq_axis: str = "data",
+    device: torch.device | str | None = None,
 ) -> TransformerLM:
     """A :class:`TransformerLM` from the JAX model's leaves: ``{"embed",
     "pos_embed", "blocks": [{"wq", "wk", "wv", "wo", "w1", "w2"}, ...]}``,
     each an array or a QTensor-like leaf. ``int8_kernel`` takes the JAX
-    package's names: "xla" → "mm", "pallas" → "kernel"."""
+    package's names: "xla" → "mm", "pallas" → "kernel". ``seq_mode``,
+    ``mesh`` (a port :class:`~keystone_tpu_torch.parallel.Mesh`) and
+    ``seq_axis`` are the model's own."""
     if int8_kernel not in _INT8_KERNEL:
         raise ValueError(f"int8_kernel={int8_kernel!r}; expected xla|pallas")
+    device = resolve_device(device)
     blocks = [
         LMBlock(*(_lm_leaf(b[n], device) for n in ("wq", "wk", "wv", "wo", "w1", "w2")))
         for b in leaves["blocks"]
@@ -123,4 +135,7 @@ def transformer_lm(
         pos_encoding=pos_encoding,
         compute_dtype=compute_dtype,
         int8_kernel=_INT8_KERNEL[int8_kernel],
+        seq_mode=seq_mode,
+        mesh=mesh,
+        seq_axis=seq_axis,
     )

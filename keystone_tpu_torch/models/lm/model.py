@@ -10,9 +10,14 @@ int8 block matrices multiply through :func:`model_mm`: the plain
 ``quantization.mm`` (``int8_kernel="mm"``, the JAX package's "xla") or
 kernel K4 (``"kernel"``, the JAX package's "pallas") for decode-sized rows.
 
-Float weights are ``nn.Parameter``s that need no gradient: this slice
-serves. Mixture-of-experts layers, rematerialization and the sequence-
-parallel attention modes come with later slices and raise here.
+``seq_mode`` "ring" and "ulysses" run the attention sequence-parallel
+over ``seq_axis`` of ``mesh`` (:mod:`keystone_tpu_torch.ops.attention`):
+the ring's hops are kernel K3 on the card, Ulysses' local attention K2.
+A model built with no mesh takes the ambient one of ``use_mesh``.
+
+Float weights are ``nn.Parameter``s that need no gradient: this port
+serves and scores. Mixture-of-experts layers and rematerialization come
+with later slices and raise here.
 """
 
 from __future__ import annotations
@@ -26,13 +31,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from keystone_tpu_torch.core.runtime import resolve_device
-from keystone_tpu_torch.ops.attention import dense_attention
+from keystone_tpu_torch.ops.attention import (
+    dense_attention,
+    ring_attention,
+    ulysses_attention,
+)
 from keystone_tpu_torch.ops.flash_attention import flash_attention_trainable
 from keystone_tpu_torch.ops.int8_matmul import mm_fused
 from keystone_tpu_torch.ops.quantization import QTensor, mm
+from keystone_tpu_torch.parallel.mesh import current_mesh
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _WEIGHTS = ("wq", "wk", "wv", "wo", "w1", "w2")
+_SEQ_MODES = ("local", "ring", "ulysses")
 
 
 def _leaf(w):
@@ -182,6 +193,8 @@ class TransformerLM(nn.Module):
         *,
         num_heads: int = 8,
         seq_mode: str = "local",
+        mesh=None,
+        seq_axis: str = "data",
         remat: bool = False,
         compute_dtype: str = "float32",
         moe_layers: tuple = (),
@@ -198,11 +211,22 @@ class TransformerLM(nn.Module):
             raise NotImplementedError("rematerialization comes with the training slice")
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype={compute_dtype!r}; expected float32|bfloat16")
+        if seq_mode not in _SEQ_MODES:
+            raise ValueError(f"seq_mode={seq_mode!r}; expected local|ring|ulysses")
+        if seq_mode != "local" and mesh is None:
+            mesh = current_mesh()
+            if mesh is None:
+                raise ValueError(
+                    f"seq_mode={seq_mode!r} needs a mesh: pass mesh=... or build "
+                    "the model inside use_mesh(...)"
+                )
         self.embed = _leaf(embed)
         self.pos_embed = _leaf(pos_embed)
         self.blocks = nn.ModuleList(blocks)
         self.num_heads = num_heads
         self.seq_mode = seq_mode
+        self.mesh = mesh
+        self.seq_axis = seq_axis
         self.remat = remat
         self.compute_dtype = compute_dtype
         self.moe_layers = ()
@@ -215,7 +239,8 @@ class TransformerLM(nn.Module):
         (the counterpart of ``dataclasses.replace``)."""
         kw = dict(
             embed=self.embed, pos_embed=self.pos_embed, blocks=list(self.blocks),
-            num_heads=self.num_heads, seq_mode=self.seq_mode, remat=self.remat,
+            num_heads=self.num_heads, seq_mode=self.seq_mode, mesh=self.mesh,
+            seq_axis=self.seq_axis, remat=self.remat,
             compute_dtype=self.compute_dtype, moe_layers=self.moe_layers,
             pos_encoding=self.pos_encoding, num_kv_heads=self.num_kv_heads,
             int8_kernel=self.int8_kernel,
@@ -253,18 +278,23 @@ class TransformerLM(nn.Module):
     def _attention(self, x, blk: LMBlock, return_kv: bool = False):
         n, s, d = x.shape
         h = self.num_heads
-        if self.seq_mode != "local":
-            raise NotImplementedError(
-                f"seq_mode={self.seq_mode!r}: ring and Ulysses attention come "
-                f"with the multi-device slice (ROADMAP A8)"
-            )
+        # x is the full sequence here: the sequence-parallel modes shard it
+        # inside ring/ulysses_attention
         q, k, v = self._qkv_heads(x, blk)
         kv_raw = (k, v)  # pre-broadcast: what the decode cache stores
         if self.kv_heads != h:
             g = h // self.kv_heads
             k = k.repeat_interleave(g, dim=1)
             v = v.repeat_interleave(g, dim=1)
-        if _use_flash(x):
+        if self.seq_mode == "ring":
+            out = ring_attention(
+                q, k, v, self.mesh, seq_axis=self.seq_axis, causal=True, trainable=True
+            )
+        elif self.seq_mode == "ulysses":
+            out = ulysses_attention(
+                q, k, v, self.mesh, seq_axis=self.seq_axis, causal=True, trainable=True
+            )
+        elif _use_flash(x):
             out = flash_attention_trainable(
                 q.contiguous(), k.contiguous(), v.contiguous(), True
             )
@@ -307,6 +337,8 @@ class TransformerLM(nn.Module):
         num_heads: int = 8,
         ff_mult: int = 4,
         seq_mode: str = "local",
+        mesh=None,
+        seq_axis: str = "data",
         compute_dtype: str = "float32",
         moe_every: int = 0,
         pos_encoding: str = "learned",
@@ -359,7 +391,7 @@ class TransformerLM(nn.Module):
         ]
         return TransformerLM(
             embed, pos_embed, blocks, num_heads=num_heads, seq_mode=seq_mode,
-            compute_dtype=compute_dtype, pos_encoding=pos_encoding,
+            mesh=mesh, seq_axis=seq_axis, compute_dtype=compute_dtype, pos_encoding=pos_encoding,
             num_kv_heads=num_kv_heads,
         )
 

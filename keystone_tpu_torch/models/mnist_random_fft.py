@@ -81,12 +81,14 @@ def build_batch_featurizers(
     block_size: int,
     seed: int,
     image_size: int = IMAGE_SIZE,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> list[list[Pipeline]]:
     """Group ``num_ffts`` (sign → fft → relu) chains into batches whose
     concatenated width is ``block_size`` (last batch may be smaller). The
     signs are drawn in order from one ``torch.Generator`` seeded with
-    ``seed``."""
+    ``seed`` and placed on ``device``: the card unless the caller asks for
+    the CPU."""
+    device = resolve_device(device)
     ffts_per_batch = max(block_size // fft_features(image_size), 1)
     gen = torch.Generator().manual_seed(seed)
     chains = [
@@ -111,7 +113,7 @@ class FeaturizerBank(Transformer):
         block_size: int,
         seed: int,
         image_size: int = IMAGE_SIZE,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
     ) -> "FeaturizerBank":
         groups = build_batch_featurizers(
             num_ffts, block_size, seed, image_size, device

@@ -9,9 +9,14 @@ the row logsumexp. A CUDA tensor launches the kernel (or raises); a CPU
 tensor takes :func:`flash_attention_plain`, a blockwise online softmax with
 the kernel's rounding points.
 
+:func:`flash_attention_step` is kernel K3's wrapper
+(``csrc/flash_attention_step.cu``): one online-softmax update of the
+carried (m, l, acc) state by a single K/V block at global offsets, the hop
+of ring attention. All of its arithmetic is f32 on widened inputs; a CPU
+tensor takes :func:`flash_attention_step_plain`.
+
 :func:`flash_attention_trainable` carries the forward only: its backward
-comes with the training slice. ``flash_attention_step`` (the per-hop update
-of ring attention) comes with the multi-device slice.
+comes with the training slice.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 from keystone_tpu_torch.core.kernels import Kernel, check_launch, launch_on
 
 FLASH_ATTENTION = Kernel("flash_attention", "flash_attention.cu")
+FLASH_ATTENTION_STEP = Kernel("flash_attention_step", "flash_attention_step.cu")
 
 _NEG = -1e30  # masked-score value: exp(_NEG - m) underflows to exactly 0
 _BLOCK_K = 64  # keys per tile, the kernel's
@@ -159,6 +165,132 @@ def flash_attention(
         q, k, v, causal=causal, q_offset=q_offset, k_offset=k_offset,
         out_dtype=out_dtype, return_lse=return_lse,
     )
+
+
+def _live_key_tiles(s_q: int, s_k: int, q_offset: int, k_offset: int, causal: bool) -> int:
+    """The 64-key tiles any query row can see: causal tiles wholly past
+    the last query position are skipped, which is exact (a fully masked
+    tile leaves the state unchanged)."""
+    n_k = -(-s_k // _BLOCK_K)
+    if not causal:
+        return n_k
+    span = q_offset + s_q - k_offset
+    return min(n_k, max(0, -(-span // _BLOCK_K)))
+
+
+def flash_attention_step_plain(q, k_blk, v_blk, m, l, acc, *, q_offset, k_offset, causal=False):
+    """K3's plain version: q, k and v widened to f32, q·(1/√D) in f32, and
+    for each 64-key tile ``s = where(valid, s, −1e30)``, ``m_new = max(m,
+    rowmax s)``, ``p = where(valid, exp(s − m_new), 0)``, ``alpha = exp(m −
+    m_new)``, ``l = l·alpha + Σp``, ``acc = acc·alpha + p·v``. Returns new
+    (m, l, acc) tensors, f32."""
+    d, s_q, s_k = q.shape[3], q.shape[2], k_blk.shape[2]
+    f32 = torch.float32
+    qs = q.to(f32) * (1.0 / math.sqrt(d))
+    q_pos = q_offset + torch.arange(s_q, device=q.device)[:, None]
+    m = m.to(f32, copy=True)[..., None]
+    l = l.to(f32, copy=True)[..., None]
+    acc = acc.to(f32, copy=True)
+    for t in range(_live_key_tiles(s_q, s_k, q_offset, k_offset, causal)):
+        start = t * _BLOCK_K
+        k_t = k_blk[:, :, start : start + _BLOCK_K].to(f32)
+        v_t = v_blk[:, :, start : start + _BLOCK_K].to(f32)
+        s = qs @ k_t.transpose(-1, -2)
+        # the tiles end at S_k, so only causality masks a key here
+        if causal:
+            k_pos = k_offset + start + torch.arange(k_t.shape[2], device=q.device)
+            valid = q_pos >= k_pos[None, :]
+            s = torch.where(valid, s, _NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        if causal:
+            p = torch.where(valid, p, 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + p @ v_t
+        m = m_new
+    return m[..., 0], l[..., 0], acc
+
+
+def _launch_step(q, k_blk, v_blk, m, l, acc, *, q_offset, k_offset, causal):
+    b, h, s_q, d = q.shape
+    s_k = k_blk.shape[2]
+    if (
+        k_blk.shape != (b, h, s_k, d) or v_blk.shape != k_blk.shape
+        or m.shape != (b, h, s_q) or l.shape != m.shape or acc.shape != q.shape
+    ):
+        raise ValueError(
+            f"flash_attention_step: q {tuple(q.shape)}, k {tuple(k_blk.shape)}, "
+            f"v {tuple(v_blk.shape)}, m {tuple(m.shape)}, l {tuple(l.shape)}, "
+            f"acc {tuple(acc.shape)} do not match"
+        )
+    if q.dtype not in _DTYPES or k_blk.dtype != q.dtype or v_blk.dtype != q.dtype:
+        raise TypeError(
+            f"flash_attention_step takes float32 or bfloat16 q, k, v of one "
+            f"dtype; got {q.dtype}, {k_blk.dtype}, {v_blk.dtype}"
+        )
+    if any(x.dtype != torch.float32 for x in (m, l, acc)):
+        raise TypeError("flash_attention_step: the state m, l, acc must be float32")
+    tensors = (q, k_blk, v_blk, m, l, acc)
+    if any(x.device != q.device for x in tensors):
+        raise ValueError("flash_attention_step: all inputs must be on one device")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("flash_attention_step takes contiguous tensors")
+    if not 0 < d <= _MAX_D:
+        raise ValueError(f"flash_attention_step: head dim {d} outside 1..{_MAX_D}")
+    if not all(-(2**31) <= o < 2**31 for o in (q_offset, k_offset)):
+        raise ValueError("flash_attention_step: offsets must fit in int32")
+    m_out, l_out, acc_out = torch.empty_like(m), torch.empty_like(l), torch.empty_like(acc)
+    if b * h and s_q:
+        fn = FLASH_ATTENTION_STEP.function(
+            "keystone_flash_attention_step",
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float]
+            + [ctypes.c_int, ctypes.c_void_p],
+        )
+        code = launch_on(q.device, lambda s: fn(
+            q.data_ptr(), k_blk.data_ptr(), v_blk.data_ptr(), m.data_ptr(),
+            l.data_ptr(), acc.data_ptr(), m_out.data_ptr(), l_out.data_ptr(),
+            acc_out.data_ptr(), b * h, s_q, s_k, d, int(q_offset), int(k_offset),
+            int(causal), 1.0 / math.sqrt(d), _DTYPES[q.dtype], s,
+        ))
+        check_launch(FLASH_ATTENTION_STEP, code)
+        FLASH_ATTENTION_STEP.launches += 1
+    return m_out, l_out, acc_out
+
+
+def flash_attention_step(
+    q,
+    k_blk,
+    v_blk,
+    m,
+    l,
+    acc,
+    *,
+    q_offset: int,
+    k_offset: int,
+    causal: bool = False,
+    block_q: int | None = None,
+    block_k: int | None = None,
+):
+    """One online-softmax update: attend q over a single K/V block.
+
+    q: (B, H, S_q, D); k_blk, v_blk: (B, H, S_k, D), f32 or bf16 on the
+    card (any float dtype on the CPU), D ≤ 128. State: m, l (B, H, S_q) and
+    acc (B, H, S_q, D), f32 (start m at −1e30, l and acc at 0). The offsets
+    are the global positions of the q and k windows. Returns new (m, l,
+    acc); finalize with ``acc / max(l, 1e-30)``.
+
+    ``block_q`` and ``block_k`` sized the TPU kernel's VMEM blocks; the
+    Hopper kernel picks its own tiles, so they are accepted and ignored.
+    The TPU layout option ``padded_state`` (m, l in 128 lanes) has no
+    counterpart."""
+    del block_q, block_k
+    kw = dict(q_offset=q_offset, k_offset=k_offset, causal=causal)
+    if q.device.type == "cpu":
+        return flash_attention_step_plain(q, k_blk, v_blk, m, l, acc, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_step: unsupported device {q.device}")
+    return _launch_step(q, k_blk, v_blk, m, l, acc, **kw)
 
 
 class _FlashTrainable(torch.autograd.Function):

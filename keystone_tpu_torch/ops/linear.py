@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from keystone_tpu_torch.core.pipeline import LabelEstimator, Transformer
+from keystone_tpu_torch.core.runtime import resolve_device
 
 
 def _row_mask(n_rows: int, n_valid, dtype, device) -> torch.Tensor:
@@ -156,9 +157,11 @@ class NormalEqState:
     n: torch.Tensor  # () valid-row count
 
 
-def normal_eq_init(d: int, k: int, device="cpu") -> NormalEqState:
-    """Zero state for a (N, d) → (N, k) streamed fit."""
+def normal_eq_init(d: int, k: int, device=None) -> NormalEqState:
+    """Zero state for a (N, d) → (N, k) streamed fit, on ``device``: the
+    card unless the caller asks for the CPU."""
     f32 = torch.float32
+    device = resolve_device(device)
 
     def z(*shape):
         return torch.zeros(shape, dtype=f32, device=device)
@@ -318,7 +321,7 @@ class BlockLeastSquaresEstimator(LabelEstimator):
 
     # -- streaming normal-equations protocol (fit_stats_*) ---------------
 
-    def fit_stats_init(self, d: int, k: int, device="cpu") -> NormalEqState:
+    def fit_stats_init(self, d: int, k: int, device=None) -> NormalEqState:
         return normal_eq_init(d, k, device)
 
     def fit_stats_update(

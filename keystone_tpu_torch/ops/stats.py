@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from keystone_tpu_torch.core.pipeline import Transformer
+from keystone_tpu_torch.core.runtime import resolve_device
 
 
 @dataclasses.dataclass(eq=False)
@@ -26,13 +27,14 @@ class RandomSignNode(Transformer):
     def create(
         num_features: int,
         generator: torch.Generator,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
     ) -> "RandomSignNode":
         """Rademacher signs drawn on the host from ``generator`` (the same
-        signs whatever the device), then placed on ``device``."""
+        signs whatever the device), then placed on ``device``: the card
+        unless the caller asks for the CPU."""
         bits = torch.randint(0, 2, (num_features,), generator=generator)
         signs = (2 * bits - 1).to(torch.float32)
-        return RandomSignNode(signs=signs.to(device))
+        return RandomSignNode(signs=signs.to(resolve_device(device)))
 
 
 @functools.lru_cache(maxsize=32)

@@ -8,6 +8,8 @@ on a machine without JAX; there, run it without the repo's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -263,3 +265,161 @@ def test_tiny_lm_on_card_matches_cpu(card):
     got = generate(dev, toks[:, :8].to(card), max_new=8)
     want = generate(cpu, toks[:, :8], max_new=8)
     assert got.is_cuda and (got.cpu() == want).float().mean() >= 0.9
+
+
+# --- K3, the ring hop ---------------------------------------------------------
+
+K3_TOL = 1e-5  # of max|plain|: f32 arithmetic summed in another order
+
+
+def _k3_inputs(card, seed, b, h, s_q, s_k, d, dtype, fresh):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device=card).to(dtype)
+               for s in (s_q, s_k, s_k))
+    if fresh:
+        state = (torch.full((b, h, s_q), -1e30, device=card), torch.zeros((b, h, s_q), device=card),
+                 torch.zeros((b, h, s_q, d), device=card))
+    else:
+        state = (torch.randn((b, h, s_q), generator=gen, device=card),
+                 torch.rand((b, h, s_q), generator=gen, device=card) + 0.5,
+                 torch.randn((b, h, s_q, d), generator=gen, device=card))
+    return (q, k, v), state
+
+
+def _k3_close(got, want, state_in):
+    """m on rows some key reached (a row no key reached keeps its m bit
+    for bit), l and acc everywhere, each within K3_TOL of max|plain|."""
+    m, l, acc = got
+    m_ref, l_ref, acc_ref = want
+    live = m_ref > -1e29
+    assert torch.equal(m[~live], m_ref[~live])
+    if bool(live.any()):
+        assert _rel(m[live], m_ref[live]) <= K3_TOL
+    assert _rel(l, l_ref) <= K3_TOL
+    assert _rel(acc, acc_ref) <= K3_TOL
+    assert all(x.dtype == torch.float32 for x in got)
+    assert not any(g.data_ptr() == x.data_ptr() for g, x in zip(got, state_in))
+
+
+@pytest.mark.parametrize(
+    "shape,dtype,causal,offsets,fresh",
+    [
+        ((2, 16, 2048, 2048, 64), torch.bfloat16, True, (2048, 2048), True),  # diagonal hop
+        ((2, 16, 2048, 2048, 64), torch.bfloat16, True, (4096, 0), False),  # past hop
+        ((1, 3, 777, 500, 40), torch.float32, True, (100, 300), False),  # rows fully masked
+        ((1, 3, 777, 500, 40), torch.float32, False, (0, 300), True),
+        ((1, 2, 130, 200, 128), torch.bfloat16, False, (0, 0), False),  # D = 128
+        ((2, 2, 100, 130, 36), torch.bfloat16, True, (64, 30), True),  # D not a multiple of 4
+        ((1, 2, 33, 0, 16), torch.float32, False, (0, 0), False),  # an empty K/V block
+    ],
+)
+def test_k3_matches_plain(card, shape, dtype, causal, offsets, fresh):
+    from keystone_tpu_torch.ops import flash_attention as fa
+
+    b, h, s_q, s_k, d = shape
+    qkv, state = _k3_inputs(card, sum(shape), b, h, s_q, s_k, d, dtype, fresh)
+    kw = dict(q_offset=offsets[0], k_offset=offsets[1], causal=causal)
+    before = fa.FLASH_ATTENTION_STEP.launches
+    got = fa.flash_attention_step(*qkv, *state, **kw)
+    torch.cuda.synchronize()
+    assert fa.FLASH_ATTENTION_STEP.launches == before + 1
+    _k3_close(got, fa.flash_attention_step_plain(*qkv, *state, **kw), state)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_future_hop_returns_state_bit_for_bit(card, dtype):
+    from keystone_tpu_torch.ops import flash_attention as fa
+
+    qkv, state = _k3_inputs(card, 9, 2, 4, 300, 256, 64, dtype, fresh=False)
+    got = fa.flash_attention_step(*qkv, *state, q_offset=0, k_offset=300, causal=True)
+    torch.cuda.synchronize()
+    for g, x in zip(got, state):
+        assert torch.equal(g, x) and g.data_ptr() != x.data_ptr()
+
+
+def test_k3_wrapper_rejects_bad_inputs(card):
+    from keystone_tpu_torch.ops import flash_attention as fa
+
+    (q, k, v), (m, l, acc) = _k3_inputs(card, 10, 1, 2, 16, 16, 32, torch.float32, fresh=True)
+    kw = dict(q_offset=0, k_offset=0)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_step(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, m, l, acc, **kw)
+    with pytest.raises(TypeError):
+        fa.flash_attention_step(q.half(), k.half(), v.half(), m, l, acc, **kw)
+    with pytest.raises(TypeError):
+        fa.flash_attention_step(q, k.to(torch.bfloat16), v, m, l, acc, **kw)
+    with pytest.raises(TypeError, match="float32"):
+        fa.flash_attention_step(q, k, v, m.double(), l, acc, **kw)
+    with pytest.raises(ValueError, match="do not match"):
+        fa.flash_attention_step(q, k, v, m[:, :, :8], l, acc, **kw)
+    with pytest.raises(ValueError, match="one device"):
+        fa.flash_attention_step(q, k, v, m.cpu(), l, acc, **kw)
+
+
+# --- ring and Ulysses on one card named four times ---------------------------
+
+
+def test_ring_on_repeated_card_matches_k2(card):
+    from keystone_tpu_torch.ops import attention
+    from keystone_tpu_torch.ops import flash_attention as fa
+    from keystone_tpu_torch.parallel import create_mesh
+
+    mesh = create_mesh(data=4, devices=[card] * 4)
+    gen = torch.Generator(device=card).manual_seed(11)
+    q, k, v = (torch.randn((2, 4, 1024, 64), generator=gen, device=card) for _ in range(3))
+    before = fa.FLASH_ATTENTION_STEP.launches
+    out = attention.ring_attention(q, k, v, mesh, causal=True)
+    torch.cuda.synchronize()
+    assert fa.FLASH_ATTENTION_STEP.launches == before + 16
+    assert _rel(out, fa.flash_attention(q, k, v, causal=True)) <= K3_TOL
+    plain = attention.ring_attention(q, k, v, mesh, causal=True, use_flash=False)
+    assert fa.FLASH_ATTENTION_STEP.launches == before + 16
+    assert _rel(out, plain) <= K3_TOL
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    k2 = fa.FLASH_ATTENTION.launches
+    uly = attention.ulysses_attention(qb, kb, vb, mesh, causal=True)
+    assert fa.FLASH_ATTENTION.launches == k2 + 4
+    assert _rel(uly, fa.flash_attention(qb, kb, vb, causal=True)) <= K2_BF16_TOL
+
+
+def test_cpu_tensors_on_a_card_mesh_launch_the_kernels(card):
+    """The fused default reads the mesh: CPU inputs on a mesh of cards run
+    K3 (ring) and K2 (Ulysses) there, and come back to the CPU."""
+    from keystone_tpu_torch.ops import attention
+    from keystone_tpu_torch.ops import flash_attention as fa
+    from keystone_tpu_torch.parallel import create_mesh
+
+    mesh = create_mesh(data=4, devices=[card] * 4)
+    gen = torch.Generator().manual_seed(12)
+    q, k, v = (torch.randn((1, 4, 512, 64), generator=gen) for _ in range(3))
+    want = fa.flash_attention(q.to(card), k.to(card), v.to(card), causal=True).cpu()
+    k3, k2 = fa.FLASH_ATTENTION_STEP.launches, fa.FLASH_ATTENTION.launches
+    ring = attention.ring_attention(q, k, v, mesh, causal=True)
+    uly = attention.ulysses_attention(q, k, v, mesh, causal=True)
+    assert fa.FLASH_ATTENTION_STEP.launches == k3 + 16
+    assert fa.FLASH_ATTENTION.launches == k2 + 4
+    assert ring.device.type == "cpu" and uly.device.type == "cpu"
+    assert _rel(ring, want) <= K3_TOL and _rel(uly, want) <= K3_TOL
+
+
+def test_ring_lm_on_card_matches_local(card):
+    """f32: the ring model (K3 every hop) against the local model (K2) on
+    the same weights, logits and held-out loss."""
+    from keystone_tpu_torch.evaluation import evaluate_perplexity
+    from keystone_tpu_torch.models.lm import TransformerLM, synthetic_corpus
+    from keystone_tpu_torch.ops import flash_attention as fa
+    from keystone_tpu_torch.parallel import create_mesh
+
+    local = TransformerLM.create(vocab=97, max_seq=256, dim=64, depth=2, num_heads=4,
+                                 pos_encoding="rope", device=card)
+    ring = local.replace(seq_mode="ring", mesh=create_mesh(data=4, devices=[card] * 4))
+    toks = torch.from_numpy(np.random.default_rng(6).integers(0, 97, size=(2, 256))).to(card)
+    before = fa.FLASH_ATTENTION_STEP.launches
+    with torch.inference_mode():
+        got, want = ring(toks), local(toks)
+    assert fa.FLASH_ATTENTION_STEP.launches == before + 2 * 16
+    assert _rel(got, want) <= 1e-4
+    held = synthetic_corpus(4 * 257, 97, seed=2)
+    r = evaluate_perplexity(ring, held, seq=256, batch=2, logit_chunk=64)
+    w = evaluate_perplexity(local, held, seq=256, batch=2)
+    assert math.isfinite(r["loss"]) and r["loss"] == pytest.approx(w["loss"], rel=1e-5)

@@ -29,6 +29,13 @@ lm = TransformerLM.create(vocab=32, max_seq=24, dim=16, depth=1, num_heads=2, de
 toks = generate(quantize_for_decode(lm).replace(int8_kernel="kernel"), [[1, 2, 3]], max_new=4)
 assert toks.shape == (1, 4) and toks.device.type == "cpu"
 assert len(DecodeLoop(lm, slots=1, s_max=16).run([[4, 5]], max_new=3)[0]) == 3
+from keystone_tpu_torch.evaluation import evaluate_perplexity
+from keystone_tpu_torch.models.lm import synthetic_corpus
+from keystone_tpu_torch.parallel import create_mesh
+ring = TransformerLM.create(vocab=32, dim=16, depth=1, num_heads=2, pos_encoding="rope",
+                            seq_mode="ring", mesh=create_mesh(devices=["cpu"] * 4), device="cpu")
+ev = evaluate_perplexity(ring, synthetic_corpus(2 * 17, 32), seq=16, batch=2, logit_chunk=8)
+assert ev["tokens_scored"] == 32 and ev["loss"] > 0
 bad = sorted(
     k for k in sys.modules
     if k.split(".")[0] == "jax" or k.startswith("jaxlib")
@@ -108,3 +115,35 @@ def test_lm_create_without_device_raises_without_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         TransformerLM.create(vocab=16, max_seq=8, dim=8, depth=1, num_heads=2)
+
+
+def _constructors():
+    import numpy as np
+
+    from keystone_tpu_torch import convert
+    from keystone_tpu_torch.models import mnist_random_fft as m
+    from keystone_tpu_torch.ops import linear, stats
+
+    z = np.zeros((2, 2), np.float32)
+    leaves = {"embed": z, "pos_embed": z, "blocks": []}
+    return {
+        "RandomSignNode.create": lambda: stats.RandomSignNode.create(4, torch.Generator()),
+        "build_batch_featurizers": lambda: m.build_batch_featurizers(1, 512, 0),
+        "FeaturizerBank.create": lambda: m.FeaturizerBank.create(1, 512, 0),
+        "normal_eq_init": lambda: linear.normal_eq_init(3, 2),
+        "fit_stats_init": lambda: linear.BlockLeastSquaresEstimator(block_size=2).fit_stats_init(3, 2),
+        "convert.featurizer_bank": lambda: convert.featurizer_bank([[np.ones(4)]]),
+        "convert.block_linear_mapper": lambda: convert.block_linear_mapper([z], None, None),
+        "convert.normal_eq_state": lambda: convert.normal_eq_state(z, z, z[0], z[0], 1.0),
+        "convert.transformer_lm": lambda: convert.transformer_lm(leaves, num_heads=1),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_constructors()))
+def test_constructor_without_device_raises_without_cuda(name):
+    """No public constructor of the port defaults to the CPU: without a
+    device it takes the card, and raises where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the constructor would use it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _constructors()[name]()

@@ -85,7 +85,7 @@ def test_normal_eq_update_matches(op):
     jfn = None if op == "fp32" else jg.ata_int8_xla
     tfn = None if op == "fp32" else tg.ata_int8
     js = jl.normal_eq_init(32, 4)
-    ts = tl.normal_eq_init(32, 4)
+    ts = tl.normal_eq_init(32, 4, device="cpu")
     for ca, cb, valid in _chunks(a, b, 256):
         js = jl.normal_eq_update(js, jnp.asarray(ca), jnp.asarray(cb), valid, jfn)
         ts = tl.normal_eq_update(ts, _t(ca), _t(cb), valid, tfn)
@@ -133,7 +133,8 @@ def test_fit_stats_finalize_from_converted_state():
     state = jl.normal_eq_update(jl.normal_eq_init(36, 2), jnp.asarray(a), jnp.asarray(b))
     want = jest.fit_stats_finalize(state)
     tstate = convert.normal_eq_state(
-        *(np.asarray(getattr(state, f)) for f in ("ata", "atb", "mean_a", "mean_b", "n"))
+        *(np.asarray(getattr(state, f)) for f in ("ata", "atb", "mean_a", "mean_b", "n")),
+        device="cpu",
     )
     got = tl.BlockLeastSquaresEstimator(block_size=12, lam=0.2).fit_stats_finalize(tstate)
     for g, w in zip(got.xs, want.xs):
@@ -150,7 +151,7 @@ def test_block_linear_mapper_apply_matches():
     jmap = jl.BlockLinearMapper(
         xs=tuple(map(jnp.asarray, xs)), b=jnp.asarray(bias), means=tuple(map(jnp.asarray, means))
     )
-    tmap = convert.block_linear_mapper(xs, bias, means)
+    tmap = convert.block_linear_mapper(xs, bias, means, device="cpu")
     _close(tmap(_t(data)), jmap(jnp.asarray(data)), tol=1e-5)
     seen = []
     tmap.apply_and_evaluate(_t(data), seen.append)

@@ -247,8 +247,10 @@ def test_unknown_options_raise(tiny, monkeypatch):
         decode.prefill(pm.replace(int8_kernel="nope"), toks, 8)
     with pytest.raises(ValueError, match="int8_kernel"):
         convert.transformer_lm(leaves(tiny), num_heads=4, int8_kernel="nope")
-    with pytest.raises(NotImplementedError, match="A8"):
-        pm.replace(seq_mode="ring")(toks)
+    with pytest.raises(ValueError, match="needs a mesh"):
+        pm.replace(seq_mode="ring")
+    with pytest.raises(ValueError, match="seq_mode"):
+        pm.replace(seq_mode="tree")
     with pytest.raises(NotImplementedError, match="MoE"):
         lm.TransformerLM.create(moe_every=2, device="cpu")
     with pytest.raises(NotImplementedError):

@@ -98,7 +98,7 @@ def test_classic_fit_matches_jax(slice_inputs):
     )
     jpred = JMax()(jmodel(jm.featurize(jbf, jnp.asarray(test.data))))
 
-    bank = convert.featurizer_bank(signs)
+    bank = convert.featurizer_bank(signs, device="cpu")
     tmodel = BlockLeastSquaresEstimator(block_size=BLOCK, num_iter=1, lam=LAM).fit(
         bank(torch.from_numpy(train.data)),
         ClassLabelIndicators(num_classes=10)(train.labels),
@@ -123,7 +123,7 @@ def test_streamed_fit_matches_jax(slice_inputs, gram_op, tol):
     )
     jpred = jplan.execute(JPipeline.of(jbank, jfitted[-1], JMax()), jnp.asarray(test.data))
 
-    tbank = convert.featurizer_bank(signs)
+    tbank = convert.featurizer_bank(signs, device="cpu")
     tfitted, tp = tplan.fit_streaming(
         ChainedLabelEstimator(
             prefix=tbank, est=BlockLeastSquaresEstimator(block_size=BLOCK, num_iter=1, lam=LAM)
@@ -159,7 +159,7 @@ def test_int8_codes_flip_rarely(slice_inputs):
     train, _, jbf, signs = slice_inputs
     rows = train.data[:CHUNK]
     jf = _jax_features(jbf, rows)
-    tf = torch.cat(convert.featurizer_bank(signs)(torch.from_numpy(rows)), dim=-1)
+    tf = torch.cat(convert.featurizer_bank(signs, device="cpu")(torch.from_numpy(rows)), dim=-1)
     np.testing.assert_allclose(tf.numpy(), jf, rtol=0, atol=1e-5 * np.abs(jf).max())
     jq = np.asarray(j_quantize_cols(jnp.asarray(jf) - jnp.asarray(jf).mean(axis=0))[0])
     tq = _quantize_cols(tf - tf.mean(dim=0))[0].numpy()

@@ -52,8 +52,8 @@ def test_random_sign_matches():
 
 
 def test_random_sign_create_is_rademacher_and_seeded():
-    a = ts.RandomSignNode.create(784, torch.Generator().manual_seed(3))
-    b = ts.RandomSignNode.create(784, torch.Generator().manual_seed(3))
+    a = ts.RandomSignNode.create(784, torch.Generator().manual_seed(3), device="cpu")
+    b = ts.RandomSignNode.create(784, torch.Generator().manual_seed(3), device="cpu")
     assert set(np.unique(a.signs.numpy())) == {-1.0, 1.0}
     assert torch.equal(a.signs, b.signs)
 
@@ -110,7 +110,7 @@ def test_featurize_bank_matches(impl):
     ]
     from keystone_tpu_torch import convert
 
-    bank = convert.featurizer_bank(signs, impl=impl)
+    bank = convert.featurizer_bank(signs, impl=impl, device="cpu")
     want = jm.featurize(jbatches, jnp.asarray(x))
     got = bank(torch.from_numpy(x))
     assert [g.shape[-1] for g in got] == [1024, 512]
@@ -119,7 +119,7 @@ def test_featurize_bank_matches(impl):
 
 
 def test_batch_featurizer_grouping():
-    batches = tm.build_batch_featurizers(num_ffts=5, block_size=2048, seed=0)
+    batches = tm.build_batch_featurizers(num_ffts=5, block_size=2048, seed=0, device="cpu")
     assert [len(b) for b in batches] == [4, 1]
 
 

@@ -55,7 +55,7 @@ def test_fit_plan_matches_jax(gram):
     )
     tp = tplan.plan_fit(
         ChainedLabelEstimator(
-            prefix=convert.featurizer_bank(signs),
+            prefix=convert.featurizer_bank(signs, device="cpu"),
             est=BlockLeastSquaresEstimator(block_size=BLOCK, lam=0.01),
         ),
         torch.from_numpy(train.data),
