@@ -6,7 +6,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. card: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build: every kernel of the main path compiled from ``csrc/``;
+2. build: every kernel of the main path compiled from ``csrc/``, one
+   ``nvcc`` each, all at once; a ptxas report of the Hopper attention
+   kernels (registers, spills, stack, shared memory), which must show no
+   spill;
 3. kernels: each kernel held against its plain PyTorch version on the
    card, at the main path's shapes and a ragged one, and timed beside its
    plain version, a PyTorch library call and its bound;
@@ -21,7 +24,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    this script's own use);
 7. K2 (flash attention) and K4 (int8-dequant matmul) against their plain
    versions at the LM path's shapes and ragged ones, timed beside their
-   plain versions, a PyTorch library call and their bounds;
+   plain versions, a PyTorch library call and their bounds; K2 also at the
+   scoring path's shapes (2, 16, 8,192, 64) and (2, 4, 8,192, 64);
 8. LM main path: the bench's decode model (vocab 32,768, dim 1,024,
    depth 8, 16 heads, bf16, batch 8, 128-token prompts, 256 new tokens)
    made by ``TransformerLM.create`` on the card, in three legs — float,
@@ -38,9 +42,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 11. K3 (the ring hop) against its plain version at the ring's hop shape
    (2, 16, 2,048, 64), bf16 in and f32 state — a diagonal, a past and a
    future hop, the future one bit for bit — and at a ragged f32 shape;
-   timed beside its plain version and its bound;
+   timed beside its plain version and two bounds, f32 on CUDA cores and
+   the 1 + 3 bf16 tensor-core passes, with its count of exponentials;
 12. ring and Ulysses attention on ``create_mesh(data=4, devices=[card] *
-   4)`` at (2, 16, 8,192, 64), causal: the ring (K3, 16 launches) against
+   4)`` at (2, 16, 8,192, 64), causal: the ring (K3, 10 launches: the 6
+   hops whose block comes from a later position have no live key and are
+   not launched) against
    full-sequence K2 in f32 and against the plain ring, Ulysses (K2, 4
    launches) against full-sequence K2 in bf16; and in bf16, K2 against its
    plain version at the scoring path's own shapes — the local call (2, 16,
@@ -49,7 +56,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 13. LM scoring: ``evaluate_perplexity`` at the bench's LM width with rope
    (bf16) over 4 windows of 8,193 tokens from ``synthetic_corpus``, batch
    2, ``logit_chunk`` 2,048, in ``seq_mode`` ring, Ulysses and local on
-   the same weights: loss, tokens/s, ms per forward, launches (K3 256 in
+   the same weights: loss, tokens/s, ms per forward, launches (K3 160 in
    the ring run and never in the others, K2 64 in the Ulysses run), and a
    profile of one forward of each; ring and Ulysses losses within 1e-4
    relative of local, and one window's bf16 logits within 5e-2 (ring) and
@@ -112,6 +119,8 @@ RING_TOL = 1e-5  # of max|out|, f32 ring against full-sequence K2
 SCORE_MODE_TOL = 1e-4  # relative, bf16 losses of ring and Ulysses against local
 SCORE_LOGIT_TOL = 5e-2  # of max|logit|, bf16 ring (K3, f32 sums) against local (K2)
 F32_PEAK_OPS = 6.7e13  # H100 SXM datasheet, f32 on CUDA cores
+K3_PASSES = 1 + 3  # K3's bf16 tensor-core passes: Q·Kᵀ, then P·V as hi, mid, lo
+RING_STEPS = SCORE_RING * (SCORE_RING + 1) // 2  # live hops of a causal ring
 
 
 def check(cond: bool, msg: str) -> None:
@@ -182,15 +191,55 @@ def phase_card() -> str:
     return smi
 
 
-def phase_build(kernels) -> None:
+def ptxas_report(kernel) -> list:
+    """Each Hopper attention kernel of ``kernel``'s build, as ptxas reports
+    it: registers a thread, spill bytes, stack, and the dynamic shared
+    memory a block takes. Empty for a cached build."""
+    import ctypes
+    import re
+
+    rows, name = [], None
+    for ln in kernel.ptxas_info.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None or "attention_kernel" not in name:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            stack, st, ld = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            t = re.search(r"attention_kernelILi(\d+)ELi(\d+)E.*?(K2State|K3State)(I13__nv_bfloat16|If)?", name)
+            dmax, cons, state, out = t.groups()
+            fn = getattr(kernel.lib(), f"keystone_{kernel.name}_smem_bytes")
+            fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
+            rows.append({
+                "kernel": f"{state}<D {dmax}, {cons} consumer warpgroups"
+                          + {"I13__nv_bfloat16": ", bf16 out", "If": ", f32 out"}.get(out, "") + ">",
+                "registers": int(m.group(1)), "spill_store_bytes": st, "spill_load_bytes": ld,
+                "stack_bytes": stack, "dynamic_shared_bytes": fn(int(dmax)),
+            })
+            name = None
+    return rows
+
+
+def phase_build(kernels) -> dict:
     from keystone_tpu_torch.core.kernels import build_all
 
     t0 = time.perf_counter()
     build_all(kernels)
-    print(f"build: {len(kernels)} kernel(s) in {time.perf_counter() - t0:.1f} s")
+    build_s = time.perf_counter() - t0
+    print(f"build: {len(kernels)} kernel(s) in {build_s:.1f} s")
     for k in kernels:
         regs = [ln.strip() for ln in k.ptxas_info.splitlines() if "registers" in ln]
         print(f"  {k.name}: {'; '.join(regs) or 'cached build'}")
+    report = [r for k in kernels for r in ptxas_report(k)]
+    print("ptxas, Hopper attention kernels: " + json.dumps(report))
+    spilled = [r["kernel"] for r in report if r["spill_store_bytes"] or r["spill_load_bytes"]]
+    check(not spilled, f"a Hopper attention kernel spills: {spilled}")
+    return {"build_s": build_s, "ptxas": report}
 
 
 def main_chunk_codes(device):
@@ -273,9 +322,10 @@ def _rel(a, b) -> float:
 
 def phase_k2(device) -> dict:
     """K2 against its plain version: the prefill shape, the model's
-    max_seq, and ragged f32 cases with offsets (non-causal, and causal with
-    fully masked rows) and the lse. Timed at the prefill and max_seq
-    shapes."""
+    max_seq, the scoring path's local call (2, 16, 8,192, 64) and one
+    Ulysses position's call (2, 4, 8,192, 64), and ragged f32 cases with
+    offsets (non-causal, and causal with fully masked rows) and the lse.
+    Timed at those four shapes, each beside SDPA and its bound."""
     import torch.nn.functional as F
 
     from keystone_tpu_torch.ops import flash_attention as fa
@@ -289,7 +339,9 @@ def phase_k2(device) -> dict:
         )
 
     timed = {}
-    for name, shape in (("prefill", (8, 16, 128, 64)), ("max_seq", (8, 16, 2048, 64))):
+    for name, shape in (("prefill", (8, 16, 128, 64)), ("max_seq", (8, 16, 2048, 64)),
+                        ("scoring_local", (2, 16, SCORE_SEQ, 64)),
+                        ("scoring_ulysses_position", (2, 16 // SCORE_RING, SCORE_SEQ, 64))):
         b, h, s, d = shape
         q, k, v = qkv(b, h, s, s, d, torch.bfloat16)
         out = fa.flash_attention(q, k, v, causal=True)
@@ -301,7 +353,8 @@ def phase_k2(device) -> dict:
         check(bool(torch.isfinite(out).all()), f"K2 {shape} not finite")
         check(err <= K2_BF16_TOL, f"K2 {shape} disagrees with its plain version ({err:.3e})")
         kernel_ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=True))
-        plain_ms = device_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), reps=2)
+        plain_ms = device_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True),
+                             reps=2 if s <= 2048 else 1)
         library_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
         eager_ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True), reps=20)
         ops = 4.0 * b * h * d * s * (s + 1) / 2  # the causal triangle
@@ -354,6 +407,7 @@ def phase_k2(device) -> dict:
         "library": "torch.nn.functional.scaled_dot_product_attention(is_causal=True)",
         "timing": "device time, CUDA-graph replay; eager_call_ms is a Python call",
         "at_max_seq": timed["max_seq"],
+        "at_scoring_shapes": {n: timed[n] for n in ("scoring_local", "scoring_ulysses_position")},
         "ragged_f32": ragged,
     }
 
@@ -744,15 +798,21 @@ def phase_k3(device) -> dict:
         else:
             check(max(row["m"], row["l"], row["acc"]) <= K3_TOL,
                   f"K3 {name} hop disagrees with its plain version {row}")
-        # the operations these inputs need: valid (q, k) pairs × 4·D
+        # the operations these inputs need: valid (q, k) pairs × 4·D in f32,
+        # or × 2·D per bf16 tensor-core pass (1 for Q·Kᵀ, 3 for the split
+        # P·V), and one exponential per valid pair
         pairs = {"diagonal": s * (s + 1) / 2, "past": float(s) * s, "future": 0.0}[name]
         ops = 4.0 * b * h * d * pairs
+        tc_ops = 2.0 * b * h * d * pairs * K3_PASSES
         state_bytes = 2 * 4.0 * b * h * s * (d + 2)  # m, l, acc read and written
         qkv_bytes = 2.0 * b * h * 3 * s * d if pairs else 0.0  # a masked hop needs none
-        ops_ms = 1e3 * ops / F32_PEAK_OPS
         bytes_ms = 1e3 * (state_bytes + qkv_bytes) / HBM_BYTES_PER_S
-        row.update(bound_ms=max(ops_ms, bytes_ms),
-                   bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+        f32_ms, tc_ms = 1e3 * ops / F32_PEAK_OPS, 1e3 * tc_ops / BF16_PEAK_OPS
+        row.update(bound_ms=max(tc_ms, bytes_ms),
+                   bound_by="operations" if tc_ms >= bytes_ms else "bytes",
+                   bound_ms_tensor_core=max(tc_ms, bytes_ms),
+                   bound_ms_f32_cuda_core=max(f32_ms, bytes_ms),
+                   exponentials=b * h * pairs)
         row["ms"] = device_ms(lambda: fa.flash_attention_step(*qkv, *st, **kw))
         row["eager_call_ms"] = time_ms(lambda: fa.flash_attention_step(*qkv, *st, **kw), reps=20)
         row["plain_ms"] = device_ms(lambda: fa.flash_attention_step_plain(*qkv, *st, **kw), reps=2)
@@ -764,7 +824,9 @@ def phase_k3(device) -> dict:
             row["needed_tflops"] = ops / row["ms"] / 1e9
         print(f"K3 {name} hop {HOP} bf16 offsets ({q_off},{k_off}): relative m {row['m']:.3e} "
               f"l {row['l']:.3e} acc {row['acc']:.3e}; device: kernel {row['ms']} ms, plain "
-              f"{row['plain_ms']} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+              f"{row['plain_ms']} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+              f"tensor cores, {K3_PASSES} bf16 passes), f32 CUDA-core bound "
+              f"{row['bound_ms_f32_cuda_core']:.4f} ms, {row['exponentials']:.3g} exponentials; "
               f"eager kernel call {row['eager_call_ms']:.4f} ms"
               + (f"; SDPA over the rectangle {row['sdpa_rectangle_ms']} ms" if name == "past" else ""))
         hops[name] = row
@@ -797,6 +859,9 @@ def phase_k3(device) -> dict:
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
+        "bound_ms_tensor_core": main["bound_ms_tensor_core"],
+        "bound_ms_f32_cuda_core": main["bound_ms_f32_cuda_core"],
+        "exponentials": main["exponentials"],
         "library_ms": None,
         "library": "none: no one PyTorch call updates a carried softmax state",
         "timing": "device time, CUDA-graph replay, of the past (fully live) hop; "
@@ -821,7 +886,7 @@ def phase_ring(device) -> dict:
     ring = attention.ring_attention(q, k, v, mesh, causal=True)
     torch.cuda.synchronize()
     counts = _counts()
-    check(counts["flash_attention_step"] == SCORE_RING ** 2 and counts["flash_attention"] == 0,
+    check(counts["flash_attention_step"] == RING_STEPS and counts["flash_attention"] == 0,
           f"ring launches {counts}")
     full = fa.flash_attention(q, k, v, causal=True)
     plain = attention.ring_attention(q, k, v, mesh, causal=True, use_flash=False)
@@ -903,7 +968,7 @@ def phase_scoring(device) -> dict:
     held = synthetic_corpus(SCORE_WINDOWS * window, SCORE_CONF["vocab"], seed=7)
     forwards = -(-SCORE_WINDOWS // SCORE_BATCH)
     depth = SCORE_CONF["depth"]
-    want = {"ring": {"flash_attention_step": forwards * depth * SCORE_RING ** 2},
+    want = {"ring": {"flash_attention_step": forwards * depth * RING_STEPS},
             "ulysses": {"flash_attention": forwards * depth * SCORE_RING},
             "local": {"flash_attention": forwards * depth}}
     kw = dict(seq=SCORE_SEQ, batch=SCORE_BATCH, logit_chunk=SCORE_CHUNK)
@@ -977,7 +1042,7 @@ def phase_scoring_equivalence(device, model, mesh, held) -> dict:
         torch.cuda.synchronize()
         counts = _counts()
         local = f32(toks)
-    want = SCORE_CONF["depth"] * SCORE_RING ** 2
+    want = SCORE_CONF["depth"] * RING_STEPS
     check(counts["flash_attention_step"] == want and counts["flash_attention"] == 0,
           f"f32 ring launches {counts}")
     err = _rel(ring, local)
@@ -1079,7 +1144,7 @@ def main() -> None:
         print(json.dumps(fit_breakdown(device)))
         return
     smi = phase_card()
-    phase_build(_kernels())
+    build = phase_build(_kernels())
     k1 = phase_k1(device)
 
     gram.INT8_GRAM.launches = 0
@@ -1103,6 +1168,7 @@ def main() -> None:
     breakdown = phase_breakdown()
 
     k2 = phase_k2(device)
+    k2["ptxas"] = [r for r in build["ptxas"] if r["kernel"].startswith("K2State")]
     k4 = phase_k4(device)
     lm = phase_lm(device)
     k2["launches"] = lm["kernel_leg_launches"]["flash_attention"]
@@ -1113,6 +1179,7 @@ def main() -> None:
                                   "serving": serving}}))
 
     k3 = phase_k3(device)
+    k3["ptxas"] = [r for r in build["ptxas"] if r["kernel"].startswith("K3State")]
     ring = phase_ring(device)
     k2["at_scoring_seq"] = ring["k2_vs_plain_bf16"]
     scoring = phase_scoring(device)
@@ -1124,6 +1191,7 @@ def main() -> None:
 
     summary = {
         "card": smi,
+        "build_s": build["build_s"],
         "int8_fit_breakdown": breakdown,
         "int8": {k: res8[k] for k in ("train_error", "test_error", "fit_s",
                                       "train_samples_per_s", "total_s")},

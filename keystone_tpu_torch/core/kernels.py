@@ -3,8 +3,10 @@
 Each kernel is one ``csrc/*.cu`` file with a plain C interface, compiled
 by ``nvcc`` for ``sm_90a`` into a shared library under
 ``keystone_tpu_torch/_build/`` and loaded with ``ctypes``. A build happens
-at first use, keyed by the source's content hash, so ``python3
-chip_smoke.py`` in a fresh checkout builds everything it runs. A build
+at first use, keyed by the content hash of the source and of every
+``csrc/*.cuh`` header it includes, so ``python3 chip_smoke.py`` in a fresh
+checkout builds everything it runs and an edited header is never served
+from a stale library. A build
 failure raises; nothing falls back to a plain version.
 
 :func:`build_all` starts one ``nvcc`` per source together, so the build
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -36,6 +39,25 @@ NVCC_FLAGS = [
     "-Xptxas",
     "-v",
 ]
+
+
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.MULTILINE)
+
+
+def source_files(source: str) -> list[str]:
+    """``source`` and every header it includes with ``#include "x.cuh"``,
+    transitively, each resolved beside the file that includes it."""
+    files, todo = [], [os.path.abspath(source)]
+    while todo:
+        path = todo.pop()
+        if path in files:
+            continue
+        files.append(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        base = os.path.dirname(path)
+        todo.extend(os.path.join(base, name.decode()) for name in _INCLUDE.findall(text))
+    return files
 
 
 def find_nvcc() -> str:
@@ -71,9 +93,11 @@ class Kernel:
         self._functions: dict[str, ctypes._CFuncPtr] = {}
 
     def _target(self) -> str:
-        with open(self.source, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:16]
-        return os.path.join(BUILD_DIR, f"lib{self.name}-{digest}.so")
+        h = hashlib.sha256()
+        for path in source_files(self.source):
+            with open(path, "rb") as f:
+                h.update(os.path.basename(path).encode() + b"\0" + f.read())
+        return os.path.join(BUILD_DIR, f"lib{self.name}-{h.hexdigest()[:16]}.so")
 
     def _compile(self) -> tuple[subprocess.Popen, str, str] | None:
         """Start ``nvcc`` for this source unless its library is built;

@@ -97,7 +97,9 @@ def _ring_fwd_state(qs, ks, vs, devices, *, causal: bool, use_flash: bool):
     S_local) f32; fully masked rows carry −1e30.
 
     Positions run one after another at each hop, in hop order, so every
-    position's step of a hop is queued before the K/V blocks move on."""
+    position's step of a hop is queued before the K/V blocks move on. With
+    the fused kernel a causal hop whose block comes from a later position
+    is not launched: n(n+1)/2 steps instead of n², the same state."""
     n = len(devices)
     b, h, s_local, d = qs[0].shape
     f32 = torch.float32
@@ -115,6 +117,10 @@ def _ring_fwd_state(qs, ks, vs, devices, *, causal: bool, use_flash: bool):
         for step in range(n):
             for j in range(n):
                 owner = (j - step) % n
+                if causal and owner > j:
+                    # the block lies wholly after this q window: no live
+                    # key, and K3 would return the state bit for bit
+                    continue
                 state[j] = flash_attention_step(
                     qs[j], k_blk[j], v_blk[j], *state[j],
                     q_offset=j * s_local, k_offset=owner * s_local, causal=causal,

@@ -37,6 +37,40 @@ _MAX_D = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _tma_ready(x, d_in: int):
+    """``x`` as the Hopper kernels' TMA loads take it: rows of ``d_in``
+    elements (zero columns past D: exact, they add 0 to every product) and
+    a 16-byte-aligned base."""
+    if x.shape[-1] != d_in:
+        x = torch.nn.functional.pad(x, (0, d_in - x.shape[-1]))
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+_SCHED: dict = {}
+
+
+def _sched(device, stream: int) -> int:
+    """The two int32 (zero between launches) that the bf16 kernels'
+    persistent blocks take their work items from; each launch's last block
+    resets them. One pair per device and stream, so launches that may run
+    at once never share one. Under CUDA-graph capture a pair is made for
+    the graph and not kept."""
+    key = (device.index if device.index is not None else torch.cuda.current_device(), stream)
+    buf = _SCHED.get(key)
+    if buf is None:
+        buf = torch.zeros(2, dtype=torch.int32, device=device)
+        if not torch.cuda.is_current_stream_capturing():
+            _SCHED[key] = buf
+    return buf.data_ptr()
+
+
+def _row_width(x) -> int:
+    """The row width the kernel reads: D for f32 (CUDA cores), D rounded up
+    to a multiple of 8 for bf16 (TMA needs 16-byte rows)."""
+    d = x.shape[-1]
+    return d if x.dtype == torch.float32 else -(-d // 8) * 8
+
+
 def _scale(d: int, dtype: torch.dtype) -> float:
     """1/√D rounded to ``dtype``, as the TPU kernel casts it."""
     return float(torch.tensor(1.0 / math.sqrt(d), dtype=dtype))
@@ -113,14 +147,18 @@ def _launch(q, k, v, *, causal, q_offset, k_offset, out_dtype, return_lse):
     if b * h and s_q:
         fn = FLASH_ATTENTION.function(
             "keystone_flash_attention",
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
-            + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float]
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2,
         )
+        d_in = _row_width(q)
+        if q.dtype == torch.bfloat16:
+            q, k, v = (_tma_ready(x, d_in) for x in (q, k, v))
         code = launch_on(q.device, lambda s: fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
-            b * h, s_q, s_k, d, int(q_offset), int(k_offset), int(causal),
-            _scale(d, q.dtype), _DTYPES[q.dtype], _DTYPES[kernel_out], s,
+            b * h, s_q, s_k, d, d_in, int(q_offset), int(k_offset), int(causal),
+            _scale(d, q.dtype), _DTYPES[q.dtype], _DTYPES[kernel_out],
+            _sched(q.device, s), s,
         ))
         check_launch(FLASH_ATTENTION, code)
         FLASH_ATTENTION.launches += 1
@@ -244,14 +282,18 @@ def _launch_step(q, k_blk, v_blk, m, l, acc, *, q_offset, k_offset, causal):
     if b * h and s_q:
         fn = FLASH_ATTENTION_STEP.function(
             "keystone_flash_attention_step",
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float]
-            + [ctypes.c_int, ctypes.c_void_p],
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float]
+            + [ctypes.c_int] + [ctypes.c_void_p] * 2,
         )
+        d_in = _row_width(q)
+        if q.dtype == torch.bfloat16:
+            q, k_blk, v_blk = (_tma_ready(x, d_in) for x in (q, k_blk, v_blk))
         code = launch_on(q.device, lambda s: fn(
             q.data_ptr(), k_blk.data_ptr(), v_blk.data_ptr(), m.data_ptr(),
             l.data_ptr(), acc.data_ptr(), m_out.data_ptr(), l_out.data_ptr(),
-            acc_out.data_ptr(), b * h, s_q, s_k, d, int(q_offset), int(k_offset),
-            int(causal), 1.0 / math.sqrt(d), _DTYPES[q.dtype], s,
+            acc_out.data_ptr(), b * h, s_q, s_k, d, d_in, int(q_offset),
+            int(k_offset), int(causal), 1.0 / math.sqrt(d), _DTYPES[q.dtype],
+            _sched(q.device, s), s,
         ))
         check_launch(FLASH_ATTENTION_STEP, code)
         FLASH_ATTENTION_STEP.launches += 1

@@ -123,6 +123,13 @@ def _qkv(card, seed, b, h, s_q, s_k, d, dtype):
         ((1, 4, 300, 200, 128), torch.bfloat16, False, (0, 0)),  # D = 128
         ((2, 2, 100, 130, 36), torch.bfloat16, True, (0, 30)),  # D not a multiple of 8
         ((1, 2, 65, 65, 100), torch.float32, True, (0, 0)),
+        # the Hopper tiles: 192 q rows a block (128 at D > 64), 64 keys
+        ((1, 3, 200, 333, 64), torch.bfloat16, True, (70, 30)),  # ragged S, offsets
+        ((2, 2, 191, 193, 64), torch.bfloat16, False, (0, 0)),  # one row short of a block
+        ((1, 2, 385, 260, 64), torch.bfloat16, True, (125, 0)),
+        ((2, 2, 257, 257, 128), torch.bfloat16, True, (5, 69)),  # D = 128, causal
+        ((1, 3, 150, 97, 36), torch.bfloat16, False, (3, 1)),  # D padded to 40
+        ((1, 2, 70, 90, 100), torch.bfloat16, True, (0, 0)),  # D padded to 104
     ],
 )
 def test_k2_matches_plain(card, shape, dtype, causal, offsets):
@@ -153,6 +160,29 @@ def test_k2_bf16_in_f32_out(card):
     )
     assert out.dtype == torch.float32
     assert _rel(out, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("d", [36, 64, 128])
+def test_k2_bf16_in_f32_out_with_lse_and_masked_rows(card, d):
+    """bf16 in, f32 out, with the lse, on the Hopper path: rows whose
+    position precedes every key output 0 and an lse of −1e30. The output is
+    held at the bf16 tolerance: both sides round p to bf16, and an
+    exponential an ulp apart can round one p to the neighbouring bf16
+    value (one bf16 step; it reads 2.6e-4 at D = 36 on an H100). The lse
+    takes f32 p and stays at 1e-5."""
+    from keystone_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = _qkv(card, d, 1, 3, 203, 150, d, torch.float32)
+    kw = dict(causal=True, q_offset=2, k_offset=70, return_lse=True)
+    out, lse = fa.flash_attention(q, k, v, mxu_dtype=torch.bfloat16, **kw)
+    ref, ref_lse = fa.flash_attention_plain(
+        *(x.to(torch.bfloat16) for x in (q, k, v)), out_dtype=torch.float32, **kw
+    )
+    dead = 2 + torch.arange(203, device=card) < 70
+    assert out.dtype == torch.float32 and _rel(out, ref) <= K2_BF16_TOL
+    assert torch.all(out[:, :, dead] == 0) and torch.all(lse[:, :, dead] <= -1e29)
+    live = ref_lse[:, :, ~dead]
+    assert float((lse[:, :, ~dead] - live).abs().max()) <= 1e-5 * max(1.0, float(live.abs().max()))
 
 
 def test_k2_wrapper_rejects_bad_inputs(card):
@@ -311,6 +341,13 @@ def _k3_close(got, want, state_in):
         ((1, 2, 130, 200, 128), torch.bfloat16, False, (0, 0), False),  # D = 128
         ((2, 2, 100, 130, 36), torch.bfloat16, True, (64, 30), True),  # D not a multiple of 4
         ((1, 2, 33, 0, 16), torch.float32, False, (0, 0), False),  # an empty K/V block
+        # the Hopper tiles, carried state: a ragged diagonal hop, offsets not
+        # multiples of 64, D = 128 and padded D
+        ((1, 3, 333, 333, 64), torch.bfloat16, True, (333, 333), False),
+        ((2, 2, 200, 130, 64), torch.bfloat16, True, (100, 37), False),
+        ((1, 2, 200, 150, 128), torch.bfloat16, True, (100, 37), False),
+        ((1, 2, 150, 100, 100), torch.bfloat16, False, (0, 0), False),
+        ((1, 2, 33, 0, 64), torch.bfloat16, False, (0, 0), False),  # an empty K/V block
     ],
 )
 def test_k3_matches_plain(card, shape, dtype, causal, offsets, fresh):
@@ -370,10 +407,15 @@ def test_ring_on_repeated_card_matches_k2(card):
     before = fa.FLASH_ATTENTION_STEP.launches
     out = attention.ring_attention(q, k, v, mesh, causal=True)
     torch.cuda.synchronize()
-    assert fa.FLASH_ATTENTION_STEP.launches == before + 16
+    # 4 positions, causal: the 6 hops with a block from a later position
+    # have no live key and are not launched
+    assert fa.FLASH_ATTENTION_STEP.launches == before + 10
     assert _rel(out, fa.flash_attention(q, k, v, causal=True)) <= K3_TOL
     plain = attention.ring_attention(q, k, v, mesh, causal=True, use_flash=False)
-    assert fa.FLASH_ATTENTION_STEP.launches == before + 16
+    assert fa.FLASH_ATTENTION_STEP.launches == before + 10
+    nc = attention.ring_attention(q, k, v, mesh, causal=False)
+    assert fa.FLASH_ATTENTION_STEP.launches == before + 10 + 16
+    assert _rel(nc, fa.flash_attention(q, k, v, causal=False)) <= K3_TOL
     assert _rel(out, plain) <= K3_TOL
     qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
     k2 = fa.FLASH_ATTENTION.launches
@@ -396,7 +438,7 @@ def test_cpu_tensors_on_a_card_mesh_launch_the_kernels(card):
     k3, k2 = fa.FLASH_ATTENTION_STEP.launches, fa.FLASH_ATTENTION.launches
     ring = attention.ring_attention(q, k, v, mesh, causal=True)
     uly = attention.ulysses_attention(q, k, v, mesh, causal=True)
-    assert fa.FLASH_ATTENTION_STEP.launches == k3 + 16
+    assert fa.FLASH_ATTENTION_STEP.launches == k3 + 10  # causal: 10 live hops
     assert fa.FLASH_ATTENTION.launches == k2 + 4
     assert ring.device.type == "cpu" and uly.device.type == "cpu"
     assert _rel(ring, want) <= K3_TOL and _rel(uly, want) <= K3_TOL
@@ -417,7 +459,7 @@ def test_ring_lm_on_card_matches_local(card):
     before = fa.FLASH_ATTENTION_STEP.launches
     with torch.inference_mode():
         got, want = ring(toks), local(toks)
-    assert fa.FLASH_ATTENTION_STEP.launches == before + 2 * 16
+    assert fa.FLASH_ATTENTION_STEP.launches == before + 2 * 10  # causal: 10 live hops
     assert _rel(got, want) <= 1e-4
     held = synthetic_corpus(4 * 257, 97, seed=2)
     r = evaluate_perplexity(ring, held, seq=256, batch=2, logit_chunk=64)

@@ -141,3 +141,98 @@ def test_trainable_rejects_causal_cross_and_has_no_backward():
     torch.testing.assert_close(out, flash.flash_attention(q, k, v), rtol=0, atol=0)
     with pytest.raises(NotImplementedError, match="training slice"):
         out.sum().backward()
+
+
+# --- K3's tensor-core arithmetic, emulated in f32 ------------------------------
+
+
+def _bf16_cut(x):
+    """x (f32) cut to its top 16 bits, a bf16 value, as the kernel cuts it."""
+    return (x.view(torch.int32) & -65536).view(torch.float32).to(torch.bfloat16)
+
+
+def _split3(p, to_bf16=_bf16_cut):
+    """p (f32) split for K3's three bf16 P·V passes: hi = bf16(p), mid =
+    bf16(p − hi), lo = bf16(p − hi − mid), each bf16 taken from the f32
+    rest by ``to_bf16`` (the kernel cuts; rounding to nearest splits
+    exactly too)."""
+    parts = []
+    for _ in range(3):
+        part = to_bf16(p)
+        parts.append(part)
+        p = p - part.to(torch.float32)
+    return parts, p
+
+
+@pytest.mark.parametrize("to_bf16", [_bf16_cut, lambda x: x.to(torch.bfloat16)],
+                         ids=["cut", "nearest"])
+def test_three_bf16_parts_sum_back_exactly(to_bf16):
+    """3 × 8 bits of significand hold an f32's 24: the parts add back to p
+    exactly, with nothing left, from 1 down past 1e-20."""
+    rng = np.random.default_rng(29)
+    p = np.concatenate([
+        rng.random(100_000),
+        10.0 ** rng.uniform(-30, -20, 10_000),  # far below 1e-20
+        [0.0, 1.0, 1e-20, 2.0 ** -126],
+    ]).astype(np.float32)
+    pt = torch.from_numpy(p)
+    (hi, mid, lo), rest = _split3(pt, to_bf16)
+    assert torch.all(rest == 0)
+    assert torch.equal(hi.float() + mid.float() + lo.float(), pt)
+    assert (pt < 1e-20).sum() >= 10_000
+
+
+def _k3_emulated(q, k, v, m, l, acc, *, q_offset, k_offset, causal):
+    """K3's bf16 path in f32, step by step: Q·Kᵀ of the unscaled bf16 q and
+    k (exact products, f32 sums), s·(1/√D) in f32 after it, p in f32 with l
+    summed from it, and P·V as three bf16 passes (hi, mid, lo) into one f32
+    accumulator, each part cut from the f32 rest as the kernel cuts it;
+    64-key tiles, causal tiles past the window skipped."""
+    f32 = torch.float32
+    s_q, d = q.shape[2], q.shape[3]
+    scale = torch.tensor(1.0 / np.sqrt(d), dtype=f32)
+    qf, kf, vf = (x.to(f32) for x in (q, k, v))
+    m, l, acc = m[..., None].clone(), l[..., None].clone(), acc.clone()
+    q_pos = q_offset + torch.arange(s_q)[:, None]
+    for t in range(flash._live_key_tiles(s_q, k.shape[2], q_offset, k_offset, causal)):
+        kt, vt = kf[:, :, 64 * t : 64 * t + 64], vf[:, :, 64 * t : 64 * t + 64]
+        s = (qf @ kt.transpose(-1, -2)) * scale
+        valid = (q_pos >= k_offset + 64 * t + torch.arange(kt.shape[2])[None, :]) if causal \
+            else torch.ones(s.shape[-2:], dtype=torch.bool)
+        s = torch.where(valid, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.where(m_new == m, 1.0, torch.exp(m - m_new))
+        p = torch.where(valid, torch.exp(s - m_new), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha
+        for part in _split3(p)[0]:
+            acc = acc + part.to(f32) @ vt
+        m = m_new
+    return m[..., 0], l[..., 0], acc
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_k3_tensor_core_arithmetic_matches_plain_and_jax(causal):
+    """The emulation of K3's split arithmetic against K3's plain version and
+    the JAX package's flash_attention_step (Pallas, interpret mode) on the
+    same bf16 inputs and carried state, at a ragged shape (S_q 80, S_k 72,
+    D 40, so 1/√D is no power of two), within 1e-5 of max|state|."""
+    rng = np.random.default_rng(31)
+    b, h, s_q, s_k, d = 1, 2, 80, 72, 40
+    q, k, v = (rng.normal(size=(b, h, s, d)).astype(np.float32) for s in (s_q, s_k, s_k))
+    m = rng.normal(size=(b, h, s_q)).astype(np.float32)
+    l = (np.abs(rng.normal(size=(b, h, s_q))) + 0.5).astype(np.float32)
+    acc = rng.normal(size=(b, h, s_q, d)).astype(np.float32)
+    kw = dict(q_offset=40, k_offset=20, causal=causal)
+    qb, kb, vb = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    state = tuple(torch.from_numpy(x) for x in (m, l, acc))
+    got = _k3_emulated(qb, kb, vb, *state, **kw)
+    plain = flash.flash_attention_step_plain(qb, kb, vb, *state, **kw)
+    jax_out = jflash.flash_attention_step(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), *(jnp.asarray(x) for x in (m, l, acc)), **kw
+    )
+    for g, p_, j_ in zip(got, plain, jax_out):
+        j_ = np.asarray(j_, np.float32)
+        tol = F32_TOL * max(1.0, float(np.abs(j_).max()))
+        np.testing.assert_allclose(g.numpy(), p_.numpy(), rtol=0, atol=tol)
+        np.testing.assert_allclose(g.numpy(), j_, rtol=0, atol=tol)

@@ -190,9 +190,52 @@ def test_ring_defaults_to_plain_on_cpu(monkeypatch, qkv, cpu_mesh):
     attention.ring_attention(q, k, v, cpu_mesh, causal=True)
     assert calls == []
     attention.ring_attention(q, k, v, cpu_mesh, causal=True, use_flash=True)
-    assert len(calls) == N * N  # every position at every hop
-    # hop 1: position j holds position j-1's block
-    assert calls[N : 2 * N] == [((j - 1) % N) * (S // N) for j in range(N)]
+    # every position at every hop, but a causal block from a later position
+    assert len(calls) == N * (N + 1) // 2
+    # hop 1: position j holds position j-1's block; position 0's block (from
+    # position N-1) lies after its window and is skipped
+    assert calls[N : 2 * N - 1] == [((j - 1) % N) * (S // N) for j in range(1, N)]
+
+
+def _ring_without_skip(q, k, v, causal):
+    """The fused ring's arithmetic with every one of the n² hops stepped."""
+    sl = S // N
+    qs, ks, vs = (list(x.split(sl, dim=2)) for x in (q, k, v))
+    outs = []
+    for j in range(N):
+        state = (torch.full((B, H, sl), -1e30), torch.zeros((B, H, sl)),
+                 torch.zeros((B, H, sl, D)))
+        for step in range(N):
+            owner = (j - step) % N
+            state = flash.flash_attention_step(
+                qs[j].contiguous(), ks[owner].contiguous(), vs[owner].contiguous(), *state,
+                q_offset=j * sl, k_offset=owner * sl, causal=causal,
+            )
+        m, l, acc = state
+        outs.append(acc / torch.clamp_min(l, 1e-30)[..., None])
+    return torch.cat(outs, dim=2)
+
+
+@pytest.mark.parametrize("causal,steps", [(True, N * (N + 1) // 2), (False, N * N)])
+def test_fused_ring_skips_masked_hops_exactly(monkeypatch, qkv, cpu_mesh, causal, steps):
+    """A causal hop whose block comes from a later position has no live
+    key: the ring does not step it (10 steps over 4 positions, 16 without
+    causality), and its output equals a ring that steps every hop, bit for
+    bit."""
+    q, k, v = (torch.from_numpy(x) for x in qkv)
+    want = _ring_without_skip(q, k, v, causal)
+    calls = []
+    real = attention.flash_attention_step
+
+    def counting(*a, **kw):
+        calls.append((kw["q_offset"], kw["k_offset"]))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(attention, "flash_attention_step", counting)
+    got = attention.ring_attention(q, k, v, cpu_mesh, causal=causal, use_flash=True)
+    assert len(calls) == steps
+    assert all(qo >= ko for qo, ko in calls) or not causal
+    assert torch.equal(got, want)
 
 
 def test_flash_default_reads_the_mesh_positions():
