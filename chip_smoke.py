@@ -7,12 +7,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. card: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
 2. build: every kernel of the main path compiled from ``csrc/``, one
-   ``nvcc`` each, all at once; a ptxas report of the Hopper attention
-   kernels (registers, spills, stack, shared memory), which must show no
+   ``nvcc`` each, all at once; a ptxas report of the Hopper kernels (K1's
+   transpose and Gram kernels, K2's and K3's attention mainloop, K4's
+   variants: registers, spills, stack, shared memory), which must show no
    spill;
-3. kernels: each kernel held against its plain PyTorch version on the
-   card, at the main path's shapes and a ragged one, and timed beside its
-   plain version, a PyTorch library call and its bound;
+3. K1 held against its plain version on the card bit for bit, at the main
+   path's chunk and ragged shapes (and against the exact integer Gram on
+   the CPU at the ragged ones), its result exactly symmetric; timed beside
+   its plain version, two ``torch._int_mm`` yardsticks and its bound, with
+   its rate in TOP/s;
 4. main path: ``mnist_random_fft.main`` with ``KEYSTONE_PLAN=1`` and
    ``KEYSTONE_GRAM_OP=int8`` at MNIST's size (60,000 train rows, D =
    16,384): the plan must pick int8, K1 must launch once per fit chunk,
@@ -24,7 +27,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    this script's own use);
 7. K2 (flash attention) and K4 (int8-dequant matmul) against their plain
    versions at the LM path's shapes and ragged ones, timed beside their
-   plain versions, a PyTorch library call and their bounds; K2 also at the
+   plain versions, a PyTorch library call and their bounds; K4 replayed
+   three times from a CUDA graph gives its eager bits; K2 also at the
    scoring path's shapes (2, 16, 8,192, 64) and (2, 4, 8,192, 64);
 8. LM main path: the bench's decode model (vocab 32,768, dim 1,024,
    depth 8, 16 heads, bf16, batch 8, 128-token prompts, 256 new tokens)
@@ -32,7 +36,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    int8 weights through ``quantization.mm``, int8 weights through K4 —
    each timed by the delta method (prefill ms, ms per step, tokens/s).
    K2 must launch once per layer per prefill; K4 6·depth·255 times in the
-   K4 leg and never in the others;
+   K4 leg and never in the others; each leg's decode profile, with K4's
+   summed device ms per step in the K4 leg;
 9. the same weights in f32: prefill and 32 teacher-forced decode steps
    through the kernels (flash, K4) and through the plain path (dense
    attention, ``quantization.mm``) give logits within 1e-4 of max|logit|
@@ -191,11 +196,44 @@ def phase_card() -> str:
     return smi
 
 
-def ptxas_report(kernel) -> list:
-    """Each Hopper attention kernel of ``kernel``'s build, as ptxas reports
-    it: registers a thread, spill bytes, stack, and the dynamic shared
-    memory a block takes. Empty for a cached build."""
+def _kernel_label(kernel, name: str):
+    """The report's label of a compiled entry function and its dynamic
+    shared memory, or None for a function the report does not cover."""
     import ctypes
+    import re
+
+    lib = kernel.lib()
+    t = re.search(r"attention_kernelILi(\d+)ELi(\d+)E.*?(K2State|K3State)(I13__nv_bfloat16|If)?", name)
+    if t:
+        dmax, cons, state, out = t.groups()
+        fn = getattr(lib, f"keystone_{kernel.name}_smem_bytes")
+        fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
+        return (f"{state}<D {dmax}, {cons} consumer warpgroups"
+                + {"I13__nv_bfloat16": ", bf16 out", "If": ", f32 out"}.get(out, "") + ">",
+                fn(int(dmax)))
+    if "gram_kernel" in name:
+        fn = lib.keystone_int8_gram_smem_bytes
+        fn.restype, fn.argtypes = ctypes.c_int, []
+        return "K1 gram_kernel<128 x 256 tiles, wgmma s8>", fn()
+    t = re.search(r"transpose_kernelILb(\d)E", name)
+    if t:
+        return f"K1 transpose_kernel<{'16-byte' if t.group(1) == '1' else 'byte'} loads>", 0
+    t = re.search(r"int8_matmul_kernelI(13__nv_bfloat16|f)Li(\d+)ELb(\d)ELb(\d)E", name)
+    if t:
+        dt, rows, vec, asy = t.groups()
+        fn = lib.keystone_int8_matmul_smem_bytes
+        fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
+        bf16 = dt != "f"
+        return (f"K4 int8_matmul_kernel<{'bf16' if bf16 else 'f32'}, {rows} rows"
+                f"{', 16-byte loads' if vec == '1' else ''}{', cp.async y' if asy == '1' else ''}>",
+                fn(int(rows) if bf16 else 0))
+    return None
+
+
+def ptxas_report(kernel) -> list:
+    """Each Hopper kernel of ``kernel``'s build, as ptxas reports it:
+    registers a thread, spill bytes, stack, static and dynamic shared
+    memory of a block. Empty for a cached build."""
     import re
 
     rows, name = [], None
@@ -204,23 +242,22 @@ def ptxas_report(kernel) -> list:
         if m:
             name = m.group(1)
             continue
-        if name is None or "attention_kernel" not in name:
+        if name is None:
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
             stack, st, ld = map(int, m.groups())
         m = re.search(r"Used (\d+) registers", ln)
         if m:
-            t = re.search(r"attention_kernelILi(\d+)ELi(\d+)E.*?(K2State|K3State)(I13__nv_bfloat16|If)?", name)
-            dmax, cons, state, out = t.groups()
-            fn = getattr(kernel.lib(), f"keystone_{kernel.name}_smem_bytes")
-            fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
-            rows.append({
-                "kernel": f"{state}<D {dmax}, {cons} consumer warpgroups"
-                          + {"I13__nv_bfloat16": ", bf16 out", "If": ", f32 out"}.get(out, "") + ">",
-                "registers": int(m.group(1)), "spill_store_bytes": st, "spill_load_bytes": ld,
-                "stack_bytes": stack, "dynamic_shared_bytes": fn(int(dmax)),
-            })
+            label = _kernel_label(kernel, name)
+            if label is not None:
+                static = re.search(r"(\d+) bytes smem", ln)
+                rows.append({
+                    "kernel": label[0], "registers": int(m.group(1)),
+                    "spill_store_bytes": st, "spill_load_bytes": ld, "stack_bytes": stack,
+                    "static_shared_bytes": int(static.group(1)) if static else 0,
+                    "dynamic_shared_bytes": label[1],
+                })
             name = None
     return rows
 
@@ -236,9 +273,9 @@ def phase_build(kernels) -> dict:
         regs = [ln.strip() for ln in k.ptxas_info.splitlines() if "registers" in ln]
         print(f"  {k.name}: {'; '.join(regs) or 'cached build'}")
     report = [r for k in kernels for r in ptxas_report(k)]
-    print("ptxas, Hopper attention kernels: " + json.dumps(report))
+    print("ptxas, Hopper kernels (K1, K2/K3 mainloop, K4): " + json.dumps(report))
     spilled = [r["kernel"] for r in report if r["spill_store_bytes"] or r["spill_load_bytes"]]
-    check(not spilled, f"a Hopper attention kernel spills: {spilled}")
+    check(not spilled, f"a Hopper kernel spills: {spilled}")
     return {"build_s": build_s, "ptxas": report}
 
 
@@ -262,6 +299,12 @@ def main_chunk_codes(device):
 
 
 def phase_k1(device) -> dict:
+    """K1 against its plain version, bit for bit: the main path's first
+    chunk and ragged shapes (D ∈ {1, 127, 300, 1,000}, N % 16 ≠ 0, N = 0),
+    the ragged ones also against the exact integer Gram on the CPU (the
+    integer form of ``ata_int8_xla``); every result exactly symmetric.
+    Timed at the main chunk beside its plain version, two ``torch._int_mm``
+    yardsticks and its bound."""
     from keystone_tpu_torch.ops import gram
 
     q = main_chunk_codes(device)
@@ -271,31 +314,52 @@ def phase_k1(device) -> dict:
     ref = gram.int8_gram_plain(q)
     max_abs = float((out - ref).abs().max())
     rel = max_abs / float(ref.abs().max())
-    print(f"K1 {n}x{d}: max|kernel-plain| = {max_abs:.3e}, relative {rel:.3e}")
+    exact = bool(torch.equal(out, ref))
+    symmetric = bool(torch.equal(out, out.T))
+    del ref
+    print(f"K1 {n}x{d}: max|kernel-plain| = {max_abs:.3e}, relative {rel:.3e}, "
+          f"bit for bit {exact}, symmetric {symmetric}")
     check(bool(torch.isfinite(out).all()), "K1 output not finite")
     check(rel <= K1_MAX_REL_ERR, f"K1 disagrees with its plain version ({rel:.3e})")
+    check(exact, "K1 is not bit for bit its plain version at the main chunk")
+    check(symmetric, "K1's result is not exactly symmetric")
+    del out
 
     gen = torch.Generator(device=device).manual_seed(1)
-    ragged = torch.randint(-127, 128, (1000, 300), dtype=torch.int8,
-                           device=device, generator=gen)
-    r_out, r_ref = gram.int8_gram(ragged), gram.int8_gram_plain(ragged)
-    r_rel = float((r_out - r_ref).abs().max()) / float(r_ref.abs().max())
-    print(f"K1 1000x300 (ragged): relative {r_rel:.3e}")
-    check(r_rel <= K1_MAX_REL_ERR, f"K1 ragged disagrees ({r_rel:.3e})")
+    ragged, r_rel = {}, 0.0
+    for rn, rd in ((1000, 300), (1037, 1), (515, 127), (517, 1000), (0, 300)):
+        r = torch.randint(-127, 128, (rn, rd), dtype=torch.int8, device=device, generator=gen)
+        r_out, r_ref = gram.int8_gram(r), gram.int8_gram_plain(r)
+        torch.cuda.synchronize()
+        integer = (r.cpu().long().T @ r.cpu().long()).float()
+        same = (bool(torch.equal(r_out, r_ref)) and bool(torch.equal(r_out.cpu(), integer))
+                and bool(torch.equal(r_out, r_out.T)))
+        r_rel = max(r_rel, _rel(r_out, r_ref) if rn else 0.0)
+        ragged[f"{rn}x{rd}"] = same
+        check(same, f"K1 {rn}x{rd}: not bit for bit its plain version and the integer Gram")
+    print(f"K1 ragged shapes bit for bit (plain, CPU integer Gram, symmetric): {ragged}")
 
     qt = q.t().contiguous()  # torch._int_mm takes row-major operands
     kernel_ms = time_ms(lambda: gram.int8_gram(q))
     plain_ms = time_ms(lambda: gram.int8_gram_plain(q), reps=2)
-    library_ms = time_ms(lambda: torch._int_mm(qt, q))
+    # torch._int_mm(qt, q) hands cuBLASLt a row-major B it may copy first;
+    # (qt, qt.t()) is A row-major, B column-major, the layouts its int8
+    # path takes as they are
+    int_mm_ms = {"torch._int_mm(qt, q)": time_ms(lambda: torch._int_mm(qt, q)),
+                 "torch._int_mm(qt, qt.t())": time_ms(lambda: torch._int_mm(qt, qt.t()))}
+    library = min(int_mm_ms, key=int_mm_ms.get)
+    library_ms = int_mm_ms[library]
     # qᵀq is symmetric: its D(D+1)/2 distinct entries take N multiply-adds
     # each; the whole (D, D) f32 result is still written once
     ops = float(n) * d * (d + 1)
     traffic = n * d + 4.0 * d * d  # int8 codes read once, f32 Gram written once
     ops_ms, bytes_ms = 1e3 * ops / INT8_PEAK_OPS, 1e3 * traffic / HBM_BYTES_PER_S
     bound_ms = max(ops_ms, bytes_ms)
-    print(f"K1 times: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"torch._int_mm {library_ms:.3f} ms, bound {bound_ms:.3f} ms "
-          f"(needed ops at {ops / kernel_ms / 1e9:.1f} TOP/s)")
+    tops = ops / kernel_ms / 1e9
+    print(f"K1 times: kernel {kernel_ms:.3f} ms ({tops:.1f} TOP/s of the needed ops, "
+          f"{tops / (INT8_PEAK_OPS / 1e12):.1%} of the int8 peak), plain {plain_ms:.3f} ms, "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in int_mm_ms.items())
+          + f", bound {bound_ms:.3f} ms")
     return {
         "name": "int8_gram",
         "route": "cuda",
@@ -305,12 +369,17 @@ def phase_k1(device) -> dict:
         "launches": None,  # filled from the main path's run
         "max_abs_err": max_abs,
         "max_rel_err": rel,
+        "bit_for_bit": exact,
         "ragged_max_rel_err": r_rel,
+        "ragged_bit_for_bit": ragged,
         "ms": kernel_ms,
+        "tops": tops,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": library_ms,
+        "library": library,
+        "int_mm_ms": int_mm_ms,
     }
 
 
@@ -456,9 +525,29 @@ def phase_k4(device) -> dict:
                      if m == 8 else ""))
             shapes.append(row)
 
+    # one launch, replayed: a CUDA graph of one call gives the eager bits
+    # on every replay (nothing carried between launches)
+    m, k, n = 8, 1024, 4096
+    w = quantize_int8(torch.randn((k, n), generator=gen, device=device))
+    y = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+    eager = im.mm_fused(y, w)
+    im.mm_fused(y, w)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = im.mm_fused(y, w)
+    replays_equal = True
+    for _ in range(3):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        replays_equal &= bool(torch.equal(captured, eager))
+    del graph
+    print(f"K4 {m}x{k}x{n} bf16: 3 CUDA-graph replays give the eager bits: {replays_equal}")
+    check(replays_equal, "K4 under CUDA-graph replay differs from its eager call")
+
     # the library yardstick: one PyTorch call for the same function, if
     # this build runs it on CUDA
-    m, k, n = 8, 1024, 4096
     w = quantize_int8(torch.randn((k, n), generator=gen, device=device))
     y = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
     q_nk, scales = w.q.t().contiguous(), w.scale[0].to(torch.bfloat16).contiguous()
@@ -490,6 +579,7 @@ def phase_k4(device) -> dict:
         "library": library,
         "timing": "device time, CUDA-graph replay; eager_* are Python calls",
         "two_call_ms": main["two_call_ms"],
+        "graph_replays_equal": replays_equal,
         "shapes": shapes,
     }
 
@@ -521,10 +611,11 @@ def _wall(fn, iters: int) -> float:
     return (time.perf_counter() - t0) / iters
 
 
-def device_profile(step, steps: int) -> dict | None:
+def device_profile(step, steps: int, track: str = "int8_matmul") -> dict | None:
     """``steps`` calls of an already warm ``step`` under torch.profiler:
     the device's busy share of the wall time, kernels launched per call,
-    and the kernels that take the most device time. None, with the reason
+    the kernels that take the most device time, and the device time per
+    call of the kernels whose name holds ``track``. None, with the reason
     printed, when the profiler shows no device time on this machine."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -551,8 +642,11 @@ def device_profile(step, steps: int) -> dict | None:
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
     kernels = sum(r[1] for r in rows)
+    tracked = [(us, c) for us, c, k in rows if track in k]
     return {
         "steps": steps,
+        f"{track}_ms_per_step": sum(us for us, _ in tracked) / 1e3 / steps,
+        f"{track}_launches_per_step": sum(c for _, c in tracked) / steps,
         "wall_ms_per_step": wall * 1e3 / steps,
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
         "device_busy_share": busy_us / 1e6 / wall,
@@ -625,6 +719,8 @@ def phase_lm(device) -> dict:
         prof = decode_profile(m, prompt)
         if prof is not None:
             print(f"LM [{name}] decode step profile: wall {prof['wall_ms_per_step']:.3f} ms, "
+                  f"K4 {prof['int8_matmul_ms_per_step']:.4f} ms in "
+                  f"{prof['int8_matmul_launches_per_step']:.0f} launches, "
                   f"device busy {prof['device_busy_ms_per_step']:.3f} ms "
                   f"({prof['device_busy_share']:.1%}), {prof['device_kernels_per_step']:.0f} "
                   f"kernels a step; top: "
@@ -1168,11 +1264,15 @@ def main() -> None:
     breakdown = phase_breakdown()
 
     k2 = phase_k2(device)
+    k1["ptxas"] = [r for r in build["ptxas"] if r["kernel"].startswith("K1")]
     k2["ptxas"] = [r for r in build["ptxas"] if r["kernel"].startswith("K2State")]
     k4 = phase_k4(device)
     lm = phase_lm(device)
     k2["launches"] = lm["kernel_leg_launches"]["flash_attention"]
     k4["launches"] = lm["kernel_leg_launches"]["int8_matmul"]
+    k4["ptxas"] = [r for r in build["ptxas"] if r["kernel"].startswith("K4")]
+    k4_prof = lm["legs"]["int8_kernel"]["decode_profile"]
+    k4["decode_step_ms"] = k4_prof and k4_prof["int8_matmul_ms_per_step"]
     equiv = phase_equivalence(device, lm.pop("model"))
     serving = phase_serving(device, lm.pop("qmodel"))
     print(json.dumps({"lm_path": {"card": smi, **lm, "equivalence": equiv,

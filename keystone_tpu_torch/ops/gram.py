@@ -29,9 +29,15 @@ ENV_GRAM_OP = "KEYSTONE_GRAM_OP"
 ENV_INT8_MAX_ERR = "KEYSTONE_GRAM_INT8_MAX_ERR"
 _DEFAULT_INT8_MAX_ERR = 0.03
 
-# rows per exact int32 partial: 512·127² < 2²⁴, so each partial is also
-# exact in f32 and only the sum of partials rounds
-K_TILE = 512
+# rows per exact int32 segment: with |code| ≤ 127 a segment's sums stay
+# below 131,072·127² < 2³¹; each segment is rounded once to f32 and the
+# segments are added in f32 in row order. A fit chunk is one segment, so
+# the result is ata_int8_xla's qᵀq (contracted in int32, rounded once).
+SEGMENT_ROWS = 131072
+
+# K1's output tiles: 128 rows (i) × 256 columns (j), and how many column
+# panels a band of its tile order spans
+TILE_I, TILE_J, TILE_BAND = 128, 256, 8
 
 INT8_GRAM = Kernel("int8_gram", "int8_gram.cu")
 
@@ -69,17 +75,46 @@ def _quantize_cols(a):
 
 
 def int8_gram_plain(q: torch.Tensor) -> torch.Tensor:
-    """K1's plain version: ``qᵀq`` as f32, each 512-row tile's product
-    computed exactly (int32 on the CPU; float64 on CUDA, exact for these
-    integers) and the tiles summed in f32 in row order — the kernel's
-    arithmetic, so the two agree bit for bit."""
+    """K1's plain version: ``qᵀq`` as f32, each segment of
+    :data:`SEGMENT_ROWS` rows contracted exactly (int64 on the CPU; float64
+    on CUDA, exact below 2⁵³), rounded once to f32, and the segments summed
+    in f32 in row order — the kernel's arithmetic, so the two agree bit for
+    bit."""
     n, d = q.shape
-    exact = torch.int32 if q.device.type == "cpu" else torch.float64
+    exact = torch.int64 if q.device.type == "cpu" else torch.float64
     out = torch.zeros((d, d), dtype=torch.float32, device=q.device)
-    for start in range(0, n, K_TILE):
-        tile = q[start : start + K_TILE].to(exact)
-        out += (tile.T @ tile).to(torch.float32)
+    for start in range(0, n, SEGMENT_ROWS):
+        seg = q[start : start + SEGMENT_ROWS].to(exact)
+        out += (seg.T @ seg).to(torch.float32)
     return out
+
+
+def gram_tiles(d: int) -> np.ndarray:
+    """The (I, J) output tiles K1 computes for a (d, d) Gram, in its order:
+    the 128 × 256 tiles that hold an entry with i ≤ j (tile (I, J) does when
+    128·I ≤ 256·J + 255), in bands of :data:`TILE_BAND` column panels, rows
+    ascending within a band. Blocks that run at once then share a few
+    panels of qᵀ in L2. Shape (tiles, 2), int32."""
+    n_i, n_j = -(-d // TILE_I), -(-d // TILE_J)
+    out = []
+    for j0 in range(0, n_j, TILE_BAND):
+        j1 = min(n_j, j0 + TILE_BAND)
+        for i in range(min(n_i, 2 * j1)):
+            out.extend((i, j) for j in range(max(j0, i // 2), j1))
+    return np.asarray(out, dtype=np.int32).reshape(-1, 2)
+
+
+_TILES: dict = {}
+
+
+def _tiles_on(device, d: int) -> torch.Tensor:
+    """:func:`gram_tiles` of ``d`` on ``device``, made once per pair."""
+    key = (device.index, d)
+    tiles = _TILES.get(key)
+    if tiles is None:
+        tiles = torch.from_numpy(gram_tiles(d)).to(device)
+        _TILES[key] = tiles
+    return tiles
 
 
 def int8_gram(q: torch.Tensor) -> torch.Tensor:
@@ -97,12 +132,19 @@ def int8_gram(q: torch.Tensor) -> torch.Tensor:
     out = torch.empty((d, d), dtype=torch.float32, device=q.device)
     if d == 0:
         return out
+    # qᵀ with 16-byte rows (TMA's pitch), zeros past row n: the kernel's scratch
+    pitch = max(16, -(-n // 16) * 16)
+    qt = torch.empty((d, pitch), dtype=torch.int8, device=q.device)
+    tiles = _tiles_on(q.device, d)
     fn = INT8_GRAM.function(
         "keystone_int8_gram",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-         ctypes.c_void_p],
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_longlong] * 3
+        + [ctypes.c_void_p],
     )
-    code = launch_on(q.device, lambda s: fn(q.data_ptr(), out.data_ptr(), n, d, s))
+    code = launch_on(q.device, lambda s: fn(
+        q.data_ptr(), qt.data_ptr(), out.data_ptr(), tiles.data_ptr(),
+        tiles.shape[0], n, d, pitch, s,
+    ))
     check_launch(INT8_GRAM, code)
     INT8_GRAM.launches += 1
     return out

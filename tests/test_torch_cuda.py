@@ -40,6 +40,23 @@ def test_k1_matches_plain_bit_for_bit(card, n, d):
     assert torch.equal(got, gram.int8_gram_plain(q))
 
 
+@pytest.mark.parametrize("n,d", [(1001, 1), (517, 127), (999, 300), (1003, 1000), (0, 127), (8192, 136)])
+def test_k1_is_the_exact_integer_gram_and_symmetric(card, n, d):
+    """K1 is ata_int8_xla's integer form, qᵀq contracted exactly and
+    rounded once to f32, bit for bit: at N % 16 ≠ 0 (qᵀ's padded pitch),
+    ragged D, N = 0 and past 2²⁴ (8,192 rows of ±127 on the diagonal); and
+    (i, j) and (j, i) hold the same bits."""
+    gen = torch.Generator(device=card).manual_seed(7 * n + d)
+    q = torch.randint(-127, 128, (n, d), dtype=torch.int8, device=card, generator=gen)
+    if n == 8192:
+        q[:, :8] = 127
+    got = gram.int8_gram(q)
+    torch.cuda.synchronize()
+    integer = (q.cpu().long().T @ q.cpu().long()).float()
+    assert torch.equal(got.cpu(), integer)
+    assert torch.equal(got, got.T)
+
+
 def test_k1_wrapper_rejects_non_contiguous(card):
     q = torch.zeros((64, 32), dtype=torch.int8, device=card).t()
     with pytest.raises(ValueError):
@@ -235,6 +252,54 @@ def test_k4_route_above_256_rows_is_no_launch(card):
     before = im.INT8_MATMUL.launches
     assert torch.equal(im.mm_fused(y, w), mm(y, w, torch.float32))
     assert im.INT8_MATMUL.launches == before
+
+
+def test_k4_graph_replays_give_the_eager_bits(card):
+    """One launch a call and nothing carried between launches: three
+    replays of a captured call give the eager call's bits."""
+    from keystone_tpu_torch.ops import int8_matmul as im
+    from keystone_tpu_torch.ops.quantization import quantize_int8
+
+    gen = torch.Generator(device=card).manual_seed(11)
+    w = quantize_int8(torch.randn((1024, 4096), generator=gen, device=card))
+    y = torch.randn((8, 1024), generator=gen, device=card).to(torch.bfloat16)
+    eager = im.mm_fused(y, w)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = im.INT8_MATMUL.launches
+    with torch.cuda.graph(graph):
+        captured = im.mm_fused(y, w)
+    assert im.INT8_MATMUL.launches == before + 1
+    for _ in range(3):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_alternating_shapes(card, dtype):
+    """Calls of other shapes in turn (each its own plan) stay right and
+    repeat their bits."""
+    from keystone_tpu_torch.ops import int8_matmul as im
+    from keystone_tpu_torch.ops.quantization import quantize_int8
+
+    gen = torch.Generator(device=card).manual_seed(12)
+    ws = [quantize_int8(torch.randn((k, n), generator=gen, device=card))
+          for k, n in ((1024, 1024), (1024, 4096), (4096, 1024))]
+    tol = K4_F32_TOL if dtype == torch.float32 else K4_BF16_TOL
+    first = {}
+    for rnd in range(2):
+        for m in (1, 8, 64, 256):
+            for i, w in enumerate(ws):
+                y = torch.randn((m, w.q.shape[0]), generator=torch.Generator(device=card).manual_seed(m + i),
+                                device=card).to(dtype)
+                got = im.mm_fused(y, w)
+                if rnd == 0:
+                    assert _rel(got, im.mm_fused_plain(y, w)) <= tol
+                    first[(m, i)] = got
+                else:
+                    assert torch.equal(got, first[(m, i)])
 
 
 def test_k4_wrapper_rejects_bad_inputs(card):

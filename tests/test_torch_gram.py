@@ -2,11 +2,11 @@
 against the JAX package.
 
 The codes must equal JAX's exactly (ties included): both sides divide in
-f32 and round half to even. The plain int8 Gram is held against the XLA
-int32 form and the interpret-mode Pallas kernel at rtol 1e-5 — the port
-sums 512-row partials in f32 like the Pallas kernel, the XLA form sums
-all rows in int32 and rounds once, so the two differ only in the last f32
-bits of entries past 2²⁴.
+f32 and round half to even. The int8 Gram is held against the XLA int32
+form exactly — like ``ata_int8_xla`` the port contracts a chunk's codes
+exactly and rounds once to f32 — and against the interpret-mode Pallas
+kernel at rtol 1e-5: that kernel sums 512-row partials in f32, so the two
+differ in the last f32 bits of entries past 2²⁴.
 """
 
 import numpy as np
@@ -53,7 +53,7 @@ def test_int8_gram_matches_xla(shape):
     a = _rows(shape, 1)
     want = np.asarray(jg.ata_int8_xla(jnp.asarray(a)))
     got = tg.ata_int8(torch.from_numpy(a)).numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -71,17 +71,42 @@ def test_ata_fp32_matches():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("n,d", [(1537, 33), (512, 8), (5, 3), (0, 4)])
+@pytest.mark.parametrize("n,d", [(1537, 33), (512, 8), (5, 3), (0, 4), (131073, 3)])
 def test_int8_gram_plain_is_exact_per_tile(n, d):
-    """Each 512-row partial is exact; only the f32 sum of partials rounds."""
+    """Each tile of rows — a segment of up to 131,072 rows — is exact and
+    rounds once to f32; only the f32 sum of segments rounds again."""
     rng = np.random.default_rng(n + d)
     q = rng.integers(-127, 128, size=(n, d)).astype(np.int8)
     want = np.zeros((d, d), np.float32)
-    for s in range(0, n, 512):
-        t = q[s : s + 512].astype(np.int64)
+    for s in range(0, n, tg.SEGMENT_ROWS):
+        t = q[s : s + tg.SEGMENT_ROWS].astype(np.int64)
         want += (t.T @ t).astype(np.float32)
     got = tg.int8_gram_plain(torch.from_numpy(q)).numpy()
     np.testing.assert_array_equal(got, want)
+    if n > tg.SEGMENT_ROWS:
+        # a full segment's entries pass 2²⁴: rounding the segment and then
+        # the sum of segments is not rounding the whole sum once
+        exact = q.astype(np.int64).T @ q.astype(np.int64)
+        assert (got != exact.astype(np.float32)).any()
+
+
+@pytest.mark.parametrize("d", [1, 127, 300, 1000, 4096])
+def test_gram_tiles_write_every_entry_once(d):
+    """K1 writes entry (i, j) of a tile where i ≤ j and its mirror (j, i)
+    where i < j: over its tile table every entry of the (d, d) result has
+    exactly one writer, and no tile is computed twice."""
+    tiles = tg.gram_tiles(d)
+    assert len({tuple(t) for t in tiles.tolist()}) == len(tiles)
+    writes = np.zeros((d, d), np.int64)
+    for ti, tj in tiles.tolist():
+        i = np.arange(ti * tg.TILE_I, min(d, (ti + 1) * tg.TILE_I))[:, None]
+        j = np.arange(tj * tg.TILE_J, min(d, (tj + 1) * tg.TILE_J))[None, :]
+        i, j = np.broadcast_arrays(i, j)
+        np.add.at(writes, (i[i <= j], j[i <= j]), 1)
+        np.add.at(writes, (j[i < j], i[i < j]), 1)
+    assert (writes == 1).all()
+    n_i, n_j = -(-d // 128), -(-d // 256)
+    assert len(tiles) == sum(min(n_i, 2 * jj + 2) for jj in range(n_j))
 
 
 def test_quantization_error_matches_jax():

@@ -113,7 +113,30 @@ def test_mm_fused_rejects_bad_scales_and_shapes():
 
 
 @pytest.mark.parametrize("m,k,n", [(8, 1024, 1024), (8, 1024, 4096), (8, 4096, 1024), (64, 1024, 1024), (3, 1000, 300), (1, 10, 5)])
-def test_split_k_covers_the_contraction(m, k, n):
-    splits, chunk = int8_matmul.split_k(m, k, n)
-    assert chunk % 32 == 0 and chunk <= 512
-    assert splits * chunk >= k and (splits - 1) * chunk < k
+@pytest.mark.parametrize("bf16", [True, False])
+def test_k4_plan_covers_the_contraction(m, k, n, bf16):
+    """K4's one-launch split: the rows of y in groups, the columns in
+    tiles of 128, each tile's 16-row code slabs in ``splits`` runs that
+    cover them once, no run empty, and the clusters within the card's SMs
+    wherever the tiles allow (the three decode shapes take 64 or 96 of
+    132: clusters are placed whole inside a GPC)."""
+    sms = 132
+    p = int8_matmul.k4_plan(m, k, n, bf16, sms)
+    assert p.rows * p.groups >= m > p.rows * (p.groups - 1)
+    assert p.col_tiles * 128 >= n > (p.col_tiles - 1) * 128
+    assert p.slabs * 16 >= k > (p.slabs - 1) * 16
+    starts = [s * p.slabs // p.splits for s in range(p.splits + 1)]
+    assert starts[0] == 0 and starts[-1] == p.slabs
+    assert all(e > s for s, e in zip(starts, starts[1:]))
+    assert 1 <= p.splits <= int8_matmul.MAX_SPLITS
+    assert p.col_tiles * p.splits <= 3 * sms // 4 or p.splits == 1
+    # a card that runs fewer clusters at once gets fewer splits, never a
+    # second wave of clusters
+    few = int8_matmul.k4_plan(m, k, n, bf16, sms, clusters=lambda rows, s: 100 // s)
+    assert few.splits <= p.splits and (few.splits == 1 or p.col_tiles <= 100 // few.splits)
+    if (m, k) == (8, 1024) or (m, k, n) == (8, 4096, 1024):
+        assert p.col_tiles * p.splits >= 64
+    warps = 8
+    y_bytes = warps * 2 * p.rows * (24 * 2 if bf16 else 20 * 4)  # 2 slots a warp
+    inbox = (16 * 128 // 4 + 16) * 16  # one tile's slices, 16 rows
+    assert p.smem == warps * p.rows * (128 + 4) * 4 + inbox + y_bytes <= 227 * 1024
