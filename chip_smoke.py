@@ -67,7 +67,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    relative of local, and one window's bf16 logits within 5e-2 (ring) and
    8e-3 (Ulysses) of max|logit| of local;
 14. the same weights in f32, one window: ring (K3) and local (K2) logits
-   within 1e-4 of max|logit|, argmax agreement ≥ 99 %.
+   within 1e-4 of max|logit|, argmax agreement ≥ 99 %;
+15. LM training, the bench's train step (vocab 32,768, dim 1,024, depth 8,
+   16 heads, seq 2,048, batch 8, bf16, learned positions, AdamW at 3e-4,
+   no remat, dense CE) through ``lm_transformer.main``: 40 steps, every
+   loss finite, the mean of the last 5 at least 10 % below the first, K2
+   depth × steps launches and K3 none (its blockwise backward reads K2's
+   lse); then the same weights timed over steady steps (ms, tokens/s,
+   TFLOP/s from ``train_step_flops`` and its share of the bf16 peak, peak
+   memory), one step's profile by kernel bucket, and one layer's
+   attention backward timed alone;
+16. remat legs from the same weights and batches, "full" and "dots", 2
+   steps each: the first loss within 8e-3 relative of no remat, K2 2·depth
+   launches a step, peak memory;
+17. the long-context step (seq 16,384, dim 512, depth 4, 8 heads, batch 1,
+   rope, ``logit_chunk`` 4,096, bf16), 3 steps: finite losses, K2 depth
+   launches a step, ms and tokens/s, peak memory;
+18. sequence-parallel training at the scoring width (rope, seq 8,192,
+   batch 2, ``logit_chunk`` 2,048) on ``create_mesh(data=4, devices=[card]
+   * 4)``, 2 steps each in ring (K3 10·depth launches a step) and Ulysses
+   (K2 4·depth); in f32 at depth 2 every leaf's gradient from ring and
+   from Ulysses within 1e-4 of max|grad| of local (K2);
+19. f32 at the flagship width, depth 2, seq 2,048, batch 2: every leaf's
+   gradient through K2 and the ported backward, on its dense route and
+   then its blockwise one (``KST_FLASH_DENSE_BWD_MAX=0``), within 1e-4 of
+   max|grad| of dense attention under autograd.
+
+Phase 7 also holds K2 with its lse against its plain version at the train
+steps' shapes, (8, 16, 2,048, 64) and (1, 8, 16,384, 64), bf16 causal.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits non-zero
@@ -126,6 +153,28 @@ SCORE_LOGIT_TOL = 5e-2  # of max|logit|, bf16 ring (K3, f32 sums) against local 
 F32_PEAK_OPS = 6.7e13  # H100 SXM datasheet, f32 on CUDA cores
 K3_PASSES = 1 + 3  # K3's bf16 tensor-core passes: Q·Kᵀ, then P·V as hi, mid, lo
 RING_STEPS = SCORE_RING * (SCORE_RING + 1) // 2  # live hops of a causal ring
+
+# --- training path: the bench's train step (bench.py:665-666, 863): the
+# decode model's width, seq 2,048, batch 8, bf16, AdamW at 3e-4, no remat,
+# dense CE; driven through lm_transformer.main
+TRAIN_CONF = dict(vocab=32_768, dim=1024, depth=8, num_heads=16)
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_LR, TRAIN_STEPS = 2048, 8, 3e-4, 40
+TRAIN_ARGV = [
+    "--vocab", "32768", "--dim", "1024", "--depth", "8", "--num-heads", "16",
+    "--seq", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH), "--lr", str(TRAIN_LR),
+    "--steps", str(TRAIN_STEPS), "--compute-dtype", "bfloat16", "--seed", "0",
+]
+TRAIN_LOSS_DROP = 0.10  # the mean of the last 5 losses at least 10 % below the first
+TRAIN_TIMED_STEPS = 5
+REMAT_LOSS_TOL = 8e-3  # relative, a remat leg's first bf16 loss against no remat
+# the long-context step (bench.py:913, 941): seq 16,384, dim 512, depth 4,
+# 8 heads, batch 1, rope, logit_chunk 4,096
+LONG_CONF = dict(vocab=32_768, dim=512, depth=4, num_heads=8, pos_encoding="rope")
+LONG_SEQ, LONG_CHUNK, LONG_STEPS = 16_384, 4096, 3
+LONG_HEADS = (1, 8, LONG_SEQ, 64)  # K2's call in a long-context layer
+SP_STEPS = 2  # sequence-parallel train steps per mode, at the scoring width
+GRAD_TOL = 1e-4  # of max|grad| of a leaf, f32: ring/Ulysses vs local, kernel vs plain
+GRAD_DEPTH = 2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -457,6 +506,22 @@ def phase_k2(device) -> dict:
         check(bool((out[:, :, :dead] == 0).all()), "K2 fully masked rows are not 0")
         ragged[f"causal={causal}"] = {"max_rel_err": err, "lse_max_abs_err": lse_err,
                                       "fully_masked_rows": dead}
+    # the train steps' shapes, with the lse their blockwise backward reads
+    at_train = {}
+    for name, shape in (("flagship_train", (8, 16, 2048, 64)), ("long_context", LONG_HEADS)):
+        b, h, s, d = shape
+        q, k, v = qkv(b, h, s, s, d, torch.bfloat16)
+        out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        torch.cuda.synchronize()
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=True, return_lse=True)
+        err, lse_err = _rel(out, ref), float((lse - ref_lse).abs().max())
+        print(f"K2 {shape} bf16 causal with lse: max|kernel-plain| / max|plain| = {err:.3e}, "
+              f"lse max abs {lse_err:.3e}")
+        check(bool(torch.isfinite(out).all()), f"K2 {shape} with lse not finite")
+        check(err <= K2_BF16_TOL, f"K2 {shape} with lse disagrees ({err:.3e})")
+        check(lse_err <= K2_LSE_TOL, f"K2 {shape} lse disagrees ({lse_err:.3e})")
+        at_train[name] = {"shape": list(shape), "max_rel_err": err, "lse_max_abs_err": lse_err}
+        del q, k, v, out, lse, ref, ref_lse
     main = timed["prefill"]
     return {
         "name": "flash_attention",
@@ -478,6 +543,7 @@ def phase_k2(device) -> dict:
         "at_max_seq": timed["max_seq"],
         "at_scoring_shapes": {n: timed[n] for n in ("scoring_local", "scoring_ulysses_position")},
         "ragged_f32": ragged,
+        "at_train_shapes_with_lse": at_train,
     }
 
 
@@ -1151,6 +1217,352 @@ def phase_scoring_equivalence(device, model, mesh, held) -> dict:
     return {"max_rel_err": err, "argmax_agreement": agree, "k3_launches": counts}
 
 
+def _train_model(device, conf, seq, compute_dtype="bfloat16", **kw):
+    """The model ``lm_transformer.run`` builds for ``conf`` at ``seq``,
+    seed 0: the same weights on every call."""
+    from keystone_tpu_torch.models.lm import TransformerLM
+
+    return TransformerLM.create(**conf, max_seq=seq, compute_dtype=compute_dtype, device=device,
+                                generator=torch.Generator(device=device).manual_seed(0), **kw)
+
+
+def _kernel_class(name: str) -> str:
+    """The train-step profile's bucket of a device kernel, by its name."""
+    low = name.lower()
+    if "K2State" in name:
+        return "k2"
+    if "K3State" in name:
+        return "k3"
+    if "multi_tensor_apply" in low:
+        return "optimizer"
+    if any(t in low for t in ("gemm", "xmma", "nvjet", "cutlass", "cublas")):
+        return "gemm_f32" if any(t in low for t in ("sgemm", "f32f32_f32f32", "simt")) else "gemm_bf16"
+    if "memcpy" in low or "memset" in low:
+        return "copies"
+    return "elementwise_and_reductions"
+
+
+def train_step_profile(step) -> dict | None:
+    """One call of an already warm ``step`` under torch.profiler: the
+    device's busy share, device ms by bucket (:func:`_kernel_class`), and
+    the kernels that take the most time. None when the profiler shows no
+    device time here."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        on_device = getattr(e, "device_type", None) == DeviceType.CUDA
+        if us > 0 and (on_device or e.self_cpu_time_total == 0):
+            rows.append((us, e.count, e.key))
+    if not rows:
+        print("profile: the profiler shows no device time here")
+        return None
+    rows.sort(reverse=True)
+    buckets: dict = {}
+    for us, _, key in rows:
+        c = _kernel_class(key)
+        buckets[c] = buckets.get(c, 0.0) + us / 1e3
+    busy = sum(buckets.values())
+    return {
+        "wall_ms": wall * 1e3, "device_busy_ms": busy, "device_busy_share": busy / 1e3 / wall,
+        "device_kernels": sum(r[1] for r in rows),
+        "ms_by_bucket": dict(sorted(buckets.items(), key=lambda kv: -kv[1])),
+        "top": [{"name": k[:90], "calls": c, "ms": us / 1e3} for us, c, k in rows[:12]],
+    }
+
+
+def step_parts(device, model, toks) -> dict:
+    """Two parts of a flagship train step timed alone (CUDA events, device
+    ms): one layer's blockwise attention backward (``_blockwise_grads``,
+    torch ops, from K2's output and lse) at the step's attention shape,
+    with its own profile buckets; and the f32 tied logits with the CE,
+    forward and backward."""
+    from keystone_tpu_torch.models.lm.losses import token_cross_entropy
+    from keystone_tpu_torch.models.lm.model import _tied_logits
+    from keystone_tpu_torch.ops import flash_attention as fa
+
+    b, s = toks.shape[0], toks.shape[1] - 1
+    h, d = model.num_heads, model.embed.shape[-1]
+    gen = torch.Generator(device=device).manual_seed(31)
+    q, k, v, g = (torch.randn((b, h, s, d // h), generator=gen, device=device)
+                  .to(torch.bfloat16) for _ in range(4))
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+
+    def attn_bwd():
+        fa._blockwise_grads(q, k, v, g, out, lse, True, fa._bwd_block())
+
+    x = torch.randn((b, s, d), generator=gen, device=device).to(model.cdt).requires_grad_(True)
+    embed = model.embed.detach().clone().requires_grad_(True)
+
+    def logits_ce():
+        loss = token_cross_entropy(_tied_logits(x, embed, model.cdt), toks[:, 1:])
+        torch.autograd.grad(loss, (x, embed))
+
+    attn_ms = time_ms(attn_bwd, reps=3, rounds=1)
+    prof = train_step_profile(attn_bwd)
+    return {"attention_backward_ms_per_layer": attn_ms,
+            "attention_backward_ms_by_bucket": prof and prof["ms_by_bucket"],
+            "tied_logits_ce_ms": time_ms(logits_ce, reps=2, rounds=1)}
+
+
+def _timed_steps(model, batches, logit_chunk: int = 0, lr: float = TRAIN_LR):
+    """Fresh AdamW on ``model``, one step per batch: ([loss], [ms], the
+    launch counts of each step, peak bytes allocated, the step function
+    and state). Each step is timed on the host clock to a synchronize."""
+    from keystone_tpu_torch.models.lm.train import make_optimizer, make_train_step
+
+    opt = make_optimizer(lr)
+    state = opt.init(model.leaves())
+    step = make_train_step(opt, logit_chunk=logit_chunk)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, counts = [], [], []
+    for toks in batches:
+        _zero_counts()
+        t0 = time.perf_counter()
+        _, state, loss = step(model, state, toks)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        counts.append(_counts())
+        losses.append(float(loss))
+    return losses, ms, counts, torch.cuda.max_memory_allocated(), step, state
+
+
+def phase_train(device) -> dict:
+    """Phases 15–16: the flagship train step through ``lm_transformer.main``
+    (the loss gate, K2's launches), its steady ms per step, rate, peak
+    memory and profile, and the remat legs from the same weights."""
+    import numpy as np
+
+    from keystone_tpu_torch.models import lm_transformer
+    from keystone_tpu_torch.models.lm import train_step_flops
+    from keystone_tpu_torch.models.lm.train import _step_batch, synthetic_corpus
+
+    depth = TRAIN_CONF["depth"]
+    recorded = {}
+    real_train = lm_transformer.train
+
+    def recording_train(*args, **kw):  # observes the losses main() averages
+        model, losses = real_train(*args, **kw)
+        recorded["losses"] = losses
+        return model, losses
+
+    lm_transformer.train = recording_train
+    _zero_counts()
+    try:
+        res = lm_transformer.main(list(TRAIN_ARGV))
+        torch.cuda.synchronize()
+    finally:
+        lm_transformer.train = real_train
+    counts = _counts()
+    losses = recorded["losses"]
+    last5 = float(np.mean(losses[-5:]))
+    drop = 1 - last5 / losses[0]
+    print(f"train [flagship] main(): {res['params']:,} parameters, {TRAIN_STEPS} steps, loss "
+          f"{losses[0]:.4f} -> {last5:.4f} (mean of last 5, {drop:.1%} lower), "
+          f"{res['tokens_per_s']:.0f} tokens/s over the run; launches {counts}")
+    check(all(math.isfinite(x) for x in losses), f"train: a loss is not finite {losses}")
+    check(drop >= TRAIN_LOSS_DROP, f"train: loss fell {drop:.1%}, want >= {TRAIN_LOSS_DROP:.0%}")
+    check(counts["flash_attention"] == depth * TRAIN_STEPS and counts["flash_attention_step"] == 0,
+          f"train: launches {counts}, want K2 {depth * TRAIN_STEPS} and no K3")
+    del recorded
+
+    corpus = synthetic_corpus(200_000, TRAIN_CONF["vocab"], seed=0)
+    batches = [torch.from_numpy(_step_batch(corpus, 0, i, TRAIN_BATCH, TRAIN_SEQ)).to(device)
+               for i in range(2 + TRAIN_TIMED_STEPS)]
+    model = _train_model(device, TRAIN_CONF, TRAIN_SEQ)
+    t_losses, t_ms, t_counts, peak, step, state = _timed_steps(model, batches)
+    check(abs(t_losses[0] - losses[0]) <= 1e-5 * losses[0],
+          f"train: the timed run's first loss {t_losses[0]} is not main()'s {losses[0]}")
+    check(all(c["flash_attention"] == depth for c in t_counts), f"train: launches {t_counts}")
+    step_ms = statistics.mean(t_ms[2:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_step_flops(model, TRAIN_BATCH, TRAIN_SEQ)
+    prof = train_step_profile(lambda: step(model, state, batches[0]))
+    parts = step_parts(device, model, batches[0])
+    attn_bwd = parts["attention_backward_ms_per_layer"]
+    flagship = {
+        "params": res["params"], "steps": TRAIN_STEPS, "loss_first": losses[0],
+        "loss_last5": last5, "loss_drop": drop, "losses": losses, "main_result": res,
+        "launches": counts, "ms_per_step": step_ms, "step_ms": t_ms,
+        "tokens_per_s": tokens / (step_ms / 1e3), "step_flops": flops,
+        "tflops_per_s": flops / (step_ms / 1e3) / 1e12,
+        "bf16_peak_share": flops / (step_ms / 1e3) / BF16_PEAK_OPS,
+        "peak_bytes": peak, "profile": prof,
+        **parts,
+        "attention_backward_share": attn_bwd * depth / step_ms,
+        "tied_logits_ce_share": parts["tied_logits_ce_ms"] / step_ms,
+    }
+    print(f"train [flagship] steady: {step_ms:.2f} ms a step ({t_ms}), "
+          f"{flagship['tokens_per_s']:.0f} tokens/s, {flagship['tflops_per_s']:.1f} TFLOP/s "
+          f"({flagship['bf16_peak_share']:.1%} of the bf16 peak), peak {peak / 2**30:.2f} GiB; "
+          f"attention backward {attn_bwd:.2f} ms a layer, {flagship['attention_backward_share']:.1%}"
+          f" of a step (by bucket {parts['attention_backward_ms_by_bucket']}); f32 tied logits "
+          f"and CE {parts['tied_logits_ce_ms']:.2f} ms, {flagship['tied_logits_ce_share']:.1%}")
+    if prof is not None:
+        print("train [flagship] one step's profile: wall {:.1f} ms, device busy {:.1f} ms ({:.1%}), "
+              "{} kernels; by bucket {}; top {}".format(
+                  prof["wall_ms"], prof["device_busy_ms"], prof["device_busy_share"],
+                  prof["device_kernels"], {k: round(v, 2) for k, v in prof["ms_by_bucket"].items()},
+                  [(t["name"][:50], round(t["ms"], 2)) for t in prof["top"][:8]]))
+    del model, state, step
+
+    legs = {"none": {"first_loss": t_losses[0], "peak_bytes": peak, "ms_per_step": step_ms,
+                     "k2_launches_per_step": t_counts[-1]["flash_attention"]}}
+    for policy in ("full", "dots"):
+        m = _train_model(device, TRAIN_CONF, TRAIN_SEQ).replace(remat=True, remat_policy=policy)
+        r_losses, r_ms, r_counts, r_peak, *_ = _timed_steps(m, batches[:2])
+        del m
+        rel = abs(r_losses[0] - losses[0]) / losses[0]
+        legs[policy] = {"first_loss": r_losses[0], "first_loss_rel_to_none": rel,
+                        "losses": r_losses, "peak_bytes": r_peak, "ms_per_step": r_ms[1],
+                        "k2_launches_per_step": [c["flash_attention"] for c in r_counts]}
+        print(f"train [remat {policy}]: first loss {r_losses[0]:.5f} ({rel:.2e} relative to no "
+              f"remat), step 2 {r_ms[1]:.2f} ms, peak {r_peak / 2**30:.2f} GiB, K2 "
+              f"{legs[policy]['k2_launches_per_step']} a step")
+        check(all(math.isfinite(x) for x in r_losses), f"remat {policy}: loss {r_losses}")
+        check(rel <= REMAT_LOSS_TOL, f"remat {policy}: first loss {r_losses[0]} vs {losses[0]}")
+        check(all(c["flash_attention"] == 2 * depth for c in r_counts),
+              f"remat {policy}: K2 launches {r_counts}, want {2 * depth} a step")
+    torch.cuda.empty_cache()
+    return {"flagship": flagship, "remat": legs, "corpus": corpus}
+
+
+def phase_long_context(device, corpus) -> dict:
+    """Phase 17: the long-context train step, blockwise backward and
+    checkpointed chunked CE."""
+    from keystone_tpu_torch.models.lm.train import _step_batch
+
+    model = _train_model(device, LONG_CONF, LONG_SEQ)
+    batches = [torch.from_numpy(_step_batch(corpus, 0, i, 1, LONG_SEQ)).to(device)
+               for i in range(LONG_STEPS)]
+    losses, ms, counts, peak, *_ = _timed_steps(model, batches, logit_chunk=LONG_CHUNK)
+    del model
+    torch.cuda.empty_cache()
+    step_ms = statistics.mean(ms[1:])
+    print(f"train [long context]: losses {losses}, {ms} ms ({step_ms:.2f} ms a steady step, "
+          f"{LONG_SEQ / (step_ms / 1e3):.0f} tokens/s), peak {peak / 2**30:.2f} GiB, "
+          f"launches {counts[-1]}")
+    check(all(math.isfinite(x) for x in losses), f"long context: losses {losses}")
+    check(all(c["flash_attention"] == LONG_CONF["depth"] and c["flash_attention_step"] == 0
+              for c in counts), f"long context: launches {counts}")
+    return {"losses": losses, "step_ms": ms, "ms_per_step": step_ms,
+            "tokens_per_s": LONG_SEQ / (step_ms / 1e3), "peak_bytes": peak,
+            "launches_per_step": counts[-1]}
+
+
+def _leaf_grads(model, toks, logit_chunk: int = 0) -> list:
+    from keystone_tpu_torch.models.lm import next_token_loss
+
+    params = model.leaves()
+    for p in params:
+        p.requires_grad_(True)
+    return list(torch.autograd.grad(next_token_loss(model, toks, logit_chunk=logit_chunk),
+                                    params, allow_unused=True))
+
+
+def _grad_err(got, want) -> float:
+    """The largest per-leaf max|got − want| / max|want| over non-empty leaves."""
+    return max(_rel(g, w) for g, w in zip(got, want) if w is not None and w.numel())
+
+
+def phase_train_sequence_parallel(device, corpus) -> dict:
+    """Phase 18: ring and Ulysses train steps at the scoring width on one
+    card named four times, and their f32 gradients against local's."""
+    from keystone_tpu_torch.models.lm.train import _step_batch
+    from keystone_tpu_torch.parallel import create_mesh
+
+    mesh = create_mesh(data=SCORE_RING, devices=[device] * SCORE_RING)
+    depth = SCORE_CONF["depth"]
+    conf = {k: SCORE_CONF[k] for k in ("vocab", "dim", "depth", "num_heads", "pos_encoding")}
+    batches = [torch.from_numpy(_step_batch(corpus, 0, i, SCORE_BATCH, SCORE_SEQ)).to(device)
+               for i in range(SP_STEPS)]
+    want = {"ring": {"flash_attention_step": depth * RING_STEPS, "flash_attention": 0},
+            "ulysses": {"flash_attention_step": 0, "flash_attention": depth * SCORE_RING}}
+    res = {}
+    for mode in ("ring", "ulysses"):
+        m = _train_model(device, conf, SCORE_SEQ, seq_mode=mode, mesh=mesh)
+        losses, ms, counts, peak, *_ = _timed_steps(m, batches, logit_chunk=SCORE_CHUNK)
+        del m
+        torch.cuda.empty_cache()
+        res[mode] = {"losses": losses, "step_ms": ms, "peak_bytes": peak,
+                     "launches_per_step": counts,
+                     "tokens_per_s": SCORE_BATCH * SCORE_SEQ / (ms[-1] / 1e3)}
+        print(f"train [{mode}] {SCORE_BATCH}x{SCORE_SEQ}: losses {losses}, {ms} ms a step, peak "
+              f"{peak / 2**30:.2f} GiB, launches {counts}")
+        check(all(math.isfinite(x) for x in losses), f"train [{mode}]: losses {losses}")
+        check(all({k: c[k] for k in want[mode]} == want[mode] for c in counts),
+              f"train [{mode}]: launches {counts}, want {want[mode]} a step")
+
+    f32 = _train_model(device, dict(conf, depth=GRAD_DEPTH), SCORE_SEQ, compute_dtype="float32")
+    toks = batches[0][:1]
+    local = _leaf_grads(f32, toks, SCORE_CHUNK)
+    errs = {}
+    for mode in ("ring", "ulysses"):
+        _zero_counts()
+        got = _leaf_grads(f32.replace(seq_mode=mode, mesh=mesh), toks, SCORE_CHUNK)
+        torch.cuda.synchronize()
+        counts = _counts()
+        errs[mode] = {"max_rel_grad_err": _grad_err(got, local), "launches": counts}
+        del got
+        print(f"train [{mode}] f32 depth {GRAD_DEPTH}, 1x{SCORE_SEQ}: every leaf's gradient within "
+              f"{errs[mode]['max_rel_grad_err']:.3e} of max|grad| of local; launches {counts}")
+        check(errs[mode]["max_rel_grad_err"] <= GRAD_TOL, f"train [{mode}] f32 gradients {errs}")
+    check(errs["ring"]["launches"]["flash_attention_step"] == GRAD_DEPTH * RING_STEPS
+          and errs["ulysses"]["launches"]["flash_attention"] == GRAD_DEPTH * SCORE_RING,
+          f"f32 gradients: launches {errs}")
+    del f32, local
+    torch.cuda.empty_cache()
+    return {"modes": res, "f32_grads_vs_local": errs}
+
+
+def phase_train_equivalence(device) -> dict:
+    """Phase 19: f32, the flagship width at depth 2, seq 2,048, batch 2:
+    every leaf's gradient through K2 and the ported backward (the dense
+    route, then the blockwise one) against dense attention under
+    autograd."""
+    import numpy as np
+
+    model = _train_model(device, dict(TRAIN_CONF, depth=GRAD_DEPTH), TRAIN_SEQ,
+                         compute_dtype="float32")
+    toks = torch.from_numpy(np.random.default_rng(10).integers(
+        0, TRAIN_CONF["vocab"], size=(2, TRAIN_SEQ + 1))).to(device)
+    os.environ["KST_LOCAL_ATTN"] = "dense"
+    try:
+        plain = _leaf_grads(model, toks)
+    finally:
+        del os.environ["KST_LOCAL_ATTN"]
+    res = {}
+    for route, env in (("dense_route", None), ("blockwise_route", "0")):
+        if env is not None:
+            os.environ["KST_FLASH_DENSE_BWD_MAX"] = env
+        try:
+            _zero_counts()
+            got = _leaf_grads(model, toks)
+            torch.cuda.synchronize()
+            counts = _counts()
+        finally:
+            os.environ.pop("KST_FLASH_DENSE_BWD_MAX", None)
+        err = _grad_err(got, plain)
+        del got
+        res[route] = {"max_rel_grad_err": err, "launches": counts}
+        print(f"train f32 equivalence [{route}]: every leaf's gradient within {err:.3e} of "
+              f"max|grad| of the plain path; launches {counts}")
+        check(err <= GRAD_TOL, f"train equivalence [{route}]: {err:.3e}")
+        check(counts["flash_attention"] == GRAD_DEPTH, f"train equivalence: launches {counts}")
+    del model, plain
+    torch.cuda.empty_cache()
+    return res
+
+
 def run_main(gram_op: str) -> dict:
     from keystone_tpu_torch.models import mnist_random_fft as m
 
@@ -1288,6 +1700,25 @@ def main() -> None:
         device, scoring.pop("model"), scoring.pop("mesh"), scoring.pop("held"))
     print(json.dumps({"scoring_path": {"card": smi, "ring_attention": ring, **scoring,
                                        "f32_equivalence": score_equiv}}))
+
+    train = phase_train(device)
+    corpus = train.pop("corpus")
+    long_ctx = phase_long_context(device, corpus)
+    seq_par = phase_train_sequence_parallel(device, corpus)
+    train_equiv = phase_train_equivalence(device)
+    k2["launches_train"] = {
+        "flagship_main": train["flagship"]["launches"]["flash_attention"],
+        "flagship_per_step": TRAIN_CONF["depth"],
+        "remat_per_step": train["remat"]["dots"]["k2_launches_per_step"][-1],
+        "long_context_per_step": long_ctx["launches_per_step"]["flash_attention"],
+        "ulysses_per_step": seq_par["modes"]["ulysses"]["launches_per_step"][-1]["flash_attention"],
+    }
+    k3["launches_train"] = {
+        "ring_per_step": seq_par["modes"]["ring"]["launches_per_step"][-1]["flash_attention_step"],
+    }
+    print(json.dumps({"train_path": {"card": smi, **train, "long_context": long_ctx,
+                                     "sequence_parallel": seq_par,
+                                     "f32_equivalence": train_equiv}}))
 
     summary = {
         "card": smi,

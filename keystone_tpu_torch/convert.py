@@ -111,14 +111,16 @@ def transformer_lm(
     seq_mode: str = "local",
     mesh=None,
     seq_axis: str = "data",
+    remat: bool = False,
+    remat_policy: str = "full",
     device: torch.device | str | None = None,
 ) -> TransformerLM:
     """A :class:`TransformerLM` from the JAX model's leaves: ``{"embed",
     "pos_embed", "blocks": [{"wq", "wk", "wv", "wo", "w1", "w2"}, ...]}``,
     each an array or a QTensor-like leaf. ``int8_kernel`` takes the JAX
     package's names: "xla" → "mm", "pallas" → "kernel". ``seq_mode``,
-    ``mesh`` (a port :class:`~keystone_tpu_torch.parallel.Mesh`) and
-    ``seq_axis`` are the model's own."""
+    ``mesh`` (a port :class:`~keystone_tpu_torch.parallel.Mesh`),
+    ``seq_axis``, ``remat`` and ``remat_policy`` are the model's own."""
     if int8_kernel not in _INT8_KERNEL:
         raise ValueError(f"int8_kernel={int8_kernel!r}; expected xla|pallas")
     device = resolve_device(device)
@@ -138,4 +140,6 @@ def transformer_lm(
         seq_mode=seq_mode,
         mesh=mesh,
         seq_axis=seq_axis,
+        remat=remat,
+        remat_policy=remat_policy,
     )

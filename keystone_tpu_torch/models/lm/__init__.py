@@ -1,10 +1,11 @@
-"""Decoder-only transformer LM, serving and scoring surface — port of
+"""Decoder-only transformer LM: training, serving and scoring — port of
 ``keystone_tpu/models/lm``:
 
 - :mod:`.model` — TransformerLM / LMBlock;
-- :mod:`.losses` — next-token CE, dense and logit-chunked (forward);
-- :mod:`.train` — the synthetic corpus (training comes with the
-  training slice);
+- :mod:`.losses` — next-token CE, dense and logit-chunked;
+- :mod:`.train` — optax-exact AdamW, the train step and loop, the
+  synthetic corpus;
+- :mod:`.sharding` — ``shard_params``, the identity on one card;
 - :mod:`.decode` — KV-cache serving: prefill, decode, sampling,
   weight-only int8 quantization.
 """
@@ -21,8 +22,14 @@ from keystone_tpu_torch.models.lm.losses import (
     next_token_loss,
     token_cross_entropy,
 )
-from keystone_tpu_torch.models.lm.model import LMBlock, TransformerLM
-from keystone_tpu_torch.models.lm.train import synthetic_corpus
+from keystone_tpu_torch.models.lm.model import LMBlock, TransformerLM, train_step_flops
+from keystone_tpu_torch.models.lm.sharding import shard_params
+from keystone_tpu_torch.models.lm.train import (
+    make_optimizer,
+    make_train_step,
+    synthetic_corpus,
+    train,
+)
 
 __all__ = [
     "KVCache",
@@ -31,9 +38,14 @@ __all__ = [
     "chunked_token_cross_entropy",
     "decode_step",
     "generate",
+    "make_optimizer",
+    "make_train_step",
     "next_token_loss",
     "prefill",
     "quantize_for_decode",
+    "shard_params",
     "synthetic_corpus",
     "token_cross_entropy",
+    "train",
+    "train_step_flops",
 ]

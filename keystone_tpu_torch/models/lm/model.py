@@ -1,5 +1,4 @@
-"""Decoder-only transformer LM — port of ``keystone_tpu/models/lm/model.py``
-for serving.
+"""Decoder-only transformer LM — port of ``keystone_tpu/models/lm/model.py``.
 
 Pre-LN blocks, tied-embedding logits, learned or rotary positions, MHA or
 grouped-query attention, and a compute dtype apart from the f32 weights
@@ -15,13 +14,16 @@ over ``seq_axis`` of ``mesh`` (:mod:`keystone_tpu_torch.ops.attention`):
 the ring's hops are kernel K3 on the card, Ulysses' local attention K2.
 A model built with no mesh takes the ambient one of ``use_mesh``.
 
-Float weights are ``nn.Parameter``s that need no gradient: this port
-serves and scores. Mixture-of-experts layers and rematerialization come
-with later slices and raise here.
+Float weights are ``nn.Parameter``s made without ``requires_grad``;
+training (``models/lm/train.py``'s step) turns it on for every float
+leaf. ``remat`` recomputes each block in the backward under
+``torch.utils.checkpoint`` (:func:`remat_wrap`). Mixture-of-experts layers
+come with a later slice and raise here.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from typing import Sequence
@@ -29,6 +31,12 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from keystone_tpu_torch.core.runtime import resolve_device
 from keystone_tpu_torch.ops.attention import (
@@ -196,6 +204,7 @@ class TransformerLM(nn.Module):
         mesh=None,
         seq_axis: str = "data",
         remat: bool = False,
+        remat_policy: str = "full",
         compute_dtype: str = "float32",
         moe_layers: tuple = (),
         pos_encoding: str = "learned",
@@ -207,8 +216,6 @@ class TransformerLM(nn.Module):
             raise NotImplementedError(
                 "mixture-of-experts layers come with the MoE slice (ops/moe.py)"
             )
-        if remat:
-            raise NotImplementedError("rematerialization comes with the training slice")
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype={compute_dtype!r}; expected float32|bfloat16")
         if seq_mode not in _SEQ_MODES:
@@ -228,6 +235,7 @@ class TransformerLM(nn.Module):
         self.mesh = mesh
         self.seq_axis = seq_axis
         self.remat = remat
+        self.remat_policy = remat_policy
         self.compute_dtype = compute_dtype
         self.moe_layers = ()
         self.pos_encoding = pos_encoding
@@ -240,7 +248,7 @@ class TransformerLM(nn.Module):
         kw = dict(
             embed=self.embed, pos_embed=self.pos_embed, blocks=list(self.blocks),
             num_heads=self.num_heads, seq_mode=self.seq_mode, mesh=self.mesh,
-            seq_axis=self.seq_axis, remat=self.remat,
+            seq_axis=self.seq_axis, remat=self.remat, remat_policy=self.remat_policy,
             compute_dtype=self.compute_dtype, moe_layers=self.moe_layers,
             pos_encoding=self.pos_encoding, num_kv_heads=self.num_kv_heads,
             int8_kernel=self.int8_kernel,
@@ -317,10 +325,16 @@ class TransformerLM(nn.Module):
         tokens = torch.as_tensor(tokens, device=self.device).long()
         x = _embed(self, tokens, cdt)
         mm_fn = model_mm(self)
-        for blk in self.blocks:
-            x, _ = _block_apply(
+
+        def block_fn(x, blk):
+            return _block_apply(
                 x, blk, cdt, lambda y, b: (self._attention(y, b), None), mm_fn=mm_fn
-            )
+            )[0]
+
+        if self.remat:
+            block_fn = remat_wrap(block_fn, self.remat_policy)
+        for blk in self.blocks:
+            x = block_fn(x, blk)
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
     def forward_with_aux(self, tokens):
@@ -413,6 +427,52 @@ class TransformerLM(nn.Module):
         return total
 
 
+# the weight products of a block: (B, S, d) @ (d, f) lowers to aten.mm
+_WEIGHT_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """The "dots" policy (``jax.checkpoint_policies.
+    dots_with_no_batch_dims_saveable``): keep the outputs of products
+    without a batch dimension, recompute everything else — attention's
+    batched products and K2 included."""
+    if op in _WEIGHT_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_wrap(fn, policy: str):
+    """``fn`` rematerialized in the backward under the model's remat
+    policy: "full" keeps only its inputs (``torch.utils.checkpoint``);
+    "dots" also keeps its weight products (selective checkpointing).
+    Outside autograd it is ``fn`` as it is."""
+    if policy == "full":
+        context_fn = noop_context_fn
+    elif policy == "dots":
+        context_fn = functools.partial(
+            create_selective_checkpoint_contexts, _save_weight_products
+        )
+    else:
+        raise ValueError(f"remat_policy={policy!r}; expected full|dots")
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
+
+    return wrapped
+
+
 def has_quantized_leaves(model) -> bool:
-    """True if any leaf is an int8 :class:`QTensor` (a serving model)."""
+    """True if any leaf is an int8 :class:`QTensor` (a serving model —
+    training rejects it: gradients through the rounding would be 0)."""
     return any(isinstance(leaf, QTensor) for leaf in model.leaves())
+
+
+def train_step_flops(model: TransformerLM, batch: int, seq: int) -> float:
+    """Analytic FLOPs of one train step: 6·P·tokens for the matmul work
+    plus the attention score and value terms (12·L·d·S²·B, forward and
+    backward). The port has no MoE layers, so every parameter counts."""
+    d = model.embed.shape[-1]
+    attn = 12 * len(model.blocks) * d * seq * seq * batch
+    return 6.0 * model.num_params() * batch * seq + attn

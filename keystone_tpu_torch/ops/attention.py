@@ -7,6 +7,8 @@
   one mesh axis. Each position keeps its query shard while the K/V shards
   travel around the ring, and an online softmax accumulates over the hops.
   With ``use_flash`` each hop is kernel K3 (:func:`flash_attention_step`).
+  ``trainable`` adds the JAX package's ring backward: the K/V shards
+  travel a second time with their dk/dv accumulators.
 - :func:`ulysses_attention` — seq→heads resharding, full-sequence local
   attention over H/n heads per position (kernel K2 with ``use_flash``),
   heads→seq back.
@@ -26,9 +28,12 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from keystone_tpu_torch.ops.flash_attention import (
     _NEG,
+    _bwd_block,
+    _grads_rect,
     flash_attention,
     flash_attention_step,
     flash_attention_trainable,
@@ -176,30 +181,86 @@ def _ring_fwd_state(qs, ks, vs, devices, *, causal: bool, use_flash: bool):
     return outs, lses
 
 
-def _ring_forward(q, k, v, mesh, seq_axis: str, causal: bool, use_flash: bool):
-    devices = mesh.axis_devices(seq_axis)
-    outs, _ = _ring_fwd_state(
+def _ring_forward(q, k, v, devices, causal: bool, use_flash: bool):
+    """(out, lse) of the ring over ``devices``, both on q's device."""
+    outs, lses = _ring_fwd_state(
         _shards(q, devices), _shards(k, devices), _shards(v, devices), devices,
         causal=causal, use_flash=use_flash,
     )
-    return torch.cat([o.to(q.device) for o in outs], dim=2)
+    return (torch.cat([o.to(q.device) for o in outs], dim=2),
+            torch.cat([x.to(q.device) for x in lses], dim=2))
+
+
+def _ring_backward(q, k, v, out, lse, g, devices, causal: bool):
+    """The JAX package's ring backward. Each position keeps its q, out, g
+    and lse shards; every K/V shard travels the ring once more with its
+    f32 dk/dv accumulators. Per hop a position recomputes that rectangle's
+    probabilities from (q, k, lse) with :func:`_grads_rect`, adds dq
+    locally and dk/dv into the travelling accumulators; a causal hop whose
+    block comes from a later position has no live key and is skipped. One
+    last rotation brings every accumulator home. Returns (dq, dk, dv) in
+    the inputs' dtypes, on q's device."""
+    n = len(devices)
+    qs, ks, vs, outs, gs = (_shards(x, devices) for x in (q, k, v, out, g))
+    lses = [c.to(dev).contiguous() for c, dev in zip(lse.chunk(n, dim=2), devices)]
+    b, h, s_local, d = qs[0].shape
+    f32 = torch.float32
+    qf = [x.to(f32) for x in qs]
+    gf = [x.to(f32) for x in gs]
+    delta = [torch.sum(gx * o.to(f32), dim=-1) for gx, o in zip(gf, outs)]
+    bwd_block = _bwd_block()
+    blk = bwd_block if s_local > bwd_block else -(-s_local // 8) * 8
+    pad = -(-s_local // blk) * blk - s_local
+
+    dq = [torch.zeros((b, h, s_local, d), dtype=f32, device=dev) for dev in devices]
+    dk_blk = [torch.zeros_like(x) for x in dq]
+    dv_blk = [torch.zeros_like(x) for x in dq]
+    k_blk, v_blk = ks, vs
+    for step in range(n):
+        for j in range(n):
+            owner = (j - step) % n
+            if causal and owner > j:
+                continue
+            k_off = owner * s_local
+            kp = torch.nn.functional.pad(k_blk[j].to(f32), (0, 0, 0, pad))
+            vp = torch.nn.functional.pad(v_blk[j].to(f32), (0, 0, 0, pad))
+            dq_c, dk_c, dv_c = _grads_rect(
+                qf[j], kp, vp, gf[j], delta[j], lses[j], j * s_local, k_off + s_local,
+                causal, blk, k_off=k_off,
+            )
+            dq[j] += dq_c
+            dk_blk[j] += dk_c[:, :, :s_local]
+            dv_blk[j] += dv_c[:, :, :s_local]
+        if step + 1 < n:
+            k_blk, v_blk = _ring_hop(k_blk, devices), _ring_hop(v_blk, devices)
+            dk_blk, dv_blk = _ring_hop(dk_blk, devices), _ring_hop(dv_blk, devices)
+    # after n − 1 rotations shard s (with its gradients) sits on position
+    # s − 1; one more brings every accumulator home
+    dk_blk, dv_blk = _ring_hop(dk_blk, devices), _ring_hop(dv_blk, devices)
+    return tuple(
+        torch.cat([x.to(ref.device) for x in parts], dim=2).to(ref.dtype)
+        for parts, ref in ((dq, q), (dk_blk, k), (dv_blk, v))
+    )
 
 
 class _RingTrainable(torch.autograd.Function):
-    """The ring forward with the JAX package's custom-VJP boundary. The
-    ring backward (dk/dv accumulators travelling the ring) comes with the
-    training slice."""
+    """The ring forward, keeping (q, k, v, out, lse) for the ring
+    backward (:func:`_ring_backward`): memory O(S·d), never an (S, S)
+    tensor."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mesh, seq_axis, causal, use_flash):
-        return _ring_forward(q, k, v, mesh, seq_axis, causal, use_flash)
+    def forward(ctx, q, k, v, devices, causal, use_flash):
+        out, lse = _ring_forward(q, k, v, devices, causal, use_flash)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.devices, ctx.causal = devices, causal
+        return out
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g):
-        raise NotImplementedError(
-            "ring_attention's backward comes with the training slice "
-            "(ROADMAP: the LM training slice, with the ring backward)"
-        )
+        q, k, v, out, lse = ctx.saved_tensors
+        grads = _ring_backward(q, k, v, out, lse, g, ctx.devices, ctx.causal)
+        return (*grads, None, None, None)
 
 
 def ring_attention(
@@ -219,16 +280,17 @@ def ring_attention(
     defaults to the ambient one (:func:`use_mesh`). ``use_flash`` runs
     each hop as kernel K3 (default: on when a position is a card); otherwise
     each hop is plain torch with p rounded to v's dtype before the PV
-    product. ``trainable`` puts the forward behind the JAX package's
-    custom-VJP boundary; its backward raises until the training slice.
-    Returns (B, H, S, D) in q's dtype, on q's device."""
+    product. ``trainable`` makes it differentiable with the JAX package's
+    ring backward (dk/dv accumulators travelling the ring), the forward
+    unchanged. Returns (B, H, S, D) in q's dtype, on q's device."""
     mesh = _resolve_mesh(mesh)
+    devices = mesh.axis_devices(seq_axis)
     if use_flash is None:
-        use_flash = _flash_default(mesh.axis_devices(seq_axis))
+        use_flash = _flash_default(devices)
     _check_seq_divisible(q, mesh, seq_axis)
     if trainable:
-        return _RingTrainable.apply(q, k, v, mesh, seq_axis, causal, use_flash)
-    return _ring_forward(q, k, v, mesh, seq_axis, causal, use_flash)
+        return _RingTrainable.apply(q, k, v, devices, causal, use_flash)
+    return _ring_forward(q, k, v, devices, causal, use_flash)[0]
 
 
 def _ulysses_shard(qs, ks, vs, devices, *, causal: bool, use_flash: bool,

@@ -15,16 +15,23 @@ carried (m, l, acc) state by a single K/V block at global offsets, the hop
 of ring attention. All of its arithmetic is f32 on widened inputs; a CPU
 tensor takes :func:`flash_attention_step_plain`.
 
-:func:`flash_attention_trainable` carries the forward only: its backward
-comes with the training slice.
+:func:`flash_attention_trainable` is the differentiable wrapper: K2 forward
+and, as in the JAX package, a backward in plain tensor ops — the dense
+recompute at short context, the blockwise FlashAttention backward
+(:func:`_blockwise_grads`, from q, k, v, out and K2's lse) above
+``KST_FLASH_DENSE_BWD_MAX`` bytes of transients. The JAX package's
+backward is jnp outside any Pallas kernel, so it has no kernel here
+either.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import os
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from keystone_tpu_torch.core.kernels import Kernel, check_launch, launch_on
 
@@ -335,24 +342,167 @@ def flash_attention_step(
     return _launch_step(q, k_blk, v_blk, m, l, acc, **kw)
 
 
+def _env_int(name: str, default: int) -> int:
+    """A tuning knob from the environment, read at call time; unset or
+    malformed keeps ``default``."""
+    try:
+        return int(os.environ.get(name, default))
+    except ValueError:
+        return default
+
+
+# bytes budget for the dense-recompute backward's transient (S_q, S_k)
+# tensors (about 4 of them, f32, per (b, h)): above it the blockwise
+# backward takes over
+_DENSE_BWD_MAX_BYTES = 4 << 30
+
+
+def _dense_bwd_max_bytes() -> int:
+    # KST_FLASH_DENSE_BWD_MAX=0 forces the blockwise backward everywhere
+    return _env_int("KST_FLASH_DENSE_BWD_MAX", _DENSE_BWD_MAX_BYTES)
+
+
+def _bwd_block() -> int:
+    """Keys per block of the blockwise backward (``KST_FLASH_BWD_BLOCK``)."""
+    return _env_int("KST_FLASH_BWD_BLOCK", 512)
+
+
+def _dense_bwd_bytes(q, k) -> int:
+    b, h, s_q, _ = q.shape
+    return 4 * 4 * b * h * s_q * k.shape[2]
+
+
+def _bwd_mask(q_pos, k_pos, s_k_valid, causal: bool):
+    """(S_q, blk) validity mask of one K/V block: padding and causality.
+    Causal positions are begin-aligned (q_pos = i, k_pos = j), the flash
+    forward's convention; the trainable wrapper rejects causal S_q ≠ S_k,
+    where begin- and end-aligned masks differ."""
+    valid = (k_pos < s_k_valid)[None, :]
+    if causal:
+        valid = valid & (q_pos[:, None] >= k_pos[None, :])
+    return valid
+
+
+def _bwd_causal_chunks() -> int:
+    """Causal q chunks of the blockwise backward (``KST_FLASH_BWD_CHUNKS``):
+    each chunk sweeps only its live K prefix, (n+1)/2n of the rectangle."""
+    return _env_int("KST_FLASH_BWD_CHUNKS", 8)
+
+
+def _grads_rect(qf, kp, vp, gf, delta, lse, q_off, s_k_valid, causal, block, k_off=0):
+    """The blockwise backward over one q range: a loop over the (padded)
+    K/V blocks, each score block recomputed from (q, k, lse). Positions
+    are global and begin-aligned (``q_off``/``k_off`` are the positions of
+    the first q and k rows; a nonzero ``k_off`` serves the ring backward's
+    rotating shards). Returns f32 (dq, dk, dv), dk and dv over kp's whole
+    padded length. A fully masked row (lse −1e30) gets p = 0, so zero
+    gradients."""
+    b, h, s_q, d = qf.shape
+    f32 = torch.float32
+    scale = 1.0 / math.sqrt(d)
+    nb = kp.shape[2] // block
+    q_pos = q_off + torch.arange(s_q, device=qf.device)
+    dq = torch.zeros((b, h, s_q, d), dtype=f32, device=qf.device)
+    dk = torch.empty((b, h, nb * block, d), dtype=f32, device=qf.device)
+    dv = torch.empty_like(dk)
+    for j in range(nb):
+        cols = slice(j * block, (j + 1) * block)
+        kf = kp[:, :, cols].to(f32)
+        vf = vp[:, :, cols].to(f32)
+        k_pos = k_off + j * block + torch.arange(block, device=qf.device)
+        mask = _bwd_mask(q_pos, k_pos, s_k_valid, causal)
+        # p = where(mask, exp(q·kᵀ·scale − lse), 0), in place
+        p = torch.einsum("bhqd,bhkd->bhqk", qf, kf).mul_(scale)
+        p = p.sub_(lse[..., None]).exp_().masked_fill_(~mask, 0.0)
+        dv[:, :, cols] = torch.einsum("bhqk,bhqd->bhkd", p, gf)
+        # ds = p · (dp − delta)
+        ds = torch.einsum("bhqd,bhkd->bhqk", gf, vf).sub_(delta[..., None]).mul_(p)
+        del p
+        dq.add_(torch.einsum("bhqk,bhkd->bhqd", ds, kf).mul_(scale))
+        dk[:, :, cols] = torch.einsum("bhqk,bhqd->bhkd", ds, qf).mul_(scale)
+    return dq, dk, dv
+
+
+def _blockwise_grads(q, k, v, g, out, lse, causal: bool, block: int):
+    """FlashAttention-style backward from (q, k, v, out, lse). Non-causal:
+    one rectangle. Causal: q cut into block-aligned chunks, each sweeping
+    only the K blocks at or below its diagonal (about 0.56·S² of score
+    work at 8 chunks instead of S²)."""
+    b, h, s_q, d = q.shape
+    s_k = k.shape[2]
+    nb = -(-s_k // block)
+    pad = nb * block - s_k
+    kp = torch.nn.functional.pad(k, (0, 0, 0, pad))
+    vp = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    qf = q.to(torch.float32)
+    gf = g.to(torch.float32)
+    # delta_i = Σ_d g·out, the softmax Jacobian's diagonal term
+    delta = torch.sum(gf * out.to(torch.float32), dim=-1)
+    if not causal:
+        dq, dk, dv = _grads_rect(qf, kp, vp, gf, delta, lse, 0, s_k, False, block)
+        return dq.to(q.dtype), dk[:, :, :s_k].to(k.dtype), dv[:, :, :s_k].to(v.dtype)
+
+    # causal (S_q = S_k, enforced by the wrapper): chunk edges in whole K
+    # blocks, so each chunk's live prefix is block-aligned
+    n_chunks = min(_bwd_causal_chunks(), nb)
+    edges = sorted({round(nb * c / n_chunks) for c in range(n_chunks + 1)})
+    dq_parts = []
+    dk = torch.zeros((b, h, nb * block, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        q0, q1 = lo * block, min(hi * block, s_q)
+        k_end = hi * block  # K blocks [0, hi) are the live prefix
+        dq_c, dk_c, dv_c = _grads_rect(
+            qf[:, :, q0:q1], kp[:, :, :k_end], vp[:, :, :k_end], gf[:, :, q0:q1],
+            delta[:, :, q0:q1], lse[:, :, q0:q1], q0, s_k, True, block,
+        )
+        dq_parts.append(dq_c)
+        dk[:, :, :k_end] += dk_c
+        dv[:, :, :k_end] += dv_c
+    dq = torch.cat(dq_parts, dim=2)
+    return dq.to(q.dtype), dk[:, :, :s_k].to(k.dtype), dv[:, :, :s_k].to(v.dtype)
+
+
 class _FlashTrainable(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, causal):
-        return flash_attention(q, k, v, causal=causal)
+    """K2 forward; the backward recomputes attention. At short context
+    (``_dense_bwd_bytes`` within ``_dense_bwd_max_bytes()``) it keeps only
+    (q, k, v) and differentiates dense attention; otherwise it keeps (q,
+    k, v, out, lse), K2's lse, and runs :func:`_blockwise_grads`. Nothing
+    S²-sized lives from the forward to the backward."""
 
     @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.blockwise = _dense_bwd_bytes(q, k) > _dense_bwd_max_bytes()
+        if not any(ctx.needs_input_grad[:3]):  # scoring and serving: no backward
+            return flash_attention(q, k, v, causal=causal)
+        if not ctx.blockwise:
+            ctx.save_for_backward(q, k, v)
+            return flash_attention(q, k, v, causal=causal)
+        out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    @once_differentiable
     def backward(ctx, g):
-        raise NotImplementedError(
-            "flash_attention_trainable's backward comes with the training "
-            "slice (ROADMAP: the LM training slice)"
-        )
+        if ctx.blockwise:
+            q, k, v, out, lse = ctx.saved_tensors
+            return (*_blockwise_grads(q, k, v, g, out, lse, ctx.causal, _bwd_block()), None)
+        from keystone_tpu_torch.ops.attention import dense_attention
+
+        q, k, v = (x.detach().requires_grad_(True) for x in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = dense_attention(q, k, v, causal=ctx.causal)
+        return (*torch.autograd.grad(out, (q, k, v), g), None)
 
 
 def flash_attention_trainable(q, k, v, causal: bool = False):
-    """Fused attention with the forward of the JAX package's trainable
-    wrapper. Causal cross-attention (S_q ≠ S_k) is rejected: the flash
-    forward masks begin-aligned, dense attention end-aligned, and the two
-    agree only at S_q = S_k."""
+    """Differentiable fused attention: K2 forward (its plain version on the
+    CPU), recompute backward (:class:`_FlashTrainable`). Causal
+    cross-attention (S_q ≠ S_k) is rejected: the flash forward masks
+    begin-aligned, dense attention end-aligned, and the two agree only at
+    S_q = S_k."""
     if causal and q.shape[2] != k.shape[2]:
         raise ValueError(
             f"flash_attention_trainable: causal cross-attention with "

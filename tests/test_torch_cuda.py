@@ -530,3 +530,139 @@ def test_ring_lm_on_card_matches_local(card):
     r = evaluate_perplexity(ring, held, seq=256, batch=2, logit_chunk=64)
     w = evaluate_perplexity(local, held, seq=256, batch=2)
     assert math.isfinite(r["loss"]) and r["loss"] == pytest.approx(w["loss"], rel=1e-5)
+
+
+# --- training: K2 and K3 under autograd ---------------------------------------
+
+
+def _vjp(fn, qkv, g):
+    xs = [x.detach().clone().requires_grad_(True) for x in qkv]
+    out = fn(*xs)
+    return out.detach(), torch.autograd.grad(out, xs, g)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route", ["dense", "blockwise"])
+def test_k2_trainable_grads_match_plain_path(card, monkeypatch, dtype, route):
+    """``flash_attention_trainable`` (K2 forward, K2's lse on the blockwise
+    route) against dense attention under autograd, causal, S = 400 (the
+    128-key backward blocks end ragged). f32: within 1e-4 of max|grad|.
+    bf16: the dense route's backward is the plain path's own bf16
+    recompute, so its gradients are the plain path's bit for bit; the
+    blockwise route computes in f32 from K2's bf16 output and is held to
+    the f32 truth on the same bf16 inputs at 2e-2 of max|grad| (the bf16
+    output's rounding enters through Σ g·out)."""
+    from keystone_tpu_torch.ops import attention
+    from keystone_tpu_torch.ops import flash_attention as fa
+
+    if route == "blockwise":
+        monkeypatch.setenv("KST_FLASH_DENSE_BWD_MAX", "0")
+        monkeypatch.setenv("KST_FLASH_BWD_BLOCK", "128")
+    qkv = _qkv(card, 21, 2, 4, 400, 400, 64, dtype)
+    g = torch.randn(qkv[0].shape, generator=torch.Generator(device=card).manual_seed(22),
+                    device=card).to(dtype)
+    before = fa.FLASH_ATTENTION.launches
+    out, grads = _vjp(lambda *a: fa.flash_attention_trainable(*a, True), qkv, g)
+    torch.cuda.synchronize()
+    assert fa.FLASH_ATTENTION.launches == before + 1
+    plain_out, plain = _vjp(lambda *a: attention.dense_attention(*a, causal=True), qkv, g)
+    assert fa.FLASH_ATTENTION.launches == before + 1
+    assert all(bool(torch.isfinite(x).all()) for x in grads)
+    if dtype == torch.float32:
+        assert _rel(out, plain_out) <= 1e-5
+        for a, b in zip(grads, plain):
+            assert _rel(a, b) <= 1e-4
+    elif route == "dense":
+        assert _rel(out, plain_out) <= K2_BF16_TOL
+        for a, b in zip(grads, plain):
+            assert torch.equal(a, b)
+    else:
+        _, truth = _vjp(lambda *a: attention.dense_attention(*a, causal=True),
+                        [x.float() for x in qkv], g.float())
+        for a, b in zip(grads, truth):
+            assert a.dtype == dtype and _rel(a, b) <= 2e-2
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_trainable_grads_through_k3_match_plain_ring(card, causal):
+    """The trainable ring on one card named four times: K3 every live hop
+    forward, the ring backward; against the plain ring's forward with the
+    same backward, and against dense attention, f32, within 1e-4 of
+    max|grad|."""
+    from keystone_tpu_torch.ops import attention
+    from keystone_tpu_torch.ops import flash_attention as fa
+    from keystone_tpu_torch.parallel import create_mesh
+
+    mesh = create_mesh(data=4, devices=[card] * 4)
+    qkv = _qkv(card, 23, 1, 4, 1024, 1024, 64, torch.float32)
+    g = torch.randn(qkv[0].shape, generator=torch.Generator(device=card).manual_seed(24),
+                    device=card)
+    before = fa.FLASH_ATTENTION_STEP.launches
+    _, grads = _vjp(lambda *a: attention.ring_attention(*a, mesh, causal=causal,
+                                                        trainable=True), qkv, g)
+    torch.cuda.synchronize()
+    assert fa.FLASH_ATTENTION_STEP.launches == before + (10 if causal else 16)
+    _, plain = _vjp(lambda *a: attention.ring_attention(*a, mesh, causal=causal, use_flash=False,
+                                                        trainable=True), qkv, g)
+    _, dense = _vjp(lambda *a: attention.dense_attention(*a, causal=causal), qkv, g)
+    for a, b, c in zip(grads, plain, dense):
+        assert _rel(a, b) <= 1e-4 and _rel(a, c) <= 1e-4
+
+
+@pytest.mark.parametrize("shape", [(8, 16, 2048, 64), (1, 8, 16384, 64)],
+                         ids=["flagship_train", "long_context"])
+def test_k2_with_lse_at_the_training_shapes(card, shape):
+    """K2 bf16 causal with the lse at the train steps' shapes, against its
+    plain version: the output within 8e-3 of max|plain|, the lse within
+    1e-5."""
+    from keystone_tpu_torch.ops import flash_attention as fa
+
+    b, h, s, d = shape
+    q, k, v = _qkv(card, 25, b, h, s, s, d, torch.bfloat16)
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    assert _rel(out, ref) <= K2_BF16_TOL
+    assert float((lse - ref_lse).abs().max()) <= 1e-5
+
+
+def test_lm_train_step_on_card_matches_plain_path(card, monkeypatch):
+    """f32, a small model: every leaf's gradient through K2 (forward) and
+    the ported backward against dense attention under autograd, within
+    1e-4 of max|grad|; K2 launches once a layer, twice under remat; a
+    few optimizer steps lower the loss."""
+    from keystone_tpu_torch.models.lm import TransformerLM, next_token_loss, synthetic_corpus
+    from keystone_tpu_torch.models.lm.train import make_optimizer, make_train_step
+    from keystone_tpu_torch.ops import flash_attention as fa
+
+    model = TransformerLM.create(vocab=97, max_seq=256, dim=128, depth=2, num_heads=2,
+                                 device=card)
+    toks = torch.from_numpy(np.random.default_rng(7).integers(0, 97, size=(2, 257))).to(card)
+
+    def grads(m):
+        params = m.leaves()
+        for p in params:
+            p.requires_grad_(True)
+        return torch.autograd.grad(next_token_loss(m, toks), params)
+
+    for policy in (None, "full", "dots"):
+        m = model if policy is None else model.replace(remat=True, remat_policy=policy)
+        before = fa.FLASH_ATTENTION.launches
+        got = grads(m)
+        torch.cuda.synchronize()
+        assert fa.FLASH_ATTENTION.launches == before + (2 if policy is None else 4)
+        monkeypatch.setenv("KST_LOCAL_ATTN", "dense")
+        want = grads(m)
+        monkeypatch.delenv("KST_LOCAL_ATTN")
+        for a, b in zip(got, want):
+            assert _rel(a, b) <= 1e-4
+    corpus = synthetic_corpus(5000, 97, seed=1)
+    opt = make_optimizer(3e-3)
+    state = opt.init(model.leaves())
+    step = make_train_step(opt)
+    losses = []
+    for i in range(6):
+        batch = np.stack([corpus[j : j + 129] for j in range(i * 300, i * 300 + 4 * 70, 70)])
+        _, state, loss = step(model, state, torch.from_numpy(batch).to(card))
+        losses.append(float(loss))
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]

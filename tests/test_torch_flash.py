@@ -133,14 +133,20 @@ def test_dense_causal_is_end_aligned_and_flash_begin_aligned():
 
 
 def test_trainable_rejects_causal_cross_and_has_no_backward():
+    """Causal cross-attention is rejected; the forward is K2's (its plain
+    version here) bit for bit, and the backward — which this test's name
+    predates — gives dense attention's gradient (tests/
+    test_torch_flash_bwd.py holds it against the JAX package)."""
     q, k, v = (torch.from_numpy(x) for x in _qkv(23, 1, 1, 8, 12, 8))
     with pytest.raises(ValueError, match="ambiguous"):
         flash.flash_attention_trainable(q, k, v, True)
     qs = q.clone().requires_grad_(True)
     out = flash.flash_attention_trainable(qs, k, v, False)
     torch.testing.assert_close(out, flash.flash_attention(q, k, v), rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
+    out.sum().backward()
+    qd = q.clone().requires_grad_(True)
+    attention.dense_attention(qd, k, v).sum().backward()
+    torch.testing.assert_close(qs.grad, qd.grad, rtol=0, atol=1e-6)
 
 
 # --- K3's tensor-core arithmetic, emulated in f32 ------------------------------

@@ -36,6 +36,14 @@ ring = TransformerLM.create(vocab=32, dim=16, depth=1, num_heads=2, pos_encoding
                             seq_mode="ring", mesh=create_mesh(devices=["cpu"] * 4), device="cpu")
 ev = evaluate_perplexity(ring, synthetic_corpus(2 * 17, 32), seq=16, batch=2, logit_chunk=8)
 assert ev["tokens_scored"] == 32 and ev["loss"] > 0
+from keystone_tpu_torch.models import lm_transformer
+from keystone_tpu_torch.models.lm import train
+res = lm_transformer.main(["--steps", "2", "--batch", "2", "--seq", "8", "--dim", "16",
+                           "--depth", "1", "--num-heads", "2", "--vocab", "32"], device="cpu")
+assert res["steps_ran"] == 2 and res["loss_first"] > 0
+_, losses = train(ring.replace(remat=True, remat_policy="dots"), synthetic_corpus(400, 32),
+                  steps=1, batch=2, seq=16, logit_chunk=8)
+assert len(losses) == 1 and losses[0] > 0
 bad = sorted(
     k for k in sys.modules
     if k.split(".")[0] == "jax" or k.startswith("jaxlib")

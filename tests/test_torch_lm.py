@@ -253,8 +253,8 @@ def test_unknown_options_raise(tiny, monkeypatch):
         pm.replace(seq_mode="tree")
     with pytest.raises(NotImplementedError, match="MoE"):
         lm.TransformerLM.create(moe_every=2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        pm.replace(remat=True)
+    with pytest.raises(ValueError, match="remat_policy"):
+        pm.replace(remat=True, remat_policy="nope")(toks)
     monkeypatch.setenv("KST_LOCAL_ATTN", "bogus")
     with pytest.raises(ValueError, match="KST_LOCAL_ATTN"):
         pm(toks)
