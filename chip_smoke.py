@@ -114,6 +114,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    and a prefill of ≤ 64 rows, exactly (requests/s, p50/p99 latency,
    tokens/s).
 
+21. TIMIT, streamed: ``timit_pipeline.main`` with ``KEYSTONE_PLAN=1`` and
+   no ``KEYSTONE_GRAM_OP`` on 131,072 synthetic frames (26,214 test),
+   8 cosine banks of 4,096 (D = 32,768, γ 0.05555, Gaussian W, λ 0, 5
+   BCD epochs). First K1 against its plain version bit for bit at the
+   fit's first chunk (8,192 × 32,768), timed beside its plain version,
+   ``torch._int_mm`` and its bound, and the quantization gate on the
+   plan's probe (256 × 32,768) timed against a copy of the per-column
+   loop it replaced, the two equal. The run: the planner must pick int8
+   by its cost model, K1 must launch once per fit chunk (16) and no other
+   kernel at all, test error ≤ 5 %; the same run with the fp32 Gram
+   agrees on ≥ 99.5 % of test predictions. Then the int8 fit's parts,
+   warm: featurize (the scalers' pass), plan (probe and gate), stream,
+   solve, and one stream under the profiler (K1's share of its device
+   time);
+22. TIMIT, classic: the same bank on 32,768 frames with ``--lam-sweep
+   0.1,1,10`` (resident blocks, 4.3 GB): the sweep's λ and per-λ
+   validation errors, test error of the refit ≤ 5 %.
+
 Phase 7 also holds K2 with its lse against its plain version at the train
 steps' shapes, (8, 16, 2,048, 64) and (1, 8, 16,384, 64), bf16 causal.
 
@@ -202,6 +220,15 @@ LONG_HEADS = (1, 8, LONG_SEQ, 64)  # K2's call in a long-context layer
 SP_STEPS = 2  # sequence-parallel train steps per mode, at the scoring width
 GRAD_TOL = 1e-4  # of max|grad| of a leaf, f32: ring/Ulysses vs local, kernel vs plain
 GRAD_DEPTH = 2
+
+# --- TIMIT path (phases 21-22): the reference's bank (4,096 cosine
+# features, γ 0.05555, Gaussian W, λ 0, 5 epochs), 8 banks of its 50 (the
+# (D, D) f32 state at 50 would be 168 GB), on synthetic frames
+TIMIT_BANK = ["--num-cosines", "8", "--cosine-features", "4096", "--gamma", "0.05555",
+              "--rf-type", "gaussian", "--lam", "0", "--num-epochs", "5"]
+TIMIT_ARGV = ["--synthetic", "131072"] + TIMIT_BANK
+TIMIT_SWEEP_ARGV = ["--synthetic", "32768", "--lam-sweep", "0.1,1,10"] + TIMIT_BANK
+TIMIT_MAX_TEST_ERROR = 0.05
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1999,6 +2026,229 @@ def phase_breakdown() -> dict:
     return parts
 
 
+def timit_bank(device, argv):
+    """The TIMIT path's fitted bank on the card, as ``timit_pipeline.run``
+    makes it: the synthetic train rows, the featurizers drawn from the
+    config's seed, the scalers fitted on every train row. Returns
+    ``(conf, train, rows on the card, bank, seconds of the scalers' pass)``."""
+    from keystone_tpu_torch.core.config import parse_config
+    from keystone_tpu_torch.models import timit_pipeline as tm
+
+    conf = parse_config(tm.TimitConfig, argv)
+    train = tm._load(conf, "train")
+    x = torch.from_numpy(train.data).to(device)
+    feats = tm.make_featurizers(conf, device)
+    (scalers, _), featurize_s = _host_s(lambda: tm.fit_scalers(feats, x, len(train), False))
+    bank = tm.ScaledCosineBank(chains=tuple(f >> sc for f, sc in zip(feats, scalers)))
+    return conf, train, x, bank, featurize_s
+
+
+def gate_loop(a) -> float:
+    """The per-column loop the vectorized quantization gate replaced
+    (``keystone_tpu/ops/gram.py:gram_quantization_error``), kept here to
+    time the two against each other."""
+    import numpy as np
+
+    a = np.abs(np.asarray(a, np.float32))
+    if a.size == 0:
+        return 0.0
+    amax = a.max(axis=0)
+    step_rms = amax / 127.0 / np.sqrt(12.0)
+    worst = 0.0
+    for j in range(a.shape[1]):
+        col = a[:, j]
+        nz = col[col > 0]
+        if nz.size == 0:
+            continue
+        worst = max(worst, float(step_rms[j] / np.median(nz)))
+    return worst
+
+
+def _host_s(fn):
+    """(result, seconds) of ``fn`` on the host clock, the card idle at
+    both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_timit_kernels(device) -> dict:
+    """K1 at the TIMIT fit's first chunk (8,192 × 32,768) against its plain
+    version, bit for bit, timed beside it, ``torch._int_mm`` and its bound;
+    the quantization gate on the plan's probe against the loop it
+    replaced."""
+    from keystone_tpu_torch.ops import gram
+    from keystone_tpu_torch.ops.gram import _quantize_cols
+    from keystone_tpu_torch.plan.fused_fit import _DEFAULT_FIT_CHUNK
+
+    _, _, x, bank, _ = timit_bank(device, TIMIT_ARGV)
+    with torch.no_grad():
+        chunk = torch.cat(bank(x[:_DEFAULT_FIT_CHUNK]), dim=-1)
+        q = _quantize_cols(chunk - chunk.mean(dim=0))[0].contiguous()
+        probe = torch.cat(bank(x[:256]), dim=-1).cpu().numpy()
+    del chunk
+    n, d = q.shape
+    out = gram.int8_gram(q)
+    ref = gram.int8_gram_plain(q)
+    torch.cuda.synchronize()
+    max_abs = float((out - ref).abs().max())
+    exact = bool(torch.equal(out, ref))
+    del out, ref
+    torch.cuda.empty_cache()
+    print(f"K1 {n}x{d} (TIMIT): max|kernel-plain| = {max_abs:.3e}, bit for bit {exact}")
+    check(exact, "K1 is not bit for bit its plain version at the TIMIT chunk")
+    kernel_ms = time_ms(lambda: gram.int8_gram(q))
+    plain_ms = time_ms(lambda: gram.int8_gram_plain(q), reps=1, rounds=1)
+    qt = q.t().contiguous()
+    library_ms = time_ms(lambda: torch._int_mm(qt, qt.t()), reps=2)
+    del qt
+    torch.cuda.empty_cache()
+    ops = float(n) * d * (d + 1)
+    traffic = n * d + 4.0 * d * d
+    ops_ms, bytes_ms = 1e3 * ops / INT8_PEAK_OPS, 1e3 * traffic / HBM_BYTES_PER_S
+    bound_ms = max(ops_ms, bytes_ms)
+    print(f"K1 times (TIMIT): kernel {kernel_ms:.3f} ms ({ops / kernel_ms / 1e9:.1f} TOP/s), "
+          f"plain {plain_ms:.3f} ms, torch._int_mm(qt, qt.t()) {library_ms:.3f} ms, "
+          f"bound {bound_ms:.3f} ms")
+
+    centered = probe - probe.mean(axis=0)
+    gate, gate_s = _host_s(lambda: gram.gram_quantization_error(centered))
+    looped, loop_s = _host_s(lambda: gate_loop(centered))
+    print(f"quantization gate on the {centered.shape[0]}x{centered.shape[1]} probe: "
+          f"{gate!r} in {gate_s * 1e3:.1f} ms vectorized, {looped!r} in "
+          f"{loop_s * 1e3:.1f} ms by the per-column loop")
+    check(gate == looped, f"the vectorized gate reads {gate!r}, the loop {looped!r}")
+    return {
+        "k1": {"shape": [n, d], "max_abs_err": max_abs, "bit_for_bit": exact,
+               "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+               "library_ms": library_ms, "library": "torch._int_mm(qt, qt.t())"},
+        "gate": {"probe": list(centered.shape), "value": gate, "vectorized_s": gate_s,
+                 "loop_s": loop_s},
+    }
+
+
+def run_timit(argv, gram_op: str | None) -> dict:
+    """``timit_pipeline.main`` on the card with ``KEYSTONE_PLAN=1`` (the
+    streamed fit) and the Gram operator left to the planner (None) or
+    asked for."""
+    from keystone_tpu_torch.models import timit_pipeline as tm
+
+    os.environ["KEYSTONE_PLAN"] = "1"
+    if gram_op is None:
+        os.environ.pop("KEYSTONE_GRAM_OP", None)
+    else:
+        os.environ["KEYSTONE_GRAM_OP"] = gram_op
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = tm.main(list(argv))
+    res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    op = next(d for d in res["fit_decisions"] if d["action"] == "fit_operator")
+    preds = res["test_predictions"]
+    check(preds.shape == (res["n_test"],), f"TIMIT test predictions shape {preds.shape}")
+    check(math.isfinite(res["test_error"]), "TIMIT test error not finite")
+    print(f"TIMIT [{gram_op or 'auto'}]: fit_operator op={op['op']} reason={op['reason']} "
+          f"quantization_error={op['quantization_error']}; train error "
+          f"{res['train_error']:.4%}, test error {res['test_error']:.4%}; featurize "
+          f"{res['featurize_s']:.2f} s, fit {res['fit_s']:.2f} s, "
+          f"{res['train_samples_per_s']:.0f} samples/s, peak {res['peak_memory_bytes'] / 1e9:.2f} GB")
+    return {**res, "fit_operator": op}
+
+
+def timit_breakdown(device) -> dict:
+    """The streamed int8 TIMIT fit part by part, warm (the main run came
+    first): featurize (the scalers' pass over every bank), plan (the probe's
+    featurize and the gate), stream, solve."""
+    from keystone_tpu_torch.core.pipeline import ChainedLabelEstimator
+    from keystone_tpu_torch.models import timit_pipeline as tm
+    from keystone_tpu_torch.ops.linear import BlockLeastSquaresEstimator
+    from keystone_tpu_torch.ops.util import ClassLabelIndicators
+    from keystone_tpu_torch.plan import fit_stream, plan_fit
+
+    os.environ.pop("KEYSTONE_GRAM_OP", None)
+    conf, train, x, bank, featurize_s = timit_bank(device, TIMIT_ARGV)
+    y = ClassLabelIndicators(num_classes=tm.NUM_CLASSES)(train.labels).to(device)
+    est = BlockLeastSquaresEstimator(block_size=conf.cosine_features, num_iter=conf.num_epochs, lam=conf.lam)
+    chain = ChainedLabelEstimator(prefix=bank, est=est)
+    plan, plan_s = _host_s(lambda: plan_fit(chain, x, y, device=device, n_valid=len(train)))
+    check(plan.fit.gram == "int8", f"the warm TIMIT plan took {plan.fit.gram}")
+    state, stream_s = _host_s(lambda: fit_stream(plan, x, y, n_valid=len(train)))
+    _, solve_s = _host_s(lambda: est.fit_stats_finalize(state, widths=plan.fit.widths))
+    parts = {"featurize_s": featurize_s, "plan_s": plan_s, "stream_s": stream_s,
+             "solve_s": solve_s, "gram": plan.fit.gram}
+    del state
+    torch.cuda.empty_cache()
+    print("TIMIT int8 fit, warm: " + ", ".join(
+        f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}" for k, v in parts.items()))
+    # one whole stream (16 chunks) under the profiler: the share of K1
+    # against the chunk's other device work
+    prof = device_profile(lambda: fit_stream(plan, x, y, n_valid=len(train)), 1, track="gram_kernel")
+    if prof is not None:
+        print(f"TIMIT stream profile: device busy {prof['device_busy_ms_per_step']:.1f} ms of "
+              f"{prof['wall_ms_per_step']:.1f} ms, K1 {prof['gram_kernel_ms_per_step']:.1f} ms in "
+              f"{prof['gram_kernel_launches_per_step']:.0f} launches; top: "
+              + "; ".join(f"{t['name'][:60]} {t['ms_per_step']:.1f} ms" for t in prof["top"]))
+    torch.cuda.empty_cache()
+    return {**parts, "stream_profile": prof}
+
+
+def phase_timit(device) -> dict:
+    """Phases 21 and 22: the TIMIT pipeline streamed (int8 by the cost
+    model, then fp32) and classic with the λ sweep."""
+    kernels = phase_timit_kernels(device)
+
+    _zero_counts()
+    res8 = run_timit(TIMIT_ARGV, None)
+    counts = _counts()
+    chunk = res8["fit_chunk_size"] or res8["n_train"]
+    n_chunks = -(-res8["n_train"] // chunk)
+    print(f"TIMIT launches: {counts} for {n_chunks} fit chunks")
+    op = res8["fit_operator"]
+    check((op["op"], op["reason"]) == ("int8", "cost_model"),
+          f"the TIMIT plan did not pick int8 by its cost model: {op}")
+    check(counts == {**{k: 0 for k in counts}, "int8_gram": n_chunks},
+          f"TIMIT launches {counts}, expected K1 {n_chunks} times and nothing else")
+    check(res8["test_error"] <= TIMIT_MAX_TEST_ERROR, f"TIMIT test error {res8['test_error']}")
+
+    res32 = run_timit(TIMIT_ARGV, "fp32")
+    check(res32["fit_operator"]["op"] == "fp32", "the fp32 TIMIT run did not pick fp32")
+    check(_counts()["int8_gram"] == n_chunks, "K1 ran in the fp32 TIMIT fit")
+    agree = float((res8["test_predictions"] == res32["test_predictions"]).mean())
+    print(f"TIMIT int8 vs fp32 test predictions agree on {agree:.4%}")
+    check(agree >= MIN_AGREEMENT, f"TIMIT int8/fp32 agreement {agree:.4%}")
+    breakdown = timit_breakdown(device)
+
+    os.environ.pop("KEYSTONE_PLAN", None)
+    os.environ.pop("KEYSTONE_GRAM_OP", None)
+    from keystone_tpu_torch.models import timit_pipeline as tm
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sweep_launches = _counts()
+    sweep = tm.main(list(TIMIT_SWEEP_ARGV))
+    sweep["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    check(_counts() == sweep_launches, "a kernel ran in the classic TIMIT fit")
+    report = sweep["lam_sweep"]
+    print(f"TIMIT λ sweep: best λ {report['best_lam']}, validation errors "
+          f"{dict(zip(report['lams'], report['val_errors']))}; refit train error "
+          f"{sweep['train_error']:.4%}, test error {sweep['test_error']:.4%}, fit "
+          f"{sweep['fit_s']:.2f} s, peak {sweep['peak_memory_bytes'] / 1e9:.2f} GB")
+    check(sweep["test_error"] <= TIMIT_MAX_TEST_ERROR, f"TIMIT sweep test error {sweep['test_error']}")
+
+    keep = ("train_error", "test_error", "featurize_s", "fit_s", "total_s",
+            "train_samples_per_s", "peak_memory_bytes")
+    return {
+        "k1_launches": counts["int8_gram"],
+        "fit_chunks": n_chunks,
+        "kernels": kernels,
+        "streamed": {"int8": {k: res8[k] for k in keep}, "fp32": {k: res32[k] for k in keep},
+                     "fit_operator": op, "agreement": agree, "int8_breakdown_warm": breakdown},
+        "classic_sweep": {**{k: sweep[k] for k in keep}, "lam_sweep": report},
+    }
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available")
@@ -2090,6 +2340,11 @@ def main() -> None:
         "count": "kernel names in a torch.profiler trace",
     }
     print(json.dumps({"http_path": {"card": smi, **http}}))
+
+    timit = phase_timit(device)
+    k1["launches_timit"] = timit["k1_launches"]
+    k1["timit"] = timit["kernels"]["k1"]
+    print(json.dumps({"timit_path": {"card": smi, **timit}}))
 
     summary = {
         "card": smi,

@@ -1,8 +1,9 @@
 """Build the port's objects from the JAX package's parameters.
 
-The JAX package draws its random signs with ``jax.random``, which no torch
-seed reproduces; to run the two packages on the same model, its
-parameters are carried across as numpy arrays. Nothing here imports JAX:
+The JAX package draws its random signs and cosine features with
+``jax.random``, which no torch seed reproduces; to run the two packages on
+the same model, its parameters are carried across as numpy arrays, never
+drawn again. Nothing here imports JAX:
 the caller hands over plain arrays (``np.asarray`` of each leaf). Every
 helper puts its tensors on ``device``: the card unless the caller asks for
 the CPU.
@@ -17,10 +18,18 @@ import torch
 
 from keystone_tpu_torch.core.runtime import resolve_device
 from keystone_tpu_torch.models.lm.model import LMBlock, TransformerLM
+from keystone_tpu_torch.core.pipeline import Pipeline
 from keystone_tpu_torch.models.mnist_random_fft import FeaturizerBank
-from keystone_tpu_torch.ops.linear import BlockLinearMapper, NormalEqState
+from keystone_tpu_torch.models.timit_pipeline import ScaledCosineBank
+from keystone_tpu_torch.ops.linear import BlockLinearMapper, LinearMapper, NormalEqState
 from keystone_tpu_torch.ops.quantization import QTensor
-from keystone_tpu_torch.ops.stats import LinearRectifier, PaddedFFT, RandomSignNode
+from keystone_tpu_torch.ops.stats import (
+    CosineRandomFeatures,
+    LinearRectifier,
+    PaddedFFT,
+    RandomSignNode,
+    StandardScalerModel,
+)
 
 
 def _t(x, device) -> torch.Tensor:
@@ -48,6 +57,48 @@ def featurizer_bank(
             )
             for batch in signs
         )
+    )
+
+
+def _scaler(mean, std, device) -> StandardScalerModel:
+    return StandardScalerModel(
+        mean=_t(mean, device), std=None if std is None else _t(std, device)
+    )
+
+
+def scaled_cosine_bank(
+    chains: Sequence[Mapping], *, device: torch.device | str | None = None
+) -> ScaledCosineBank:
+    """A TIMIT :class:`ScaledCosineBank` from each chain's leaves: the
+    cosine features' ``w`` and ``b`` and the fitted scaler's ``mean`` and
+    ``std`` (``std`` None for a centering-only scaler)."""
+    device = resolve_device(device)
+    return ScaledCosineBank(
+        chains=tuple(
+            Pipeline.of(
+                CosineRandomFeatures(w=_t(c["w"], device), b=_t(c["b"], device)),
+                _scaler(c["mean"], c.get("std"), device),
+            )
+            for c in chains
+        )
+    )
+
+
+def linear_mapper(
+    x: np.ndarray,
+    b: np.ndarray | None = None,
+    mean: np.ndarray | None = None,
+    std: np.ndarray | None = None,
+    *,
+    device: torch.device | str | None = None,
+) -> LinearMapper:
+    """A :class:`LinearMapper` from its weights, intercept and feature
+    scaler's ``mean`` and ``std`` (no scaler when ``mean`` is None)."""
+    device = resolve_device(device)
+    return LinearMapper(
+        x=_t(x, device),
+        b=None if b is None else _t(b, device),
+        feature_scaler=None if mean is None else _scaler(mean, std, device),
     )
 
 

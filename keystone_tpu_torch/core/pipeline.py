@@ -9,16 +9,21 @@ KeystoneML's four-role pipeline algebra over batches of tensors:
 - :class:`LabelEstimator` — ``fit(data, labels) -> Transformer``;
 - :class:`FunctionNode` — whole-dataset operations that are not row-wise.
 
-Chaining a label estimator onto a transformer yields a
-:class:`ChainedLabelEstimator` whose ``fit`` featurizes with the prefix
-first. Nodes are plain dataclasses holding tensors; there is no ``jit``
-boundary, everything runs eagerly on the tensors' own device.
+Chaining an estimator onto a transformer yields a :class:`ChainedEstimator`
+(or :class:`ChainedLabelEstimator`) whose ``fit`` featurizes with the
+prefix first; chaining a transformer onto an estimator defers it behind
+the fitted model. Nodes are plain dataclasses holding tensors; there is no
+``jit`` boundary, everything runs eagerly on the tensors' own device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
+
+import torch
+
+from keystone_tpu_torch.core.runtime import synchronize
 
 
 def node_label(node: Any, index: int | None = None) -> str:
@@ -35,10 +40,13 @@ class _Chainable:
 
     def then(self, nxt):
         """Compose this node with the next stage: a Transformer gives a
-        :class:`Pipeline`, a LabelEstimator a :class:`ChainedLabelEstimator`,
-        a bare callable is lifted via :func:`transformer`."""
+        :class:`Pipeline`, an Estimator a :class:`ChainedEstimator`, a
+        LabelEstimator a :class:`ChainedLabelEstimator`, a bare callable is
+        lifted via :func:`transformer`."""
         if isinstance(nxt, LabelEstimator):
             return ChainedLabelEstimator(prefix=_as_transformer(self), est=nxt)
+        if isinstance(nxt, Estimator):
+            return ChainedEstimator(prefix=_as_transformer(self), est=nxt)
         if isinstance(nxt, Transformer):
             return Pipeline.of(_as_transformer(self), nxt)
         if callable(nxt):
@@ -78,6 +86,27 @@ def transformer(fn: Callable[[Any], Any], name: str | None = None) -> Transforme
     if isinstance(fn, Transformer):
         return fn
     return FnTransformer(fn=fn, name=name or getattr(fn, "__name__", "fn"))
+
+
+@dataclasses.dataclass(eq=False)
+class BoundTransformer(Transformer):
+    """A lifted ``fn(params, batch)`` that carries its fitted ``params``
+    as a field instead of closing over them."""
+
+    params: Any
+    fn: Callable[[Any, Any], Any]
+    name: str = "bound"
+
+    def __call__(self, batch):
+        return self.fn(self.params, batch)
+
+    def __repr__(self):
+        return f"BoundTransformer({self.name})"
+
+
+def bind(fn: Callable[[Any, Any], Any], params: Any, name: str | None = None) -> Transformer:
+    """Lift ``fn(params, batch)`` with ``params`` carried by the node."""
+    return BoundTransformer(params=params, fn=fn, name=name or getattr(fn, "__name__", "bound"))
 
 
 @dataclasses.dataclass(eq=False)
@@ -122,10 +151,21 @@ class Pipeline(Transformer):
 
 
 class Estimator:
-    """Unsupervised estimator: ``fit(data) -> Transformer``."""
+    """Unsupervised estimator: ``fit(data) -> Transformer``; ``est.then(t)``
+    defers ``t`` behind the fitted model."""
 
     def fit(self, data, **kw) -> Transformer:
         raise NotImplementedError
+
+    def fit_pipeline(self, data, **kw) -> "Pipeline":
+        """Fit and wrap the result as a single-node pipeline."""
+        return Pipeline.of(self.fit(data, **kw))
+
+    def then(self, nxt) -> "Estimator":
+        return _SuffixedEstimator(est=self, suffix=_as_transformer(nxt))
+
+    def __rshift__(self, nxt):
+        return self.then(nxt)
 
 
 class LabelEstimator:
@@ -133,6 +173,77 @@ class LabelEstimator:
 
     def fit(self, data, labels, **kw) -> Transformer:
         raise NotImplementedError
+
+    def then(self, nxt) -> "LabelEstimator":
+        return _SuffixedLabelEstimator(est=self, suffix=_as_transformer(nxt))
+
+    def __rshift__(self, nxt):
+        return self.then(nxt)
+
+
+@dataclasses.dataclass(eq=False)
+class FnEstimator(Estimator):
+    fn: Callable[..., Transformer]
+
+    def fit(self, data, **kw) -> Transformer:
+        return self.fn(data, **kw)
+
+
+@dataclasses.dataclass(eq=False)
+class FnLabelEstimator(LabelEstimator):
+    fn: Callable[..., Transformer]
+
+    def fit(self, data, labels, **kw) -> Transformer:
+        return self.fn(data, labels, **kw)
+
+
+def estimator(fn: Callable[..., Transformer]) -> Estimator:
+    """Lift a ``fit``-shaped function into an :class:`Estimator`."""
+    return FnEstimator(fn=fn)
+
+
+def label_estimator(fn: Callable[..., Transformer]) -> LabelEstimator:
+    """Lift a ``fit(data, labels)``-shaped function into a
+    :class:`LabelEstimator`."""
+    return FnLabelEstimator(fn=fn)
+
+
+@dataclasses.dataclass(eq=False)
+class _SuffixedEstimator(Estimator):
+    """``estimator then transformer``: the fitted model, then the suffix."""
+
+    est: Estimator
+    suffix: Transformer
+
+    def fit(self, data, **kw) -> "Pipeline":
+        return Pipeline.of(self.est.fit(data, **kw), self.suffix)
+
+
+@dataclasses.dataclass(eq=False)
+class _SuffixedLabelEstimator(LabelEstimator):
+    est: LabelEstimator
+    suffix: Transformer
+
+    def fit(self, data, labels, **kw) -> "Pipeline":
+        return Pipeline.of(self.est.fit(data, labels, **kw), self.suffix)
+
+
+@dataclasses.dataclass(eq=False)
+class ChainedEstimator(Estimator):
+    """``prefix then estimator``: ``fit`` featurizes with the prefix first."""
+
+    prefix: Transformer
+    est: Estimator
+
+    def fit(self, data, **kw) -> "Pipeline":
+        return Pipeline.of(self.prefix, self.est.fit(self.prefix(data), **kw))
+
+    def fit_fused(self, data, **kw) -> "Pipeline":
+        """The reference traces featurize and fit as one XLA program; the
+        port runs eagerly, so this is :meth:`fit` under ``torch.no_grad()``,
+        with the same result."""
+        with torch.no_grad():
+            return self.fit(data, **kw)
 
 
 @dataclasses.dataclass(eq=False)
@@ -142,9 +253,15 @@ class ChainedLabelEstimator(LabelEstimator):
     prefix: Transformer
     est: LabelEstimator
 
-    def fit(self, data, labels, **kw) -> Pipeline:
+    def fit(self, data, labels, **kw) -> "Pipeline":
         feats = self.prefix(data)
         return Pipeline.of(self.prefix, self.est.fit(feats, labels, **kw))
+
+    def fit_fused(self, data, labels, **kw) -> "Pipeline":
+        """:meth:`fit` under ``torch.no_grad()`` (see
+        :meth:`ChainedEstimator.fit_fused`)."""
+        with torch.no_grad():
+            return self.fit(data, labels, **kw)
 
 
 class FunctionNode(_Chainable):
@@ -169,4 +286,18 @@ class Identity(Transformer):
     """No-op transformer."""
 
     def __call__(self, batch):
+        return batch
+
+
+@dataclasses.dataclass(eq=False)
+class Cacher(Transformer):
+    """Materialization point (the reference's ``.cache()``): waits for the
+    batch's queued device work and returns it unchanged."""
+
+    name: str = ""
+
+    def __call__(self, batch):
+        leaves = batch if isinstance(batch, (list, tuple)) else (batch,)
+        for device in {t.device for t in leaves if isinstance(t, torch.Tensor)}:
+            synchronize(device)
         return batch

@@ -1,21 +1,26 @@
-"""Block least squares and the streaming normal equations.
+"""Linear models, block least squares and the streaming normal equations.
 
-Port of the parts of ``keystone_tpu/ops/linear.py`` the MNIST random-FFT
-slice runs:
+Port of ``keystone_tpu/ops/linear.py``:
 
 - the stabilized ridge solve: Jacobi equilibration, an escalating jitter
   (×32 until the Cholesky factor is finite) and two steps of iterative
-  refinement against the original system;
+  refinement against the original system, and
+  :func:`stabilized_cho_solve`, its factor-once multi-RHS form;
+- :class:`LinearMapper` and :class:`LinearMapEstimator`, the exact ridge
+  fit on centered normal equations, one model or a λ sweep;
 - the streaming normal-equations protocol: a running centered
   (AᵀA, AᵀB, μa, μb, n) f32 state folded chunk by chunk with Chan's
   pairwise merge, with a ``gram_fn`` hook that swaps the AᵀA operator
   (e.g. the int8 Gram, :func:`keystone_tpu_torch.ops.gram.ata_int8`);
 - :class:`BlockLinearMapper` and :class:`BlockLeastSquaresEstimator`
-  with the data-form BCD fit (:func:`_bcd_fit`) and the Gram-form fit
-  behind the ``fit_stats_*`` protocol (:func:`_bcd_fit_gram`).
+  with the data-form BCD fit (:func:`_bcd_fit`), its λ sweep on shared
+  Grams (:func:`_bcd_fit_sweep`) and the Gram-form fit behind the
+  ``fit_stats_*`` protocol (:func:`_bcd_fit_gram`, one model per λ);
+- :class:`LeastSquaresEstimator`, which picks between the two by width.
 
 Everything runs on the tensors' device. Padded rows are masked with
-``n_valid``. The λ sweep waits for a later slice.
+``n_valid``. Where the reference vmaps over λ, the port loops over it: the
+solves are small next to the shared Grams.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 
 from keystone_tpu_torch.core.pipeline import LabelEstimator, Transformer
 from keystone_tpu_torch.core.runtime import resolve_device
+from keystone_tpu_torch.ops.stats import StandardScalerModel
 
 
 def _row_mask(n_rows: int, n_valid, dtype, device) -> torch.Tensor:
@@ -136,6 +142,118 @@ def _matmul_precision(precision: str | None):
         yield
     finally:
         torch.set_float32_matmul_precision(before)
+
+
+def stabilized_cho_solve(mat: torch.Tensor, jitter: float = 1e-6):
+    """Factor a symmetric PSD ``mat`` once (equilibrated, escalating
+    jitter, as :func:`ridge_solve`) and return a solver mapping a (d, k)
+    right-hand side to (d, k)."""
+    c, inv_s = ridge_factor(mat, 0.0, jitter)
+
+    def solve(rhs):
+        return inv_s[:, None] * torch.cholesky_solve(rhs * inv_s[:, None], c)
+
+    return solve
+
+
+@dataclasses.dataclass(eq=False)
+class LinearMapper(Transformer):
+    """``in @ x + b``, with an optional feature scaler applied first."""
+
+    x: torch.Tensor  # (D, K)
+    b: torch.Tensor | None = None
+    feature_scaler: StandardScalerModel | None = None
+
+    def __call__(self, batch):
+        if self.feature_scaler is not None:
+            batch = self.feature_scaler(batch)
+        out = batch @ self.x
+        if self.b is not None:
+            out = out + self.b
+        return out
+
+
+def _centered_mapper(x, b_mean, a_mean) -> LinearMapper:
+    return LinearMapper(x=x, b=b_mean, feature_scaler=StandardScalerModel(mean=a_mean))
+
+
+@dataclasses.dataclass(eq=False)
+class LinearMapEstimator(LabelEstimator):
+    """Exact ridge/OLS by the normal equations on mean-centered A and b;
+    the model carries the feature mean as its scaler and the label mean
+    as its intercept."""
+
+    lam: float = 0.0
+
+    def fit(self, data, labels, n_valid: int | None = None) -> LinearMapper:
+        with _matmul_precision(None):
+            x, b_mean, a_mean = _linear_map_fit(data, labels, n_valid, self.lam)
+        return _centered_mapper(x, b_mean, a_mean)
+
+    def fit_sweep(self, data, labels, lams, n_valid: int | None = None) -> list:
+        """One exact ridge model per λ from one Gram."""
+        with _matmul_precision(None):
+            xs, b_mean, a_mean = _linear_map_fit_sweep(data, labels, n_valid, lams)
+        return [_centered_mapper(x, b_mean, a_mean) for x in xs]
+
+    # -- streaming normal-equations protocol (fit_stats_*) ---------------
+
+    def fit_stats_init(self, d: int, k: int, device=None) -> "NormalEqState":
+        return normal_eq_init(d, k, device)
+
+    def fit_stats_update(self, state, data, labels, n_valid=None, gram_fn=None):
+        return normal_eq_update(state, data, labels, n_valid, gram_fn)
+
+    def fit_stats_finalize(self, state, widths=None) -> LinearMapper:
+        ata, atb, b_mean, a_mean, _ = normal_eq_finalize(state)
+        with _matmul_precision(None):
+            x = _ridge_from_stats(ata, atb, self.lam)
+        return _centered_mapper(x, b_mean, a_mean)
+
+    def fit_sweep_finalize(self, state, lams, widths=None) -> list:
+        """The λ sweep off one accumulated state."""
+        ata, atb, b_mean, a_mean, _ = normal_eq_finalize(state)
+        with _matmul_precision(None):
+            xs = _ridge_sweep_from_stats(ata, atb, lams)
+        return [_centered_mapper(x, b_mean, a_mean) for x in xs]
+
+    @staticmethod
+    def fit_stats_flops_per_row(d: int, k: int) -> float:
+        return 2.0 * d * (d + k)
+
+    @staticmethod
+    def fit_stats_state_bytes(d: int, k: int) -> int:
+        return 4 * (d * d + d * k + 2 * d + 2 * k)
+
+
+def _normal_eq_stats(data, labels, n_valid):
+    """Masked means, centered AᵀA and AᵀB."""
+    mask = _row_mask(data.shape[0], n_valid, data.dtype, data.device)
+    n = mask.sum()
+    a_mean = (data * mask).sum(0) / n
+    b_mean = (labels * mask).sum(0) / n
+    a_c = (data - a_mean) * mask
+    b_c = (labels - b_mean) * mask
+    return a_c.T @ a_c, a_c.T @ b_c, b_mean, a_mean
+
+
+def _linear_map_fit(data, labels, n_valid, lam: float):
+    ata, atb, b_mean, a_mean = _normal_eq_stats(data, labels, n_valid)
+    return ridge_solve(ata, atb, lam), b_mean, a_mean
+
+
+def _linear_map_fit_sweep(data, labels, n_valid, lams):
+    ata, atb, b_mean, a_mean = _normal_eq_stats(data, labels, n_valid)
+    return _ridge_sweep_from_stats(ata, atb, lams), b_mean, a_mean
+
+
+def _ridge_from_stats(ata, atb, lam: float):
+    return ridge_solve(ata, atb, lam)
+
+
+def _ridge_sweep_from_stats(ata, atb, lams) -> torch.Tensor:
+    """(L, D, K): one ridge solve per λ."""
+    return torch.stack([ridge_solve(ata, atb, float(lam)) for lam in lams])
 
 
 # ---------------------------------------------------------------------------
@@ -319,6 +437,40 @@ class BlockLeastSquaresEstimator(LabelEstimator):
             xs=xs, b=intercept, means=means, block_size=self.block_size
         )
 
+    def fit_sweep(
+        self, data, labels, lams, n_valid: int | None = None, sweep_chunk: int | None = None
+    ) -> list:
+        """One model per ridge λ in ``lams``, in order, at marginal cost:
+        the per-block Grams (the N·d² work) are shared and the solves and
+        residuals are batched over the sweep. The (L, N, K) residual and
+        the per-(block, λ) factors grow with L, so ``sweep_chunk`` runs a
+        few λ at a time (the Grams are recomputed per chunk); ``None``
+        sizes chunks to keep those under about 2 GiB."""
+        blocks = _split_blocks(data, self.block_size)
+        lams = [float(lam) for lam in lams]
+        if sweep_chunk is None:
+            # per λ: the residual slice and the factors of every block
+            per_lam = (
+                blocks[0].shape[0] * labels.shape[-1] + sum(b.shape[-1] ** 2 for b in blocks)
+            ) * blocks[0].element_size()
+            sweep_chunk = max(1, min(len(lams), (2 << 30) // max(per_lam, 1)))
+        models: list[BlockLinearMapper] = []
+        with _matmul_precision(self.precision):
+            for s in range(0, len(lams), sweep_chunk):
+                xs_l, means, intercept = _bcd_fit_sweep(
+                    tuple(blocks), labels, n_valid, lams[s : s + sweep_chunk], self.num_iter
+                )
+                models.extend(
+                    BlockLinearMapper(
+                        xs=tuple(xb[i] for xb in xs_l),
+                        b=intercept,
+                        means=means,
+                        block_size=self.block_size,
+                    )
+                    for i in range(xs_l[0].shape[0])
+                )
+        return models
+
     # -- streaming normal-equations protocol (fit_stats_*) ---------------
 
     def fit_stats_init(self, d: int, k: int, device=None) -> NormalEqState:
@@ -331,21 +483,32 @@ class BlockLeastSquaresEstimator(LabelEstimator):
             state, data, labels, n_valid, gram_fn, precision=self.precision
         )
 
+    def _finalize_widths(self, state, widths) -> tuple[int, ...]:
+        d = state.ata.shape[0]
+        return tuple(widths) if widths else block_widths(d, self.block_size)
+
     def fit_stats_finalize(self, state, widths=None) -> BlockLinearMapper:
         """``widths`` pins the block boundaries to the caller's feature
         blocks; default derives them from :func:`block_widths`."""
-        d = state.ata.shape[0]
-        widths = tuple(widths) if widths else block_widths(d, self.block_size)
+        return self.fit_sweep_finalize(state, [self.lam], widths=widths)[0]
+
+    def fit_sweep_finalize(self, state, lams, widths=None) -> list:
+        """One model per λ in ``lams`` off one accumulated state."""
+        widths = self._finalize_widths(state, widths)
         ata, atb, b_mean, a_mean, _ = normal_eq_finalize(state)
         with _matmul_precision(self.precision):
-            x = _bcd_fit_gram(ata, atb, self.lam, widths, self.num_iter)
+            xs_l = _bcd_fit_gram(ata, atb, lams, widths, self.num_iter)
+        means = tuple(split_by_widths(a_mean, widths))
         offs = np.concatenate([[0], np.cumsum(widths)]).astype(int)
-        return BlockLinearMapper(
-            xs=tuple(x[offs[j] : offs[j + 1]] for j in range(len(widths))),
-            b=b_mean,
-            means=tuple(split_by_widths(a_mean, widths)),
-            block_size=self.block_size,
-        )
+        return [
+            BlockLinearMapper(
+                xs=tuple(x[offs[j] : offs[j + 1]] for j in range(len(widths))),
+                b=b_mean,
+                means=means,
+                block_size=self.block_size,
+            )
+            for x in xs_l
+        ]
 
     @staticmethod
     def fit_stats_flops_per_row(d: int, k: int) -> float:
@@ -391,19 +554,65 @@ def _bcd_fit(blocks: tuple, labels, n_valid, num_iter: int, lam: float):
     return tuple(xs), tuple(means), b_mean
 
 
-def _bcd_fit_gram(ata, atb, lam: float, widths: tuple, num_iter: int):
+def _bcd_fit_sweep(blocks: tuple, labels, n_valid, lams, num_iter: int):
+    """Multi-λ data-form BCD: Grams shared over the sweep, each λ's
+    factors computed once, solves and residuals batched over λ. Returns
+    per-block weights with a leading sweep axis (L, d_block, K)."""
+    dtype = blocks[0].dtype
+    mask, b_mean, means, centered, grams = _block_stats(blocks, labels, n_valid)
+    k, n_lam = labels.shape[-1], len(lams)
+    xs = [torch.zeros((n_lam, blk.shape[-1], k), dtype=dtype, device=blk.device) for blk in blocks]
+    resid = ((labels - b_mean) * mask).expand(n_lam, -1, -1).to(dtype)
+    factors = [[ridge_factor(g, lam) for lam in lams] for g in grams]
+    for _ in range(num_iter):
+        for i, a_c in enumerate(centered):
+            rhs = torch.einsum("nd,lnc->ldc", a_c, resid) + grams[i] @ xs[i]
+            x_new = torch.stack([
+                ridge_solve_prefactored(factors[i][j], grams[i], rhs[j], lam)
+                for j, lam in enumerate(lams)
+            ])
+            resid = resid - torch.einsum("nd,ldc->lnc", a_c, x_new - xs[i])
+            xs[i] = x_new
+    return tuple(xs), tuple(means), b_mean
+
+
+def _bcd_fit_gram(ata, atb, lams, widths: tuple, num_iter: int) -> torch.Tensor:
     """Gram-form BCD: the same fixed point as :func:`_bcd_fit`, from the
     FULL centered normal-equation statistics. The data-form block update
     ``rhs_i = A_iᵀR + G_ii x_i`` becomes ``(AᵀB)_i − G[i,:] x + G_ii x_i``,
-    so the pass loop never touches the rows. Returns the (D, K)
-    solution."""
+    so the pass loop never touches the rows. Returns (L, D, K), one
+    solution per λ in ``lams``; a one-λ list is the single fit."""
     offs = np.concatenate([[0], np.cumsum(widths)]).astype(int)
     diag = [ata[offs[i] : offs[i + 1], offs[i] : offs[i + 1]] for i in range(len(widths))]
-    factors = [ridge_factor(g, lam) for g in diag]
-    x = torch.zeros((ata.shape[0], atb.shape[-1]), dtype=ata.dtype, device=ata.device)
-    for _ in range(num_iter):
-        for i in range(len(widths)):
-            o, o2 = offs[i], offs[i + 1]
-            rhs = atb[o:o2] - ata[o:o2] @ x + diag[i] @ x[o:o2]
-            x[o:o2] = ridge_solve_prefactored(factors[i], diag[i], rhs, lam)
-    return x
+
+    def solve_one(lam: float):
+        factors = [ridge_factor(g, lam) for g in diag]
+        x = torch.zeros((ata.shape[0], atb.shape[-1]), dtype=ata.dtype, device=ata.device)
+        for _ in range(num_iter):
+            for i in range(len(widths)):
+                o, o2 = offs[i], offs[i + 1]
+                rhs = atb[o:o2] - ata[o:o2] @ x + diag[i] @ x[o:o2]
+                x[o:o2] = ridge_solve_prefactored(factors[i], diag[i], rhs, lam)
+        return x
+
+    return torch.stack([solve_one(float(lam)) for lam in lams])
+
+
+@dataclasses.dataclass(eq=False)
+class LeastSquaresEstimator(LabelEstimator):
+    """Picks the solver by feature count: a block list or more than
+    ``block_size`` features take :class:`BlockLeastSquaresEstimator`,
+    else the exact :class:`LinearMapEstimator`."""
+
+    lam: float = 0.0
+    block_size: int = 4096
+    num_iter: int = 1
+
+    def fit(self, data, labels, n_valid: int | None = None) -> Transformer:
+        blocked = isinstance(data, (list, tuple))
+        if blocked or data.shape[-1] > self.block_size:
+            est = BlockLeastSquaresEstimator(
+                block_size=self.block_size, num_iter=self.num_iter, lam=self.lam
+            )
+            return est.fit(data, labels, n_valid)
+        return LinearMapEstimator(lam=self.lam).fit(data, labels, n_valid)

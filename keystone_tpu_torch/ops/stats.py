@@ -1,6 +1,7 @@
-"""Statistical feature nodes — the random-FFT featurizer's nodes from
-``keystone_tpu/ops/stats.py``. All nodes map ``(N, d)`` float batches on
-the batch's own device."""
+"""Statistical feature nodes — port of ``keystone_tpu/ops/stats.py``'s
+scaler, random-FFT and cosine random-feature nodes. All nodes map
+``(N, d)`` float batches on the batch's own device; padded rows are
+masked out of a fit with ``n_valid``."""
 
 from __future__ import annotations
 
@@ -10,8 +11,56 @@ import functools
 import numpy as np
 import torch
 
-from keystone_tpu_torch.core.pipeline import Transformer
+from keystone_tpu_torch.core.pipeline import Estimator, Transformer
 from keystone_tpu_torch.core.runtime import resolve_device
+
+# Matlab eps — the reference's variance/norm floor (utils/Stats.scala).
+EPS = 2.2e-16
+
+
+@dataclasses.dataclass(eq=False)
+class StandardScalerModel(Transformer):
+    """Subtract the mean, and divide by ``std`` unless it is None (fitted
+    with ``normalize_std_dev=False``: the solvers' centering)."""
+
+    mean: torch.Tensor
+    std: torch.Tensor | None = None
+
+    def __call__(self, batch):
+        out = batch - self.mean
+        if self.std is not None:
+            out = out / self.std
+        return out
+
+
+@dataclasses.dataclass(eq=False)
+class StandardScaler(Estimator):
+    """Per-feature mean and unbiased std in one pass over the batch;
+    ``n_valid`` masks trailing pad rows out of the moments. A std below
+    ``eps`` becomes 1."""
+
+    normalize_std_dev: bool = True
+    eps: float = EPS
+
+    def fit(self, data, n_valid: int | None = None) -> StandardScalerModel:
+        mean, var = _masked_moments(data, n_valid)
+        if not self.normalize_std_dev:
+            return StandardScalerModel(mean=mean, std=None)
+        n = data.shape[0] if n_valid is None else n_valid
+        # unbiased (sample) std, matching the reference's summarizer
+        std = torch.sqrt(var * (n / max(n - 1, 1)))
+        std = torch.where(std < self.eps, torch.ones_like(std), std)
+        return StandardScalerModel(mean=mean, std=std)
+
+
+def _masked_moments(data, n_valid: int | None):
+    """Population mean and variance over the first ``n_valid`` rows."""
+    if n_valid is None or n_valid == data.shape[0]:
+        return data.mean(dim=0), data.var(dim=0, unbiased=False)
+    mask = (torch.arange(data.shape[0], device=data.device) < n_valid)[:, None].to(data.dtype)
+    mean = (data * mask).sum(dim=0) / n_valid
+    var = (mask * (data - mean) ** 2).sum(dim=0) / n_valid
+    return mean, var
 
 
 @dataclasses.dataclass(eq=False)
@@ -99,3 +148,39 @@ class LinearRectifier(Transformer):
 
     def __call__(self, batch):
         return torch.clamp_min(batch - self.alpha, self.max_val)
+
+
+@dataclasses.dataclass(eq=False)
+class CosineRandomFeatures(Transformer):
+    """Random Fourier features ``cos(x Wᵀ + b)``: W (num_features,
+    input_dim), b (num_features,). Gaussian W approximates an RBF kernel,
+    Cauchy W a Laplacian one."""
+
+    w: torch.Tensor
+    b: torch.Tensor
+
+    def __call__(self, batch):
+        return torch.cos(batch @ self.w.T + self.b)
+
+    @staticmethod
+    def create(
+        input_dim: int,
+        num_features: int,
+        generator: torch.Generator,
+        gamma: float = 1.0,
+        distribution: str = "gaussian",
+        device: torch.device | str | None = None,
+    ) -> "CosineRandomFeatures":
+        """W (times ``gamma``) and b ~ U[0, 2π) drawn on the host from
+        ``generator`` (the same draws whatever the device), then placed on
+        ``device``: the card unless the caller asks for the CPU."""
+        shape = (num_features, input_dim)
+        if distribution == "gaussian":
+            w = torch.randn(shape, generator=generator)
+        elif distribution == "cauchy":
+            w = torch.empty(shape).cauchy_(generator=generator)
+        else:
+            raise ValueError(f"unknown distribution {distribution!r}")
+        b = torch.rand((num_features,), generator=generator) * (2 * np.pi)
+        device = resolve_device(device)
+        return CosineRandomFeatures(w=(gamma * w).to(device), b=b.to(device))

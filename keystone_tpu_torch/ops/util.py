@@ -1,5 +1,6 @@
-"""Utility nodes — port of ``keystone_tpu/ops/util.py``'s label
-indicators, argmax classifier and feature concatenation."""
+"""Utility nodes — port of ``keystone_tpu/ops/util.py``: label
+indicators, the argmax and top-k classifiers, casts, matrix flattening
+and the feature splitter and concatenation."""
 
 from __future__ import annotations
 
@@ -50,6 +51,57 @@ class MaxClassifier(Transformer):
 
     def __call__(self, batch):
         return torch.argmax(batch, dim=-1)
+
+
+@dataclasses.dataclass(eq=False)
+class TopKClassifier(Transformer):
+    """Top-k indices, highest score first."""
+
+    k: int = 5
+
+    def __call__(self, batch):
+        return torch.topk(batch, self.k, dim=-1).indices
+
+
+@dataclasses.dataclass(eq=False)
+class Cast(Transformer):
+    """Dtype conversion by name (``"float32"``, ``"bfloat16"``, ...)."""
+
+    dtype: str = "float32"
+
+    def __call__(self, batch):
+        return torch.as_tensor(batch).to(getattr(torch, self.dtype))
+
+
+def FloatToDouble() -> Cast:
+    """Reference-parity alias: the solvers work in float32, so this casts
+    to float32, as the reference's does."""
+    return Cast(dtype="float32")
+
+
+@dataclasses.dataclass(eq=False)
+class MatrixVectorizer(Transformer):
+    """Flatten per-item matrices (N, a, b) to (N, a·b), column-major like
+    the reference's ``toDenseVector``."""
+
+    def __call__(self, batch):
+        return batch.transpose(1, 2).reshape(batch.shape[0], -1)
+
+
+@dataclasses.dataclass(eq=False)
+class VectorSplitter(FunctionNode):
+    """Split (N, D) features into column blocks of ``block_size`` (the
+    last may be narrower) — the block solvers' feature blocking."""
+
+    block_size: int = 4096
+    num_features: int | None = None
+
+    def __call__(self, data) -> list:
+        d = self.num_features or data.shape[-1]
+        return [
+            data[..., start : min(start + self.block_size, d)]
+            for start in range(0, d, self.block_size)
+        ]
 
 
 @dataclasses.dataclass(eq=False)

@@ -1,5 +1,5 @@
 """Device mesh — port of the parts of ``keystone_tpu/parallel/mesh.py`` that
-sequence-parallel attention reads.
+sequence-parallel attention and the data-parallel workloads read.
 
 The JAX package is single-controller: one process drives every device of a
 mesh. The port keeps that model. A :class:`Mesh` is a (data, model) grid of
@@ -19,10 +19,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 from typing import Iterator, Sequence
 
+import numpy as np
 import torch
+
+from keystone_tpu_torch.core.runtime import resolve_device
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -107,3 +111,61 @@ def current_mesh() -> Mesh | None:
     """The innermost mesh installed by :func:`use_mesh`, else None."""
     stack = getattr(_state, "stack", None)
     return stack[-1] if stack else None
+
+
+def data_sharding(mesh: Mesh | None = None, ndim: int = 2) -> torch.device | None:
+    """Where a batch of rank ``ndim`` lives on ``mesh`` (default: the
+    ambient mesh): the device at data index 0, or None without a mesh.
+    One process drives the whole mesh, so a batch is placed whole on that
+    device; splitting its rows over several cards waits for the
+    multi-process layer (ROADMAP A6). ``ndim`` is the reference's
+    argument: every rank is placed alike."""
+    mesh = mesh or current_mesh()
+    if mesh is None:
+        return None
+    return mesh.axis_devices(mesh.axis_names[0])[0]
+
+
+def data_axis_size(mesh: Mesh | None) -> int:
+    """Size of the "data" axis; 1 for no mesh or a mesh without one."""
+    if mesh is None:
+        return 1
+    return int(mesh.shape.get(DATA_AXIS, 1))
+
+
+def shard_chunk_size(chunk_size: int, mesh: Mesh | None) -> int:
+    """``chunk_size`` rounded up to a multiple of the data-axis size."""
+    n = data_axis_size(mesh)
+    return -(-int(chunk_size) // n) * n
+
+
+def pad_batch(x, multiple: int) -> tuple:
+    """Zero-pad the leading axis of ``x`` (numpy array or tensor) to a
+    multiple of ``multiple``; returns ``(padded, n_valid)``. Reductions
+    downstream mask rows ≥ n_valid."""
+    n = x.shape[0]
+    target = math.ceil(n / multiple) * multiple if n else multiple
+    if target == n:
+        return x, n
+    if isinstance(x, np.ndarray):
+        return np.pad(x, [(0, target - n)] + [(0, 0)] * (x.ndim - 1)), n
+    padded = x.new_zeros((target,) + tuple(x.shape[1:]))
+    padded[:n] = x
+    return padded, n
+
+
+def shard_batch(x, mesh: Mesh | None = None, *, pad: bool = True, device=None):
+    """Place a host batch for a data-parallel pass. Without a mesh (and
+    none installed) the rows go to ``device``: the card unless the caller
+    asks for the CPU. With a mesh they are zero-padded (when ``pad``) to a
+    multiple of the data-axis size and placed on the mesh's first device
+    (:func:`data_sharding`); spreading them over several cards waits for
+    the multi-process layer (ROADMAP A6)."""
+    mesh = mesh or current_mesh()
+    x = torch.from_numpy(x) if isinstance(x, np.ndarray) else torch.as_tensor(x)
+    if mesh is None:
+        return x.to(resolve_device(device))
+    n_data = data_axis_size(mesh)
+    if pad and x.shape[0] % n_data:
+        x, _ = pad_batch(x, n_data)
+    return x.to(data_sharding(mesh, x.ndim))

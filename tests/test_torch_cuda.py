@@ -835,3 +835,113 @@ def test_a_capture_that_syncs_raises_and_nothing_falls_back(card, monkeypatch):
         loop.step()
     assert not loop.graphed and loop.tokens_out == 0
     torch.cuda.synchronize()
+
+
+# --- TIMIT: K1 at D = 32,768, the streamed fit, the scaler and the planner
+
+
+def test_k1_matches_plain_at_timit_width(card):
+    """K1 at the TIMIT fit's chunk shape (8,192 × 32,768): the (D, D) f32
+    output is 4.3 GB, its byte offsets past 2³¹; bit for bit."""
+    gen = torch.Generator(device=card).manual_seed(32768)
+    q = torch.randint(-127, 128, (8192, 32768), dtype=torch.int8, device=card, generator=gen)
+    got = gram.int8_gram(q)
+    want = gram.int8_gram_plain(q)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got[-256:, :256], got[:256, -256:].T)
+
+
+def _timit_rows(n=600):
+    from keystone_tpu_torch.models import timit_pipeline as tt
+
+    return tt._load(tt.TimitConfig(synthetic=n), "train")
+
+
+def test_scaler_and_cosine_features_on_card_match_cpu(card):
+    from keystone_tpu_torch.ops.stats import CosineRandomFeatures, StandardScaler
+
+    rows = torch.from_numpy(_timit_rows().data)
+    for dist in ("gaussian", "cauchy"):
+        cpu_f = CosineRandomFeatures.create(440, 256, torch.Generator().manual_seed(1), 0.05555, dist, device="cpu")
+        card_f = CosineRandomFeatures.create(440, 256, torch.Generator().manual_seed(1), 0.05555, dist, device=card)
+        assert torch.equal(card_f.w.cpu(), cpu_f.w) and torch.equal(card_f.b.cpu(), cpu_f.b)
+        cpu_raw, card_raw = cpu_f(rows), card_f(rows.to(card))
+        tol = 8 * torch.finfo(torch.float32).eps * float((rows.abs() @ cpu_f.w.abs().T + cpu_f.b.abs()).max())
+        assert float((card_raw.cpu() - cpu_raw).abs().max()) <= tol
+        # the scaler on the same features: a nearly constant column (a tiny
+        # Cauchy w) has a std of a few 1e-3, which the features' own
+        # difference above would move by percents
+        for n_valid in (None, 550):
+            cpu_s = StandardScaler().fit(cpu_raw, n_valid=n_valid)
+            card_s = StandardScaler().fit(cpu_raw.to(card), n_valid=n_valid)
+            torch.testing.assert_close(card_s.mean.cpu(), cpu_s.mean, rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(card_s.std.cpu(), cpu_s.std, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("op", ["fp32", "int8"])
+def test_timit_streamed_fit_on_card_matches_cpu(card, monkeypatch, op):
+    """The streamed TIMIT fit at a small width (2 banks of 128) on the card
+    against the same fit on the CPU: the weights within 5e-4 relative and
+    1e-5 absolute in fp32; in int8 the card's and the CPU's features round
+    a few codes apart, so the predictions are held instead."""
+    from keystone_tpu_torch.models import timit_pipeline as tt
+
+    monkeypatch.setenv("KEYSTONE_PLAN", "1")
+    monkeypatch.setenv("KEYSTONE_GRAM_OP", op)
+    argv = ["--synthetic", "2000", "--num-cosines", "2", "--cosine-features", "128"]
+    before = gram.INT8_GRAM.launches
+    on_card = tt.main(argv, device=card)
+    launches = gram.INT8_GRAM.launches - before
+    on_cpu = tt.main(argv, device="cpu")
+    assert gram.INT8_GRAM.launches - before == launches == (1 if op == "int8" else 0)
+    fit_op = next(d for d in on_card["fit_decisions"] if d["action"] == "fit_operator")
+    assert fit_op["op"] == op
+    agree = (on_card["test_predictions"] == on_cpu["test_predictions"]).mean()
+    assert agree >= 0.99 and abs(on_card["test_error"] - on_cpu["test_error"]) <= 0.01
+    if op == "fp32":
+        from keystone_tpu_torch import plan
+        from keystone_tpu_torch.core.pipeline import ChainedLabelEstimator
+        from keystone_tpu_torch.ops.linear import BlockLeastSquaresEstimator
+        from keystone_tpu_torch.ops.util import ClassLabelIndicators
+
+        train = _timit_rows(2000)
+        conf = tt.TimitConfig(synthetic=2000, num_cosines=2, cosine_features=128)
+        xs = {}
+        for dev in (card, torch.device("cpu")):
+            x = torch.from_numpy(train.data).to(dev)
+            feats = tt.make_featurizers(conf, dev)
+            scalers, _ = tt.fit_scalers(feats, x, len(train), False)
+            bank = tt.ScaledCosineBank(chains=tuple(f >> s for f, s in zip(feats, scalers)))
+            fitted = plan.fit_streaming(
+                ChainedLabelEstimator(prefix=bank, est=BlockLeastSquaresEstimator(block_size=128, num_iter=2)),
+                x, ClassLabelIndicators(num_classes=147)(train.labels).to(dev),
+                n_valid=len(train), device=dev, chunk_size=512)
+            xs[dev.type] = torch.cat([w.cpu() for w in fitted[-1].xs])
+        np.testing.assert_allclose(xs["cuda"].numpy(), xs["cpu"].numpy(), rtol=5e-4, atol=1e-5)
+
+
+def test_planner_picks_int8_by_cost_model_on_an_h100(card, monkeypatch):
+    """A TIMIT-shaped bank (8 cosine banks of 512 at γ 0.05555) clears the
+    quantization gate, and an H100's int8 rate wins: ``auto`` picks int8."""
+    if "h100" not in torch.cuda.get_device_name(card).lower():
+        pytest.skip("the cost model's int8 advantage is the H100's")
+    from keystone_tpu_torch import plan
+    from keystone_tpu_torch.core.pipeline import ChainedLabelEstimator
+    from keystone_tpu_torch.models import timit_pipeline as tt
+    from keystone_tpu_torch.ops.linear import BlockLeastSquaresEstimator
+    from keystone_tpu_torch.ops.util import ClassLabelIndicators
+
+    monkeypatch.delenv("KEYSTONE_GRAM_OP", raising=False)
+    train = _timit_rows(1024)
+    conf = tt.TimitConfig(synthetic=1024, num_cosines=8, cosine_features=512)
+    x = torch.from_numpy(train.data).to(card)
+    feats = tt.make_featurizers(conf, card)
+    scalers, _ = tt.fit_scalers(feats, x, len(train), False)
+    bank = tt.ScaledCosineBank(chains=tuple(f >> s for f, s in zip(feats, scalers)))
+    p = plan.plan_fit(
+        ChainedLabelEstimator(prefix=bank, est=BlockLeastSquaresEstimator(block_size=512)),
+        x, ClassLabelIndicators(num_classes=147)(train.labels), device=card)
+    op = p.decision("fit_operator")
+    assert (op["op"], op["reason"]) == ("int8", "cost_model"), op
+    assert op["quantization_error"] <= op["threshold"] and op["int8_speedup"] == 2.0

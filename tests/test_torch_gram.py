@@ -116,6 +116,44 @@ def test_quantization_error_matches_jax():
         assert tg.gram_quantization_error(torch.from_numpy(x)) == jg.gram_quantization_error(x)
 
 
+def _gate_probe(seed):
+    """A probe with what the gate must get right: zeros in many columns
+    (so nonzero counts of both parities), an all-zero column, ties from
+    coarse rounding, and one heavy-tailed column."""
+    rng = np.random.default_rng(seed)
+    n, d = int(rng.integers(1, 300)), int(rng.integers(1, 60))
+    a = rng.normal(size=(n, d)).astype(np.float32)
+    a[rng.random((n, d)) < rng.random()] = 0.0
+    if seed % 2:
+        a = np.round(a * 4) / 4  # ties: many equal magnitudes
+    a[:, int(rng.integers(d))] = 0.0
+    heavy = int(rng.integers(d))
+    a[:, heavy] = rng.standard_cauchy(n).astype(np.float32)
+    return a
+
+
+@pytest.mark.parametrize("seed", range(24))
+def test_quantization_gate_equals_jax_exactly(seed):
+    a = _gate_probe(seed)
+    assert tg.gram_quantization_error(torch.from_numpy(a)) == jg.gram_quantization_error(a)
+
+
+@pytest.mark.parametrize(
+    "col",
+    [
+        [0.0, 3.0, 1.0, 2.0],  # odd nonzero count
+        [0.0, 0.0, 4.0, 1.0, 2.0, 3.0],  # even: the mean of the middle two
+        [0.0, 0.0, 0.0, 0.0],  # all zero: skipped
+        [1.0, 1.0, 1.0, 1.0, 5.0],  # ties around the median
+        [3.4028235e38, 3.4028235e38, 0.0],  # the middle two's float32 sum overflows
+        [1e-3, 1e-3, 1e-3, 1e4],  # heavy tail
+    ],
+)
+def test_quantization_gate_column_cases(col):
+    a = np.array([col, [-v for v in col]], np.float32).T
+    assert tg.gram_quantization_error(a) == jg.gram_quantization_error(a)
+
+
 def test_cpu_tensor_never_counts_a_launch():
     before = tg.INT8_GRAM.launches
     tg.ata_int8(torch.from_numpy(_rows((600, 20), 4)))

@@ -22,6 +22,14 @@ from keystone_tpu_torch import convert
 from keystone_tpu_torch.models import mnist_random_fft as m
 res = m.main(["--synthetic", "600", "--num-ffts", "1", "--block-size", "512"], device="cpu")
 assert res["device"] == "cpu"
+from keystone_tpu_torch.models import timit_pipeline as tm
+for sweep in ([], ["--lam-sweep", "0.1,1"]):
+    res = tm.main(["--synthetic", "200", "--num-cosines", "2", "--cosine-features", "32"] + sweep, device="cpu")
+    assert res["device"] == "cpu"
+from keystone_tpu_torch.core import checkpoint
+from keystone_tpu_torch.evaluation import model_selection
+from keystone_tpu_torch.loaders import timit
+from keystone_tpu_torch.parallel import shard_batch
 from keystone_tpu_torch.models.lm import TransformerLM, generate, quantize_for_decode
 from keystone_tpu_torch.ops import flash_attention
 from keystone_tpu_torch.serve.decode_loop import DecodeLoop
@@ -130,6 +138,15 @@ def test_entry_point_without_device_raises_without_cuda():
         m.main(["--synthetic", "60", "--num-ffts", "1", "--block-size", "512"])
 
 
+def test_timit_entry_point_without_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry point would run on it")
+    from keystone_tpu_torch.models import timit_pipeline as tm
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tm.main(["--synthetic", "60", "--num-cosines", "1", "--cosine-features", "16"])
+
+
 def test_lm_create_without_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the model would be made on it")
@@ -144,8 +161,10 @@ def _constructors():
 
     from keystone_tpu_torch import convert
     from keystone_tpu_torch.models import mnist_random_fft as m
+    from keystone_tpu_torch.models import timit_pipeline as tm
     from keystone_tpu_torch.core.pipeline import Identity
     from keystone_tpu_torch.ops import linear, stats
+    from keystone_tpu_torch.parallel import shard_batch
     from keystone_tpu_torch.serve import server
     from keystone_tpu_torch.serve.export import export_pipeline
 
@@ -160,6 +179,12 @@ def _constructors():
         "convert.featurizer_bank": lambda: convert.featurizer_bank([[np.ones(4)]]),
         "convert.block_linear_mapper": lambda: convert.block_linear_mapper([z], None, None),
         "convert.normal_eq_state": lambda: convert.normal_eq_state(z, z, z[0], z[0], 1.0),
+        "convert.scaled_cosine_bank": lambda: convert.scaled_cosine_bank([{"w": z, "b": z[0], "mean": z[0]}]),
+        "convert.linear_mapper": lambda: convert.linear_mapper(z),
+        "CosineRandomFeatures.create": lambda: stats.CosineRandomFeatures.create(4, 2, torch.Generator()),
+        "timit.make_featurizers": lambda: tm.make_featurizers(tm.TimitConfig(num_cosines=1, cosine_features=2), None),
+        "LinearMapEstimator.fit_stats_init": lambda: linear.LinearMapEstimator().fit_stats_init(3, 2),
+        "shard_batch": lambda: shard_batch(z),
         "convert.transformer_lm": lambda: convert.transformer_lm(leaves, num_heads=1),
         "serve.export_pipeline": lambda: export_pipeline(Identity(), z, optimize=False),
         "serve.build_app": lambda: server.build_app("mnist", {"synthetic": "10"}),

@@ -121,7 +121,7 @@ def test_bcd_fit_gram_matches(widths, num_iter):
     want = jl._bcd_fit_gram(
         jnp.asarray(ata), jnp.asarray(atb), jnp.asarray([0.3]), widths, num_iter
     )[0]
-    got = tl._bcd_fit_gram(_t(ata), _t(atb), 0.3, widths, num_iter)
+    got = tl._bcd_fit_gram(_t(ata), _t(atb), [0.3], widths, num_iter)[0]
     _close(got, want)
 
 
