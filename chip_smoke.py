@@ -132,6 +132,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    0.1,1,10`` (resident blocks, 4.3 GB): the sweep's λ and per-λ
    validation errors, test error of the refit ≤ 5 %.
 
+23. MoE serving: the decode model's width with the FFN of every second
+   block a top-2 MoE of 8 experts (ff ×4, capacity 1.25, groups of 4,096;
+   bf16), ``generate`` in float and in int8 through K4 (the experts stay
+   float): K2 once a layer a prefill, K4 40 times a step in the K4 leg
+   only (ms a step, tokens/s, eager); the pool through ``export_lm`` (8
+   slots, ``s_max`` 512, 16 requests, graphed): tokens/s and slot fill,
+   64 graphed greedy steps give the eager tokens, K4 40 launches a
+   replay and K2 8 a prefill replay (profiler trace), the 4 MoE layers'
+   share of a graphed step's device time; the same weights in f32:
+   prefill logits on the card within 1e-4 of max|logit| of the CPU's,
+   the same top-2 experts wherever the router's logit gap exceeds 1e-4;
+24. MoE training through ``lm_transformer.main --moe-every 2`` at the
+   flagship shape (seq 2,048, batch 8, bf16, AdamW 3e-4), 20 steps: the
+   mean of the last 5 losses at least 5 % below the first, K2 depth
+   launches a step; the steady step (ms, tokens/s, TFLOP/s by
+   ``train_step_flops``, peak memory, profile) and its parts timed alone
+   (expert einsums, dispatch and combine, routing, attention backward,
+   logits with the CE); f32 gradients of a depth-2 MoE model on the card
+   within 1e-4 of max|grad| of the CPU's;
+25. ``vit_ridge.main(["--synthetic", "50000"])`` (patch 8, dim 128, depth
+   4, 4 heads, λ 1, chunks of 512, f32): K2 472 launches (118 chunks × 4
+   blocks), test error ≤ 5 %, featurize and fit s, samples/s, cold and
+   warm; ``cifar_linear_pixels.main`` at the same size, test error ≤ 5 %;
+   ViT features on the card within 1e-4 of max|f| of the CPU's on 512
+   images;
+26. K2's f32 path at ViT's shape (512, 4, 16, 32), non-causal, within
+   1e-5 of its plain version, timed beside it, SDPA on the same f32
+   tensors and its bound.
+
 Phase 7 also holds K2 with its lse against its plain version at the train
 steps' shapes, (8, 16, 2,048, 64) and (1, 8, 16,384, 64), bf16 causal.
 
@@ -2249,6 +2278,491 @@ def phase_timit(device) -> dict:
     }
 
 
+# --- MoE path (phases 23-24): the decode model's width with the FFN of every
+# second block a top-2 MoE of 8 experts (ff ×4, capacity 1.25, groups of
+# 4,096: the JAX package's defaults, models/lm/model.py:348-349,
+# ops/moe.py:46-51); the experts stay float under int8 weights
+MOE_KW = dict(moe_every=2, num_experts=8, capacity_factor=1.25)
+MOE_BLOCKS = LM_CONF["depth"] // MOE_KW["moe_every"]
+K4_MOE_PER_STEP = 6 * LM_CONF["depth"] - 2 * MOE_BLOCKS  # no FFN pair in a MoE block
+MOE_EQUIV_TOL = 1e-4  # of max|logit|, f32 prefill on the card against the CPU
+MOE_ROUTE_MARGIN = 1e-4  # router-logit gap above which card and CPU must pick alike
+MOE_GRAPHED_STEPS = 64
+MOE_TRAIN_STEPS = 20
+MOE_TRAIN_ARGV = [a for a in TRAIN_ARGV] + ["--moe-every", "2", "--num-experts", "8"]
+MOE_TRAIN_ARGV[MOE_TRAIN_ARGV.index("--steps") + 1] = str(MOE_TRAIN_STEPS)
+MOE_TRAIN_LOSS_DROP = 0.05
+MOE_GRAD_SEQ = 512  # the f32 gradient check: depth 2, batch 2, seq 512
+
+# --- ViT path (phases 25-26): vit_ridge's own defaults (patch 8, dim 128,
+# depth 4, 4 heads, λ 1, chunks of 512, f32) on CIFAR-10's sizes
+VIT_ARGV = ["--synthetic", "50000"]
+VIT_CHUNK, VIT_DEPTH, VIT_TRAIN, VIT_TEST = 512, 4, 50_000, 10_000
+VIT_K2_LAUNCHES = (-(-VIT_TRAIN // VIT_CHUNK) - (-VIT_TEST // VIT_CHUNK)) * VIT_DEPTH
+VIT_MAX_TEST_ERROR = 0.05
+VIT_FEAT_TOL = 1e-4  # of max|f|, features on the card against the CPU
+VIT_K2_SHAPE = (VIT_CHUNK, 4, 16, 32)  # (B, H, S, D) of K2's call in a ViT block
+
+
+def _cpu_copy(model):
+    """The same TransformerLM on the CPU, leaf for leaf."""
+    from keystone_tpu_torch import convert
+
+    def leaf(t):
+        return t.detach().cpu().numpy()
+
+    names = ("wq", "wk", "wv", "wo", "w1", "w2")
+    leaves = {
+        "embed": leaf(model.embed), "pos_embed": leaf(model.pos_embed),
+        "blocks": [dict(zip(names, map(leaf, b.leaves()))) for b in model.blocks],
+        "moe_layers": [None if m is None else
+                       dict(zip(("w_router", "w1", "w2"), map(leaf, m.leaves())),
+                            capacity_factor=m.capacity_factor, group_size=m.group_size)
+                       for m in model.moe_layers],
+    }
+    return convert.transformer_lm(leaves, num_heads=model.num_heads,
+                                  compute_dtype=model.compute_dtype, device="cpu")
+
+
+def _record_routes(model):
+    """Hooks on every MoE layer of ``model``: each call's top-2 experts and
+    the top-1/top-2 and top-2/top-3 router-logit gaps of every token."""
+    seen, hooks = [], []
+    for m in model.experts:
+        def hook(mod, args, out):
+            y = args[0].float().reshape(-1, args[0].shape[-1])
+            logits = y @ mod.w_router.float()
+            top = logits.topk(3, dim=-1)
+            seen.append((top.indices[:, :2].cpu(), (top.values[:, :2] - top.values[:, 1:]).cpu()))
+        hooks.append(m.register_forward_hook(hook))
+    return seen, hooks
+
+
+def phase_moe_serving(device) -> dict:
+    """Phase 23: the MoE LM at the bench's decode width: generate in float
+    and in int8 through K4 (K2 depth a prefill, K4 40 a step), the pool
+    graphed and eager, the MoE layers' share of a graphed step, and the f32
+    prefill on the card against the CPU."""
+    import numpy as np
+
+    from keystone_tpu_torch.models.lm import TransformerLM, decode, generate, quantize_for_decode
+    from keystone_tpu_torch.serve.export import export_lm
+
+    depth = LM_CONF["depth"]
+    model = TransformerLM.create(**LM_CONF, **MOE_KW, compute_dtype="bfloat16", device=device,
+                                 generator=torch.Generator(device=device).manual_seed(0))
+    qmodel = quantize_for_decode(model).replace(int8_kernel="kernel")
+    expert_params = sum(p.numel() for m in model.experts for p in m.leaves())
+    print(f"MoE LM: {model.num_params():,} parameters ({expert_params:,} in {MOE_BLOCKS} MoE "
+          f"layers of {MOE_KW['num_experts']} experts), int8 model {qmodel.num_params():,} values")
+    prompt = torch.from_numpy(
+        np.random.default_rng(1).integers(0, LM_CONF["vocab"], size=(LM_BATCH, LM_PROMPT))
+    ).to(device)
+    legs = {"float": model, "int8_kernel": qmodel}
+    res = {}
+    for name, m in legs.items():
+        generate(m, prompt, max_new=2)
+        torch.cuda.synchronize()
+        _zero_counts()
+        generate(m, prompt, max_new=1)
+        torch.cuda.synchronize()
+        prefill_counts = _counts()
+        _zero_counts()
+        out = generate(m, prompt, max_new=LM_MAX_NEW)
+        torch.cuda.synchronize()
+        counts = _counts()
+        k4_want = K4_MOE_PER_STEP * (LM_MAX_NEW - 1) if name == "int8_kernel" else 0
+        print(f"MoE LM [{name}] launches: prefill {prefill_counts}, generate {counts}")
+        check(prefill_counts["flash_attention"] == depth, f"MoE {name}: prefill {prefill_counts}")
+        check(counts["flash_attention"] == depth, f"MoE {name}: K2 launches {counts}")
+        check(counts["int8_matmul"] == k4_want,
+              f"MoE {name}: K4 launched {counts['int8_matmul']} times, want {k4_want}")
+        check(out.shape == (LM_BATCH, LM_MAX_NEW), f"MoE {name}: output {tuple(out.shape)}")
+        check(bool(((out >= 0) & (out < LM_CONF["vocab"])).all()), f"MoE {name}: token range")
+        res[name] = {"launches": counts, "prefill_launches": prefill_counts}
+    for name in [*legs, *reversed(legs)]:
+        m = legs[name]
+        sec_prefill = _wall(lambda: generate(m, prompt, max_new=1), iters=2)
+        sec_full = _wall(lambda: generate(m, prompt, max_new=LM_MAX_NEW), iters=1)
+        step_s = max(sec_full - sec_prefill, 1e-9) / (LM_MAX_NEW - 1)
+        res[name].setdefault("turns", []).append(
+            {"prefill_ms": sec_prefill * 1e3, "generate_ms": sec_full * 1e3,
+             "ms_per_step": step_s * 1e3})
+    for name, r in res.items():
+        for key in ("prefill_ms", "generate_ms", "ms_per_step"):
+            r[key] = statistics.mean(t[key] for t in r["turns"])
+        r["tokens_per_s"] = LM_BATCH / (r["ms_per_step"] / 1e3)
+        print(f"MoE LM [{name}]: prefill {r['prefill_ms']:.2f} ms, {r['ms_per_step']:.3f} ms a "
+              f"step, {r['tokens_per_s']:.1f} tokens/s (eager)")
+
+    # the pool: every program captured by warm(), seeded requests
+    prompts, news = _serve_requests()
+    loop = export_lm(qmodel, slots=SERVE_SLOTS, s_max=SERVE_S_MAX, max_new=32)
+    check(loop.graphed and len(loop._prefill_graphs) == len(loop.prefill_buckets),
+          "MoE serving: export_lm did not capture the pool's graphs")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futs = [loop.submit(p, max_new=n) for p, n in zip(prompts, news)]
+    steps = 0
+    while not all(f.done() for f in futs):
+        if loop.step():
+            steps += 1
+        elif not loop.pending():
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for f, n in zip(futs, news):
+        o = f.result(timeout=0)
+        check(len(o) == n and bool(((o >= 0) & (o < LM_CONF["vocab"])).all()),
+              f"MoE serving: a request got {len(o)} tokens, asked {n}")
+    check(loop.tokens_out == sum(news), f"MoE serving: tokens_out {loop.tokens_out}")
+    fill = loop.occupancy_steps / max(steps * SERVE_SLOTS, 1)
+    print(f"MoE serving (graphed): {SERVE_REQUESTS} requests, {loop.tokens_out} tokens in "
+          f"{wall:.3f} s ({loop.tokens_out / wall:.1f} tokens/s), {steps} steps, mean slot "
+          f"fill {fill:.3f}")
+
+    # one pool state, every slot busy: graphed against eager
+    for p in prompts[:SERVE_SLOTS]:
+        loop.submit(p, max_new=128)
+    loop._admit()
+    cache = loop.cache
+    state = [t.clone() for t in (cache.k, cache.v, cache.pos)]
+    tok = loop._tok.copy()
+
+    def restore():
+        for buf, saved in zip((cache.k, cache.v, cache.pos), state):
+            buf.copy_(saved)
+
+    def eager_step():
+        return loop._pool_step(torch.from_numpy(tok).to(device))[0].cpu().numpy()
+
+    step_fns = {"graphed": lambda: loop._run_step(tok), "eager": eager_step}
+    step_ms: dict = {"graphed": [], "eager": []}
+    with torch.inference_mode():
+        g = loop._step_graph
+        tok0 = torch.from_numpy(tok).to(device)
+
+        def greedy(graphed: bool):
+            restore()
+            t, out = tok0.clone(), []
+            for _ in range(MOE_GRAPHED_STEPS):
+                if graphed:
+                    g.inputs[0].copy_(t)
+                    g.graph.replay()
+                    t = g.outputs[0].clone()
+                else:
+                    t = loop._pool_step(t)[0]
+                out.append(t)
+            return torch.stack(out)
+
+        same_tokens = bool(torch.equal(greedy(True), greedy(False)))
+        for name in ("graphed", "eager", "eager", "graphed"):
+            restore()
+            step_ms[name].append(_wall(step_fns[name], iters=50) * 1e3)
+        restore()
+        step_trace = traced_launches(lambda: [loop._run_step(tok) for _ in range(8)])
+        restore()
+        width = loop.prefill_buckets[-1]
+        padded = np.zeros((1, width), np.int64)
+        padded[0] = np.random.default_rng(6).integers(0, LM_CONF["vocab"], size=width)
+        prefill_trace = traced_launches(lambda: loop._run_prefill(padded, width)[0])
+        same_first = prefill_trace["out"] == int(loop._prefill(
+            torch.from_numpy(padded).to(device), torch.tensor([width], device=device))[0][0])
+        # the MoE layers alone at the pooled step's shape, as one graph
+        y = torch.randn((SERVE_SLOTS, 1, LM_CONF["dim"]), device=device).to(torch.bfloat16)
+        moe_ms = device_ms(lambda: [m(y) for m in qmodel.experts])
+    graphed_ms, eager_ms = statistics.mean(step_ms["graphed"]), statistics.mean(step_ms["eager"])
+    k4_per_step = step_trace["launches"]["int8_matmul"] / 8
+    step_device_ms = step_trace["device_busy_ms"] / 8
+    moe_share = moe_ms / step_device_ms if moe_ms else None
+    print(f"MoE serving: pooled step, {SERVE_SLOTS} slots busy: graphed {graphed_ms:.3f} ms, eager "
+          f"{eager_ms:.3f} ms (turns {step_ms}); device busy {step_device_ms:.3f} ms a step "
+          f"({step_trace['device_busy_share']:.1%} of the replays' wall), "
+          f"{step_trace['device_kernels'] / 8:.0f} kernels and {k4_per_step:.0f} K4 launches a "
+          f"replay; the {MOE_BLOCKS} MoE layers alone {moe_ms} ms ({moe_share} of the step's "
+          f"device time); {MOE_GRAPHED_STEPS} greedy steps same tokens: {same_tokens}; prefill "
+          f"width {width} replay launches {prefill_trace['launches']}, same first token "
+          f"{same_first}")
+    check(same_tokens, "MoE serving: the graphed pool step does not reproduce the eager tokens")
+    check(k4_per_step == K4_MOE_PER_STEP, f"MoE serving: K4 {k4_per_step} launches a replay")
+    check(prefill_trace["launches"]["flash_attention"] == depth,
+          f"MoE serving: K2 {prefill_trace['launches']} in a prefill replay")
+    check(same_first, "MoE serving: graphed and eager prefill first tokens differ")
+    del loop
+
+    # f32 prefill: the card (K2, cuBLAS with TF32 off) against the CPU
+    m32 = model.replace(compute_dtype="float32")
+    cpu = _cpu_copy(m32)
+    seen_dev, hooks = _record_routes(m32)
+    dev_logits, _ = decode.prefill(m32, prompt, LM_PROMPT)
+    for h in hooks:
+        h.remove()
+    seen_cpu, hooks = _record_routes(cpu)
+    cpu_logits, _ = decode.prefill(cpu, prompt.cpu(), LM_PROMPT)
+    for h in hooks:
+        h.remove()
+    err = _rel(dev_logits.cpu(), cpu_logits)
+    clear = tight = differ = 0
+    for (i_dev, _), (i_cpu, gap) in zip(seen_dev, seen_cpu):
+        ok = gap.min(dim=-1).values > MOE_ROUTE_MARGIN
+        clear += int(ok.sum())
+        tight += int((~ok).sum())
+        differ += int((i_dev[ok] != i_cpu[ok]).any(dim=-1).sum())
+    print(f"MoE f32 prefill, card vs CPU: max|Δlogit| / max|logit| = {err:.3e}; top-2 experts "
+          f"differ on {differ} of {clear} token-layers with a margin above {MOE_ROUTE_MARGIN} "
+          f"({tight} below it)")
+    check(differ == 0, f"MoE equivalence: {differ} clear-margin routes differ")
+    check(err <= MOE_EQUIV_TOL, f"MoE equivalence: logits differ by {err:.3e} of max")
+    del cpu, m32
+    torch.cuda.empty_cache()
+    return {
+        "config": {**LM_CONF, **MOE_KW, "batch": LM_BATCH, "prompt": LM_PROMPT,
+                   "max_new": LM_MAX_NEW, "compute_dtype": "bfloat16",
+                   "params": model.num_params(), "expert_params": expert_params},
+        "legs": res,
+        "pool": {"requests": SERVE_REQUESTS, "tokens": sum(news), "wall_s": wall,
+                 "tokens_per_s": sum(news) / wall, "steps": steps, "mean_slot_fill": fill},
+        "step_ms": {"graphed": graphed_ms, "eager": eager_ms, "turns": step_ms,
+                    "device_busy_ms": step_device_ms, "k4_launches": k4_per_step,
+                    "moe_layers_device_ms": moe_ms, "moe_share_of_step_device": moe_share},
+        "same_tokens_64_steps": same_tokens,
+        "prefill_replay_launches": prefill_trace["launches"],
+        "f32_equivalence": {"max_rel_err": err, "routes_clear": clear, "routes_tight": tight,
+                            "routes_differ": differ},
+    }
+
+
+def moe_step_parts(device, layer, tokens: int) -> dict:
+    """One MoE layer's forward and backward at the train step's shape, in
+    three parts timed alone (CUDA events, device ms): the routing
+    (router product, softmax, masks, the combine weights), the dispatch
+    and combine einsums, and the expert einsums with their GELU."""
+    import torch.nn.functional as F
+
+    d, e = layer.w_router.shape
+    gs = min(layer.group_size, tokens)
+    ng, c = -(-tokens // gs), layer._capacity(gs)
+    gen = torch.Generator(device=device).manual_seed(41)
+    bf16 = torch.bfloat16
+    x = torch.randn((ng, gs, d), generator=gen, device=device).to(bf16).requires_grad_(True)
+    valid = torch.ones((ng, gs), dtype=torch.bool, device=device)
+    probe = layer.replace(**{n: p.detach().clone() for n, p in
+                             zip(("w_router", "w1", "w2"), layer.leaves())})
+    w = [p.requires_grad_(True) for p in probe.leaves()]
+    combine, dispatch, _, _ = probe.dispatch_weights(x, valid, c)
+    combine = combine.detach().to(bf16).requires_grad_(True)
+    dispatch = dispatch.detach()
+    r_comb = torch.randn(combine.shape, generator=gen, device=device)
+    exp_in = torch.randn((ng, e, c, d), generator=gen, device=device).to(bf16).requires_grad_(True)
+    exp_out = torch.randn((ng, e, c, d), generator=gen, device=device).to(bf16).requires_grad_(True)
+    g_in = torch.randn((ng, e, c, d), generator=gen, device=device).to(bf16)
+    g_out = torch.randn((ng, gs, d), generator=gen, device=device).to(bf16)
+
+    def routing():
+        comb, _, aux, _ = probe.dispatch_weights(x, valid, c)
+        torch.autograd.grad((comb * r_comb).sum() + aux.sum(), (x, w[0]))
+
+    def dispatch_combine():
+        a = torch.einsum("tgec,tgd->tecd", dispatch, x)
+        b = torch.einsum("tgec,tecd->tgd", combine, exp_out)
+        torch.autograd.grad(((a * g_in).sum(), (b * g_out).sum()), (x, combine, exp_out))
+
+    def expert_products():
+        h = F.gelu(torch.einsum("tecd,edf->tecf", exp_in, w[1].to(bf16)), approximate="tanh")
+        out = torch.einsum("tecf,efd->tecd", h, w[2].to(bf16))
+        torch.autograd.grad((out * g_in).sum(), (exp_in, w[1], w[2]))
+
+    return {"routing_ms": time_ms(routing, reps=3, rounds=1),
+            "dispatch_combine_ms": time_ms(dispatch_combine, reps=3, rounds=1),
+            "expert_einsums_ms": time_ms(expert_products, reps=3, rounds=1),
+            "groups": ng, "capacity": c}
+
+
+def phase_moe_train(device) -> dict:
+    """Phase 24: the MoE LM trained through ``lm_transformer.main`` at the
+    flagship train shape (the loss gate, K2's launches), its steady step
+    (ms, rate, TFLOP/s by ``train_step_flops``, peak memory, the profile
+    and the step's parts), and the f32 gradients of a depth-2 MoE model on
+    the card against the CPU."""
+    import numpy as np
+
+    from keystone_tpu_torch.models import lm_transformer
+    from keystone_tpu_torch.models.lm import train_step_flops
+    from keystone_tpu_torch.models.lm.train import _step_batch, synthetic_corpus
+
+    depth = TRAIN_CONF["depth"]
+    recorded = {}
+    real_train = lm_transformer.train
+
+    def recording_train(*args, **kw):
+        model, losses = real_train(*args, **kw)
+        recorded["losses"] = losses
+        return model, losses
+
+    lm_transformer.train = recording_train
+    _zero_counts()
+    try:
+        res = lm_transformer.main(list(MOE_TRAIN_ARGV))
+        torch.cuda.synchronize()
+    finally:
+        lm_transformer.train = real_train
+    counts = _counts()
+    losses = recorded.pop("losses")
+    last5 = float(np.mean(losses[-5:]))
+    drop = 1 - last5 / losses[0]
+    print(f"MoE train main(): {res['params']:,} parameters, {MOE_TRAIN_STEPS} steps, loss "
+          f"{losses[0]:.4f} -> {last5:.4f} (mean of last 5, {drop:.1%} lower), "
+          f"{res['tokens_per_s']:.0f} tokens/s over the run; launches {counts}")
+    check(all(math.isfinite(x) for x in losses), f"MoE train: a loss is not finite {losses}")
+    check(drop >= MOE_TRAIN_LOSS_DROP,
+          f"MoE train: loss fell {drop:.1%}, want >= {MOE_TRAIN_LOSS_DROP:.0%}")
+    check(counts["flash_attention"] == depth * MOE_TRAIN_STEPS,
+          f"MoE train: launches {counts}, want K2 {depth * MOE_TRAIN_STEPS}")
+
+    corpus = synthetic_corpus(200_000, TRAIN_CONF["vocab"], seed=0)
+    batches = [torch.from_numpy(_step_batch(corpus, 0, i, TRAIN_BATCH, TRAIN_SEQ)).to(device)
+               for i in range(2 + TRAIN_TIMED_STEPS)]
+    model = _train_model(device, TRAIN_CONF, TRAIN_SEQ, **MOE_KW)
+    t_losses, t_ms, t_counts, peak, step, state = _timed_steps(model, batches)
+    check(abs(t_losses[0] - losses[0]) <= 1e-5 * losses[0],
+          f"MoE train: the timed run's first loss {t_losses[0]} is not main()'s {losses[0]}")
+    step_ms = statistics.mean(t_ms[2:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_step_flops(model, TRAIN_BATCH, TRAIN_SEQ)
+    prof = train_step_profile(lambda: step(model, state, batches[0]))
+    parts = step_parts(device, model, batches[0])
+    moe = moe_step_parts(device, model.experts[0], tokens)
+    buckets = {
+        "expert_einsums": moe["expert_einsums_ms"] * MOE_BLOCKS,
+        "dispatch_combine": moe["dispatch_combine_ms"] * MOE_BLOCKS,
+        "routing_elementwise": moe["routing_ms"] * MOE_BLOCKS,
+        "attention_backward": parts["attention_backward_ms_per_layer"] * depth,
+        "logits_ce": parts["tied_logits_ce_ms"],
+    }
+    out = {
+        "params": res["params"], "steps": MOE_TRAIN_STEPS, "loss_first": losses[0],
+        "loss_last5": last5, "loss_drop": drop, "losses": losses, "main_result": res,
+        "launches": counts, "ms_per_step": step_ms, "step_ms": t_ms,
+        "tokens_per_s": tokens / (step_ms / 1e3), "step_flops": flops,
+        "tflops_per_s": flops / (step_ms / 1e3) / 1e12,
+        "bf16_peak_share": flops / (step_ms / 1e3) / BF16_PEAK_OPS,
+        "peak_bytes": peak, "profile": prof, "moe_layer_parts": moe,
+        "parts_ms": buckets, "parts_share": {k: v / step_ms for k, v in buckets.items()},
+    }
+    print(f"MoE train steady: {step_ms:.2f} ms a step ({t_ms}), {out['tokens_per_s']:.0f} "
+          f"tokens/s, {out['tflops_per_s']:.1f} TFLOP/s by train_step_flops "
+          f"({out['bf16_peak_share']:.1%} of the bf16 peak), peak {peak / 2**30:.2f} GiB; parts "
+          f"(ms a step, timed alone) {({k: round(v, 2) for k, v in buckets.items()})}")
+    if prof is not None:
+        print("MoE train one step's profile: wall {:.1f} ms, device busy {:.1f} ms ({:.1%}); by "
+              "kernel bucket {}; top {}".format(
+                  prof["wall_ms"], prof["device_busy_ms"], prof["device_busy_share"],
+                  {k: round(v, 2) for k, v in prof["ms_by_bucket"].items()},
+                  [(t["name"][:50], round(t["ms"], 2)) for t in prof["top"][:8]]))
+    del model, state, step, batches
+    torch.cuda.empty_cache()
+
+    # f32 gradients, depth 2 (block 2 is the MoE one), card against the CPU
+    m32 = _train_model(device, dict(TRAIN_CONF, depth=GRAD_DEPTH), MOE_GRAD_SEQ,
+                       compute_dtype="float32", **MOE_KW)
+    cpu = _cpu_copy(m32)
+    toks = torch.from_numpy(np.random.default_rng(12).integers(
+        0, TRAIN_CONF["vocab"], size=(2, MOE_GRAD_SEQ + 1)))
+    got = _leaf_grads(m32, toks.to(device))
+    want = _leaf_grads(cpu, toks)
+    err = _grad_err([None if g is None else g.cpu() for g in got], want)
+    print(f"MoE train f32 gradients, depth {GRAD_DEPTH}, seq {MOE_GRAD_SEQ}: every leaf within "
+          f"{err:.3e} of max|grad| of the CPU's")
+    check(err <= GRAD_TOL, f"MoE train equivalence: {err:.3e}")
+    out["f32_grad_max_rel_err"] = err
+    del m32, cpu, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_vit(device) -> dict:
+    """Phase 25: ``vit_ridge.main`` on 50,000 + 10,000 synthetic images (K2
+    f32, 472 launches) and ``cifar_linear_pixels.main`` beside it; ViT
+    features on the card against the CPU's on 512 images."""
+    import numpy as np
+
+    from keystone_tpu_torch.models import cifar_linear_pixels, vit_ridge
+    from keystone_tpu_torch.ops.vit import ViTBlock, ViTFeaturizer
+
+    _zero_counts()
+    res = vit_ridge.main(list(VIT_ARGV), device="cuda")
+    torch.cuda.synchronize()
+    counts = _counts()
+    print(f"ViT-ridge: train error {res['train_error']:.4f}, test error {res['test_error']:.4f}, "
+          f"featurize {res['featurize_s']:.3f} s, fit {res['fit_s']:.3f} s, total "
+          f"{res['total_s']:.3f} s, {res['featurize_fit_samples_per_s']:.0f} samples/s; "
+          f"launches {counts}")
+    check(res["n_train"] == VIT_TRAIN and res["n_test"] == VIT_TEST, f"ViT sizes {res}")
+    check(counts["flash_attention"] == VIT_K2_LAUNCHES,
+          f"ViT: K2 launched {counts['flash_attention']} times, want {VIT_K2_LAUNCHES}")
+    check(res["test_error"] <= VIT_MAX_TEST_ERROR, f"ViT test error {res['test_error']}")
+    # a second run, warm: the featurize and fit without first-use costs;
+    # featurize_s holds the synthetic load, timed here alone
+    warm = vit_ridge.main(list(VIT_ARGV), device="cuda")
+    t0 = time.perf_counter()
+    vit_ridge._load(vit_ridge.LinearPixelsConfig(synthetic=VIT_TRAIN), "train")
+    load_s = time.perf_counter() - t0
+    print(f"ViT-ridge warm: featurize {warm['featurize_s']:.3f} s (the synthetic train load "
+          f"alone {load_s:.3f} s), fit {warm['fit_s']:.3f} s, "
+          f"{warm['featurize_fit_samples_per_s']:.0f} samples/s")
+
+    lp = cifar_linear_pixels.main(list(VIT_ARGV), device="cuda")
+    print(f"linear pixels: train error {lp['train_error']:.4f}, test error {lp['test_error']:.4f},"
+          f" total {lp['total_s']:.3f} s")
+    check(lp["test_error"] <= VIT_MAX_TEST_ERROR, f"linear pixels test error {lp['test_error']}")
+
+    conf = vit_ridge.ViTRidgeConfig(synthetic=VIT_TRAIN)
+    vit = vit_ridge.make_featurizer(conf, 32, device)
+    cpu = ViTFeaturizer(
+        patch_embed=vit.patch_embed.cpu(), pos_embed=vit.pos_embed.cpu(),
+        blocks=tuple(ViTBlock(*(getattr(b, n).cpu() for n in ("wq", "wk", "wv", "wo", "w1", "w2")),
+                              num_heads=b.num_heads) for b in vit.blocks))
+    images = vit_ridge._load(vit_ridge.LinearPixelsConfig(synthetic=VIT_CHUNK), "train").images
+    x = torch.from_numpy(images / np.float32(255.0))
+    err = _rel(vit(x.to(device)).cpu(), cpu(x))
+    print(f"ViT features, card (K2) vs CPU on {VIT_CHUNK} images: {err:.3e} of max|f|")
+    check(err <= VIT_FEAT_TOL, f"ViT features differ by {err:.3e} of max")
+    return {"vit_ridge": res, "vit_ridge_warm": warm, "train_load_s": load_s, "linear_pixels": lp,
+            "launches": counts, "feature_max_rel_err": err}
+
+
+def phase_k2_vit(device) -> dict:
+    """Phase 26: K2's f32 path at ViT's shape, non-causal: against its
+    plain version, timed beside it and SDPA on the same tensors."""
+    import torch.nn.functional as F
+
+    from keystone_tpu_torch.ops import flash_attention as fa
+
+    b, h, s, d = VIT_K2_SHAPE
+    gen = torch.Generator(device=device).manual_seed(26)
+    q, k, v = (torch.randn(VIT_K2_SHAPE, generator=gen, device=device) for _ in range(3))
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_plain(q, k, v)
+    err = _rel(out, ref)
+    max_abs = float((out - ref).abs().max())
+    check(err <= K2_F32_TOL, f"K2 at ViT's shape disagrees with its plain version ({err:.3e})")
+    kernel_ms = device_ms(lambda: fa.flash_attention(q, k, v))
+    plain_ms = device_ms(lambda: fa.flash_attention_plain(q, k, v))
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    ops = 4.0 * b * h * s * s * d
+    traffic = 4.0 * b * h * s * d * 4  # q, k, v read once, o written once, f32
+    ops_ms, bytes_ms = 1e3 * ops / F32_PEAK_OPS, 1e3 * traffic / HBM_BYTES_PER_S
+    print(f"K2 {VIT_K2_SHAPE} f32 non-causal: max|kernel-plain| / max|plain| = {err:.3e}; device "
+          f"times kernel {kernel_ms} ms, plain {plain_ms} ms, sdpa {library_ms} ms, bound "
+          f"{max(ops_ms, bytes_ms):.5f} ms")
+    return {"shape": list(VIT_K2_SHAPE), "dtype": "float32", "causal": False,
+            "max_abs_err": max_abs, "max_rel_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library": "scaled_dot_product_attention, f32",
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available")
@@ -2345,6 +2859,20 @@ def main() -> None:
     k1["launches_timit"] = timit["k1_launches"]
     k1["timit"] = timit["kernels"]["k1"]
     print(json.dumps({"timit_path": {"card": smi, **timit}}))
+
+    moe_serving = phase_moe_serving(device)
+    moe_train = phase_moe_train(device)
+    k2["launches_moe"] = {"per_prefill": moe_serving["legs"]["float"]["prefill_launches"][
+        "flash_attention"], "train_main": moe_train["launches"]["flash_attention"],
+        "prefill_replay": moe_serving["prefill_replay_launches"]["flash_attention"]}
+    k4["launches_moe"] = {"generate": moe_serving["legs"]["int8_kernel"]["launches"][
+        "int8_matmul"], "per_step_replay": moe_serving["step_ms"]["k4_launches"]}
+    print(json.dumps({"moe_path": {"card": smi, "serving": moe_serving, "train": moe_train}}))
+
+    vit = phase_vit(device)
+    k2["launches_vit"] = vit["launches"]["flash_attention"]
+    k2["at_vit_shape"] = phase_k2_vit(device)
+    print(json.dumps({"vit_path": {"card": smi, **vit, "k2_at_vit_shape": k2["at_vit_shape"]}}))
 
     summary = {
         "card": smi,

@@ -22,6 +22,8 @@ from keystone_tpu_torch.core.pipeline import Pipeline
 from keystone_tpu_torch.models.mnist_random_fft import FeaturizerBank
 from keystone_tpu_torch.models.timit_pipeline import ScaledCosineBank
 from keystone_tpu_torch.ops.linear import BlockLinearMapper, LinearMapper, NormalEqState
+from keystone_tpu_torch.ops.moe import MoELayer
+from keystone_tpu_torch.ops.vit import ViTBlock, ViTFeaturizer
 from keystone_tpu_torch.ops.quantization import QTensor
 from keystone_tpu_torch.ops.stats import (
     CosineRandomFeatures,
@@ -151,6 +153,20 @@ def _lm_leaf(x, device):
     return _t(x, device)
 
 
+def moe_layer(leaves: Mapping, *, device: torch.device | str | None = None) -> MoELayer:
+    """A :class:`MoELayer` from the JAX layer's ``w_router`` (d, E), ``w1``
+    (E, d, ff) and ``w2`` (E, ff, d), with its ``capacity_factor`` and
+    ``group_size`` when the mapping holds them."""
+    device = resolve_device(device)
+    return MoELayer(
+        _t(leaves["w_router"], device),
+        _t(leaves["w1"], device),
+        _t(leaves["w2"], device),
+        capacity_factor=leaves.get("capacity_factor", 1.25),
+        group_size=leaves.get("group_size", 4096),
+    )
+
+
 def transformer_lm(
     leaves: Mapping,
     *,
@@ -164,14 +180,18 @@ def transformer_lm(
     seq_axis: str = "data",
     remat: bool = False,
     remat_policy: str = "full",
+    moe_aux_weight: float = 0.01,
     device: torch.device | str | None = None,
 ) -> TransformerLM:
     """A :class:`TransformerLM` from the JAX model's leaves: ``{"embed",
     "pos_embed", "blocks": [{"wq", "wk", "wv", "wo", "w1", "w2"}, ...]}``,
-    each an array or a QTensor-like leaf. ``int8_kernel`` takes the JAX
-    package's names: "xla" → "mm", "pallas" → "kernel". ``seq_mode``,
-    ``mesh`` (a port :class:`~keystone_tpu_torch.parallel.Mesh`),
-    ``seq_axis``, ``remat`` and ``remat_policy`` are the model's own."""
+    each an array or a QTensor-like leaf, and, for a MoE model,
+    ``"moe_layers"``: one entry per block, None or a mapping for
+    :func:`moe_layer` (a MoE block's ``w1``/``w2`` are its zero-width
+    placeholders). ``int8_kernel`` takes the JAX package's names: "xla" →
+    "mm", "pallas" → "kernel". ``seq_mode``, ``mesh`` (a port
+    :class:`~keystone_tpu_torch.parallel.Mesh`), ``seq_axis``, ``remat``,
+    ``remat_policy`` and ``moe_aux_weight`` are the model's own."""
     if int8_kernel not in _INT8_KERNEL:
         raise ValueError(f"int8_kernel={int8_kernel!r}; expected xla|pallas")
     device = resolve_device(device)
@@ -179,6 +199,9 @@ def transformer_lm(
         LMBlock(*(_lm_leaf(b[n], device) for n in ("wq", "wk", "wv", "wo", "w1", "w2")))
         for b in leaves["blocks"]
     ]
+    moes = tuple(
+        None if m is None else moe_layer(m, device=device) for m in leaves.get("moe_layers", ())
+    )
     return TransformerLM(
         _lm_leaf(leaves["embed"], device),
         _lm_leaf(leaves["pos_embed"], device),
@@ -193,4 +216,36 @@ def transformer_lm(
         seq_axis=seq_axis,
         remat=remat,
         remat_policy=remat_policy,
+        moe_layers=moes,
+        moe_aux_weight=moe_aux_weight,
+    )
+
+
+def vit_featurizer(
+    leaves: Mapping,
+    *,
+    patch_size: int = 8,
+    num_heads: int = 4,
+    mesh=None,
+    seq_axis: str = "data",
+    device: torch.device | str | None = None,
+) -> ViTFeaturizer:
+    """A :class:`ViTFeaturizer` from the JAX featurizer's leaves:
+    ``{"patch_embed", "pos_embed", "blocks": [{"wq", "wk", "wv", "wo",
+    "w1", "w2"}, ...]}``. ``mesh`` (a port
+    :class:`~keystone_tpu_torch.parallel.Mesh`) runs the attention as the
+    ring."""
+    device = resolve_device(device)
+    blocks = tuple(
+        ViTBlock(**{n: _t(b[n], device) for n in ("wq", "wk", "wv", "wo", "w1", "w2")},
+                 num_heads=num_heads)
+        for b in leaves["blocks"]
+    )
+    return ViTFeaturizer(
+        patch_embed=_t(leaves["patch_embed"], device),
+        pos_embed=_t(leaves["pos_embed"], device),
+        blocks=blocks,
+        patch_size=patch_size,
+        mesh=mesh,
+        seq_axis=seq_axis,
     )

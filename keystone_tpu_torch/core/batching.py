@@ -11,6 +11,14 @@ import torch
 from keystone_tpu_torch.core.staging import run_staged, to_device
 
 
+def pad_labels(labels: np.ndarray, rows: int) -> np.ndarray:
+    """(N,) int labels zero-padded to ``rows``: the labels of a batch whose
+    rows a mesh or a chunk padded."""
+    y = np.zeros(rows, np.int32)
+    y[: len(labels)] = labels
+    return y
+
+
 def pad_to_chunk(chunk, chunk_size: int) -> tuple:
     """Zero-pad ``chunk`` (tensor or numpy array) along axis 0 to exactly
     ``chunk_size`` rows. Returns ``(padded, valid)`` where ``valid`` is the

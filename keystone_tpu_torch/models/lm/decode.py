@@ -74,10 +74,10 @@ def prefill(model: TransformerLM, tokens, s_max: int,
     x = _embed(model, tokens, cdt)
     mm_fn = model_mm(model)
     ks, vs = [], []
-    for blk in model.blocks:
-        x, (k, v) = _block_apply(
+    for i, blk in enumerate(model.blocks):
+        x, (k, v), _ = _block_apply(
             x, blk, cdt, lambda y, b: model._attention(y, b, return_kv=True),
-            mm_fn=mm_fn,
+            moe=model._moe(i), mm_fn=mm_fn,
         )
         ks.append(k)
         vs.append(v)
@@ -194,7 +194,7 @@ def decode_step(model: TransformerLM, token, cache: KVCache):
         return attn
 
     for i, blk in enumerate(model.blocks):
-        x, _ = _block_apply(x, blk, cdt, cached_attn(i), mm_fn=mm_fn)
+        x, _, _ = _block_apply(x, blk, cdt, cached_attn(i), moe=model._moe(i), mm_fn=mm_fn)
     logits = _tied_logits(x, model.embed, cdt)[:, 0]
     # past capacity the write above landed on the last position: the
     # logits are plausible but wrong, so they are poisoned loudly
@@ -300,7 +300,8 @@ def quantize_for_decode(model: TransformerLM) -> TransformerLM:
     """Weight-only int8 for serving: every block matrix gets symmetric
     per-output-channel int8, the tied embedding per-row scales (serving
     both the gather and the logit transpose). The learned position table
-    stays full precision."""
+    and the MoE experts stay full precision, as in the JAX package, and a
+    MoE block's zero-width FFN placeholders stay as they are."""
 
     def qmat(w):
         return quantize_int8(w.detach()) if w.numel() else w

@@ -16,10 +16,6 @@ from torch.utils.checkpoint import checkpoint
 
 from keystone_tpu_torch.models.lm.model import TransformerLM, _tied_logits
 
-# the JAX package's default ``moe_aux_weight``; no layer of the port routes
-# experts yet, so the aux it weighs is 0
-MOE_AUX_WEIGHT = 0.01
-
 
 def token_cross_entropy(logits, targets) -> torch.Tensor:
     """Mean next-token cross-entropy. logits: (B, S, V) f32; targets:
@@ -58,7 +54,8 @@ def chunked_token_cross_entropy(x, embed, targets, cdt, chunk: int) -> torch.Ten
 def next_token_loss(model: TransformerLM, tokens, logit_chunk: int = 0) -> torch.Tensor:
     """Mean cross-entropy of predicting ``tokens[:, 1:]`` from the prefix
     (the model runs on the first S tokens of an S+1 window), plus the
-    weighted MoE load-balance auxiliary (0 without experts).
+    MoE load-balance auxiliary weighted by ``model.moe_aux_weight`` (0
+    without experts).
     ``logit_chunk > 0`` computes the CE in S-chunks."""
     tokens = torch.as_tensor(tokens, device=model.device)
     if logit_chunk:
@@ -67,4 +64,4 @@ def next_token_loss(model: TransformerLM, tokens, logit_chunk: int = 0) -> torch
     else:
         logits, aux = model.forward_with_aux(tokens[:, :-1])
         ce = token_cross_entropy(logits, tokens[:, 1:])
-    return ce + MOE_AUX_WEIGHT * aux
+    return ce + model.moe_aux_weight * aux

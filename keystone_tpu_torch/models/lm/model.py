@@ -17,8 +17,11 @@ A model built with no mesh takes the ambient one of ``use_mesh``.
 Float weights are ``nn.Parameter``s made without ``requires_grad``;
 training (``models/lm/train.py``'s step) turns it on for every float
 leaf. ``remat`` recomputes each block in the backward under
-``torch.utils.checkpoint`` (:func:`remat_wrap`). Mixture-of-experts layers
-come with a later slice and raise here.
+``torch.utils.checkpoint`` (:func:`remat_wrap`). ``moe_layers`` holds a
+top-2 routed :class:`~keystone_tpu_torch.ops.moe.MoELayer` (or None) per
+block; a MoE block's expert layer replaces its dense FFN, whose ``w1`` and
+``w2`` are zero-width placeholders, and its load-balance aux adds up over
+the blocks.
 """
 
 from __future__ import annotations
@@ -46,7 +49,9 @@ from keystone_tpu_torch.ops.attention import (
 )
 from keystone_tpu_torch.ops.flash_attention import flash_attention_trainable
 from keystone_tpu_torch.ops.int8_matmul import mm_fused
+from keystone_tpu_torch.ops.moe import MoELayer
 from keystone_tpu_torch.ops.quantization import QTensor, mm
+from keystone_tpu_torch.ops.vit import _layer_norm
 from keystone_tpu_torch.parallel.mesh import current_mesh
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -73,14 +78,6 @@ class LMBlock(nn.Module):
 
     def leaves(self) -> tuple:
         return tuple(getattr(self, n) for n in _WEIGHTS)
-
-
-def _layer_norm(x, eps: float = 1e-6):
-    """Copy of ``keystone_tpu/ops/vit.py::_layer_norm``: population
-    variance, eps inside the rsqrt, no affine."""
-    mu = x.mean(dim=-1, keepdim=True)
-    var = x.var(dim=-1, keepdim=True, correction=0)
-    return (x - mu) * torch.rsqrt(var + eps)
 
 
 def _ln(x, cdt):
@@ -136,16 +133,20 @@ def _rope(x, positions, base: float = 10_000.0):
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
 
 
-def _block_apply(x, blk: LMBlock, cdt, attn, mm_fn=mm):
+def _block_apply(x, blk: LMBlock, cdt, attn, moe=None, mm_fn=mm):
     """Pre-LN residual block shared by the forward, prefill and decode:
-    ``attn(y, blk) -> (attention output (N, S, d), aux)``. Returns
-    (x, aux). The GELU is the tanh approximation, ``jax.nn.gelu``'s
-    default."""
+    ``attn(y, blk) -> (attention output (N, S, d), aux)``. ``moe``, when
+    given, replaces the dense FFN. Returns (x, attn aux, MoE aux loss —
+    None for a dense FFN, where the JAX package returns a constant 0). The
+    GELU is the tanh approximation, ``jax.nn.gelu``'s default."""
     a, aux = attn(_ln(x, cdt), blk)
     x = x + a
     y = _ln(x, cdt)
+    if moe is not None:
+        f, moe_aux = moe(y)
+        return x + f, aux, moe_aux
     hdn = mm_fn(y, blk.w1, cdt)
-    return x + mm_fn(F.gelu(hdn, approximate="tanh"), blk.w2, cdt), aux
+    return x + mm_fn(F.gelu(hdn, approximate="tanh"), blk.w2, cdt), aux, None
 
 
 def _gather_embed(embed, tokens):
@@ -207,14 +208,16 @@ class TransformerLM(nn.Module):
         remat_policy: str = "full",
         compute_dtype: str = "float32",
         moe_layers: tuple = (),
+        moe_aux_weight: float = 0.01,
         pos_encoding: str = "learned",
         num_kv_heads: int = 0,
         int8_kernel: str = "mm",
     ):
         super().__init__()
-        if any(m is not None for m in moe_layers):
-            raise NotImplementedError(
-                "mixture-of-experts layers come with the MoE slice (ops/moe.py)"
+        if moe_layers and len(moe_layers) != len(blocks):
+            raise ValueError(
+                f"{len(moe_layers)} moe_layers for {len(blocks)} blocks: one entry "
+                "(a MoELayer or None) per block"
             )
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype={compute_dtype!r}; expected float32|bfloat16")
@@ -237,7 +240,11 @@ class TransformerLM(nn.Module):
         self.remat = remat
         self.remat_policy = remat_policy
         self.compute_dtype = compute_dtype
-        self.moe_layers = ()
+        # a tuple parallel to the blocks (None keeps the dense FFN); the
+        # ModuleList registers the layers as submodules
+        self.moe_layers = tuple(moe_layers)
+        self.experts = nn.ModuleList([m for m in moe_layers if m is not None])
+        self.moe_aux_weight = moe_aux_weight
         self.pos_encoding = pos_encoding
         self.num_kv_heads = num_kv_heads
         self.int8_kernel = int8_kernel
@@ -250,7 +257,8 @@ class TransformerLM(nn.Module):
             num_heads=self.num_heads, seq_mode=self.seq_mode, mesh=self.mesh,
             seq_axis=self.seq_axis, remat=self.remat, remat_policy=self.remat_policy,
             compute_dtype=self.compute_dtype, moe_layers=self.moe_layers,
-            pos_encoding=self.pos_encoding, num_kv_heads=self.num_kv_heads,
+            moe_aux_weight=self.moe_aux_weight, pos_encoding=self.pos_encoding,
+            num_kv_heads=self.num_kv_heads,
             int8_kernel=self.int8_kernel,
         )
         kw.update(changes)
@@ -315,30 +323,39 @@ class TransformerLM(nn.Module):
             return proj, kv_raw
         return proj
 
+    def _moe(self, i: int):
+        return self.moe_layers[i] if self.moe_layers else None
+
     def forward(self, tokens):
         """(B, S) int tokens → (B, S, V) float32 logits."""
         return self.forward_with_aux(tokens)[0]
 
     def backbone(self, tokens):
-        """(final hidden states (B, S, d) before the logits, aux loss)."""
+        """(final hidden states (B, S, d) before the logits, the MoE aux
+        loss summed over the blocks: an f32 scalar, 0 without experts)."""
         cdt = self.cdt
         tokens = torch.as_tensor(tokens, device=self.device).long()
         x = _embed(self, tokens, cdt)
         mm_fn = model_mm(self)
 
-        def block_fn(x, blk):
-            return _block_apply(
-                x, blk, cdt, lambda y, b: (self._attention(y, b), None), mm_fn=mm_fn
-            )[0]
+        def block_fn(x, blk, moe):
+            out, _, moe_aux = _block_apply(
+                x, blk, cdt, lambda y, b: (self._attention(y, b), None), moe=moe,
+                mm_fn=mm_fn,
+            )
+            return out, moe_aux
 
         if self.remat:
             block_fn = remat_wrap(block_fn, self.remat_policy)
-        for blk in self.blocks:
-            x = block_fn(x, blk)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, blk in enumerate(self.blocks):
+            x, moe_aux = block_fn(x, blk, self._moe(i))
+            if moe_aux is not None:
+                aux = aux + moe_aux
+        return x, aux
 
     def forward_with_aux(self, tokens):
-        """(logits (B, S, V) f32, aux loss — 0 without experts)."""
+        """(logits (B, S, V) f32, the total MoE load-balance aux loss)."""
         x, aux = self.backbone(tokens)
         return _tied_logits(x, self.embed, self.cdt), aux
 
@@ -355,6 +372,8 @@ class TransformerLM(nn.Module):
         seq_axis: str = "data",
         compute_dtype: str = "float32",
         moe_every: int = 0,
+        num_experts: int = 8,
+        capacity_factor: float = 1.25,
         pos_encoding: str = "learned",
         num_kv_heads: int = 0,
         device=None,
@@ -362,9 +381,14 @@ class TransformerLM(nn.Module):
     ) -> "TransformerLM":
         """A model with random weights drawn on ``device`` (the card unless
         the caller asks for the CPU) from ``generator`` (seed 0 when None).
-        The weights follow the JAX package's recipe, not its bits."""
-        if moe_every:
-            raise NotImplementedError("moe_every: MoE layers come with the MoE slice")
+        The weights follow the JAX package's recipe, not its bits.
+
+        ``moe_every=k`` replaces the dense FFN of every k-th block with a
+        top-2 routed :class:`MoELayer` of ``num_experts`` experts (0 =
+        dense everywhere). The experts are drawn after every dense weight,
+        and a MoE block's dense FFN is drawn and dropped, so the shared
+        weights equal the dense model's, as the JAX package's folded-in
+        MoE keys keep them."""
         if pos_encoding not in ("learned", "rope"):
             raise ValueError(f"pos_encoding={pos_encoding!r}; expected learned|rope")
         if pos_encoding == "rope" and (dim // num_heads) % 2:
@@ -392,8 +416,10 @@ class TransformerLM(nn.Module):
             if pos_encoding == "rope"
             else normal((max_seq, dim), 0.02)
         )
-        blocks = [
-            LMBlock(
+        is_moe = [bool(moe_every) and (i + 1) % moe_every == 0 for i in range(depth)]
+        blocks = []
+        for i in range(depth):
+            ws = dict(
                 wq=normal((dim, dim), dim**-0.5),
                 wk=normal((dim, kv_dim), dim**-0.5),
                 wv=normal((dim, kv_dim), dim**-0.5),
@@ -401,18 +427,32 @@ class TransformerLM(nn.Module):
                 w1=normal((dim, ff_mult * dim), dim**-0.5),
                 w2=normal((ff_mult * dim, dim), (ff_mult * dim) ** -0.5),
             )
-            for _ in range(depth)
+            if is_moe[i]:
+                # never applied: zero-width placeholders keep the leaves uniform
+                ws["w1"] = torch.zeros((dim, 0), device=dev)
+                ws["w2"] = torch.zeros((0, dim), device=dev)
+            blocks.append(LMBlock(**ws))
+        moes = [
+            MoELayer.create(dim, ff_mult * dim, num_experts, capacity_factor,
+                            generator=generator, device=dev)
+            if m else None
+            for m in is_moe
         ]
         return TransformerLM(
             embed, pos_embed, blocks, num_heads=num_heads, seq_mode=seq_mode,
             mesh=mesh, seq_axis=seq_axis, compute_dtype=compute_dtype, pos_encoding=pos_encoding,
-            num_kv_heads=num_kv_heads,
+            num_kv_heads=num_kv_heads, moe_layers=tuple(moes) if moe_every else (),
         )
 
     def leaves(self) -> list:
+        """Every weight in the JAX package's leaf order: the embeddings,
+        each block's six matrices, then each MoE layer's router, w1, w2."""
         out = [self.embed, self.pos_embed]
         for blk in self.blocks:
             out.extend(blk.leaves())
+        for m in self.moe_layers:
+            if m is not None:
+                out.extend(m.leaves())
         return out
 
     def num_params(self) -> int:
@@ -470,9 +510,19 @@ def has_quantized_leaves(model) -> bool:
 
 
 def train_step_flops(model: TransformerLM, batch: int, seq: int) -> float:
-    """Analytic FLOPs of one train step: 6·P·tokens for the matmul work
-    plus the attention score and value terms (12·L·d·S²·B, forward and
-    backward). The port has no MoE layers, so every parameter counts."""
+    """Analytic FLOPs of one train step: 6·P_active·tokens for the matmul
+    work plus the attention score and value terms (12·L·d·S²·B, forward
+    and backward). The expert products run over all E·C static capacity
+    slots, drops included, so expert parameters count at the slots' share
+    of E·tokens (the JAX package's formula, C taken at the whole batch's
+    token count)."""
+    p = model.num_params()
+    tokens = batch * seq
+    for m in model.moe_layers:
+        if m is not None:
+            expert_p = m.w1.numel() + m.w2.numel()
+            slots = m.num_experts * m._capacity(tokens)
+            p -= expert_p * (1.0 - min(slots / (tokens * m.num_experts), 1.0))
     d = model.embed.shape[-1]
     attn = 12 * len(model.blocks) * d * seq * seq * batch
-    return 6.0 * model.num_params() * batch * seq + attn
+    return 6.0 * p * tokens + attn

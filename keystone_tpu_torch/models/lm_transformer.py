@@ -56,8 +56,7 @@ class LMConfig:
     seed: int = arg(default=0)
     moe_every: int = arg(
         default=0,
-        help="replace every k-th block's FFN with a top-2 MoE (0 = dense; "
-        "MoE layers are not ported yet)",
+        help="replace every k-th block's FFN with a top-2 MoE (0 = dense)",
     )
     num_experts: int = arg(default=8)
     pos_encoding: str = arg(
@@ -119,6 +118,7 @@ def run(conf: LMConfig, mesh=None, device=None) -> dict:
         mesh=mesh if conf.seq_mode != "local" else None,
         compute_dtype=conf.compute_dtype,
         moe_every=conf.moe_every,
+        num_experts=conf.num_experts,
         pos_encoding=conf.pos_encoding,
         num_kv_heads=conf.num_kv_heads,
         device=device,

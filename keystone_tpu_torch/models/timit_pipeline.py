@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from keystone_tpu_torch import plan as plan_mod
-from keystone_tpu_torch.core.batching import apply_in_chunks
+from keystone_tpu_torch.core.batching import apply_in_chunks, pad_labels
 from keystone_tpu_torch.core.checkpoint import checkpointed_fit
 from keystone_tpu_torch.core.config import arg, parse_config
 from keystone_tpu_torch.core.logging import get_logger
@@ -146,12 +146,6 @@ def _load(conf: TimitConfig, which: str) -> LabeledData:
     return load_timit_split(conf.test_data_location, conf.test_labels_location)
 
 
-def _padded_labels(labels: np.ndarray, rows: int) -> np.ndarray:
-    y = np.zeros(rows, np.int32)
-    y[: len(labels)] = labels
-    return y
-
-
 def run(conf: TimitConfig, device=None, mesh=None) -> dict:
     """Fit and evaluate on ``device`` (default: the card). With a ``mesh``
     the rows are padded to its data axis and placed on its first device
@@ -170,7 +164,7 @@ def run(conf: TimitConfig, device=None, mesh=None) -> dict:
     # runs keep the classic path
     streamed_fit = plan_mod.enabled() and not (conf.lam_sweep or conf.checkpoint_dir)
     scalers, train_blocks = fit_scalers(featurizers, x_train, n_train, not streamed_fit)
-    y = _padded_labels(train.labels, x_train.shape[0])
+    y = pad_labels(train.labels, x_train.shape[0])
     indicators = ClassLabelIndicators(num_classes=NUM_CLASSES)(y).to(x_train.device)
     synchronize(x_train.device)
     t_feat = time.perf_counter()
@@ -232,7 +226,7 @@ def run(conf: TimitConfig, device=None, mesh=None) -> dict:
     del train_blocks
     train_eval = evaluator(train_pred, y, n_valid=n_train)
     test_pred = apply_in_chunks(score, x_test, SCORE_CHUNK, x_test.device)
-    test_eval = evaluator(test_pred, _padded_labels(test.labels, x_test.shape[0]), n_valid=n_test)
+    test_eval = evaluator(test_pred, pad_labels(test.labels, x_test.shape[0]), n_valid=n_test)
     synchronize(x_train.device)
     t_end = time.perf_counter()
 

@@ -945,3 +945,200 @@ def test_planner_picks_int8_by_cost_model_on_an_h100(card, monkeypatch):
     op = p.decision("fit_operator")
     assert (op["op"], op["reason"]) == ("int8", "cost_model"), op
     assert op["quantization_error"] <= op["threshold"] and op["int8_speedup"] == 2.0
+
+
+# --- the MoE LM and ViT (K2 f32 and bf16, K4 beside float experts) ----------
+
+MOE_LM = dict(vocab=97, max_seq=64, dim=64, depth=2, num_heads=4, moe_every=2, num_experts=4)
+
+
+def _moe_pair(card, compute_dtype="float32"):
+    """A tiny MoE LM on the CPU and the same leaves on the card (its routers
+    scaled 25× so that tokens route with clear margins)."""
+    from keystone_tpu_torch import convert
+    from keystone_tpu_torch.models.lm import TransformerLM
+
+    cpu = TransformerLM.create(**MOE_LM, compute_dtype=compute_dtype, device="cpu",
+                               generator=torch.Generator().manual_seed(11))
+    for m in cpu.experts:
+        m.w_router.data.mul_(25.0)
+
+    def leaf(t):
+        return t.detach().numpy()
+
+    leaves = {
+        "embed": leaf(cpu.embed),
+        "pos_embed": leaf(cpu.pos_embed),
+        "blocks": [dict(zip(("wq", "wk", "wv", "wo", "w1", "w2"), map(leaf, b.leaves())))
+                   for b in cpu.blocks],
+        "moe_layers": [None if m is None else dict(zip(("w_router", "w1", "w2"),
+                                                       map(leaf, m.leaves())))
+                       for m in cpu.moe_layers],
+    }
+    dev = convert.transformer_lm(leaves, num_heads=MOE_LM["num_heads"],
+                                 compute_dtype=compute_dtype, device=card)
+    return cpu, dev
+
+
+def _min_route_margin(layers, fn):
+    """The smallest top-1/top-2 and top-2/top-3 router-logit gap over every
+    token that reached one of the MoE ``layers`` while ``fn`` ran."""
+    gaps = []
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out: gaps.append(
+            (args[0].float().reshape(-1, args[0].shape[-1]) @ mod.w_router.float())
+            .sort(dim=-1, descending=True).values.diff(dim=-1)[:, :2].abs().min().item()))
+        for m in layers]
+    try:
+        fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return min(gaps)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_moe_layer_on_card_matches_cpu(card, dtype, tol):
+    from keystone_tpu_torch.ops.moe import MoELayer
+
+    layer = MoELayer.create(64, 256, 8, group_size=64, device="cpu",
+                            generator=torch.Generator().manual_seed(3))
+    layer.w_router.data.mul_(25.0)
+    dev = MoELayer(*(p.detach().to(card) for p in layer.leaves()), group_size=64)
+    x = torch.randn((4, 40, 64), generator=torch.Generator().manual_seed(4))
+    assert _min_route_margin([layer], lambda: layer(x)) > 1e-4
+    want, want_aux = layer(x.to(dtype))
+    got, aux = dev(x.to(dtype).to(card))
+    assert got.dtype == dtype and got.is_cuda
+    err = float((got.float().cpu() - want.float()).abs().max() / want.float().abs().max())
+    assert err <= tol, err
+    assert abs(float(aux) - float(want_aux)) <= 1e-4 * float(want_aux)
+
+
+def test_moe_lm_on_card_matches_cpu(card):
+    """f32 prefill and decode: K2 and K4 on the card (the experts float),
+    dense attention and the plain int8 matmul on the CPU; logits within
+    1e-4 of max|logit| where every token routes with a clear margin."""
+    from keystone_tpu_torch.models.lm import decode, quantize_for_decode
+    from keystone_tpu_torch.ops import flash_attention, int8_matmul
+
+    cpu, dev = _moe_pair(card)
+    cpu, dev = quantize_for_decode(cpu), quantize_for_decode(dev).replace(int8_kernel="kernel")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 97, size=(3, 24)))
+
+    def run(m, device):
+        logits, cache = decode.prefill(m, toks[:, :12].to(device), 24)
+        out = [logits]
+        for j in range(11):
+            logits, cache = decode.decode_step(m, toks[:, 12 + j].to(device), cache)
+            out.append(logits)
+        return torch.stack(out)
+
+    assert _min_route_margin(cpu.experts, lambda: run(cpu, "cpu")) > 1e-4
+    want = run(cpu, "cpu")
+    k2, k4 = flash_attention.FLASH_ATTENTION.launches, int8_matmul.INT8_MATMUL.launches
+    got = run(dev, card)
+    torch.cuda.synchronize()
+    assert flash_attention.FLASH_ATTENTION.launches == k2 + MOE_LM["depth"]
+    # 6 block matrices a dense block, 4 a MoE block (its FFN is the experts')
+    assert int8_matmul.INT8_MATMUL.launches == k4 + (6 + 4) * 12
+    err = float((got.cpu() - want).abs().max() / want.abs().max())
+    assert err <= 1e-4, err
+
+
+def test_moe_graphed_pool_step_matches_eager(card):
+    """The MoE pool's step is captured and replayed: 64 greedy steps from
+    one state give the eager tokens, the idle slots routing too."""
+    from keystone_tpu_torch.models.lm import quantize_for_decode
+    from keystone_tpu_torch.serve.decode_loop import DecodeLoop
+
+    _, dev = _moe_pair(card, "bfloat16")
+    loop = DecodeLoop(quantize_for_decode(dev).replace(int8_kernel="kernel"), slots=4,
+                      s_max=64, max_new=100)
+    loop.warm()
+    assert loop.graphed and set(loop._prefill_graphs) == set(loop.prefill_buckets)
+    rng = np.random.default_rng(2)
+    for n in (5, 17, 9):  # 3 of 4 slots busy
+        loop.submit(rng.integers(0, 97, size=n), max_new=100)
+    loop._admit()
+    cache = loop.cache
+    state = [t.clone() for t in (cache.k, cache.v, cache.pos)]
+    tok0 = torch.from_numpy(loop._tok.copy()).to(card)
+    g = loop._step_graph
+
+    def run(graphed):
+        for buf, saved in zip((cache.k, cache.v, cache.pos), state):
+            buf.copy_(saved)
+        tok, out = tok0.clone(), []
+        for _ in range(64):
+            if graphed:
+                g.inputs[0].copy_(tok)
+                g.graph.replay()
+                tok = g.outputs[0].clone()
+            else:
+                tok = loop._pool_step(tok)[0]
+            out.append(tok)
+        return torch.stack(out)
+
+    with torch.inference_mode():
+        assert torch.equal(run(True), run(False))
+
+
+def test_moe_train_grads_on_card_match_cpu(card):
+    """f32 leaf gradients of next_token_loss (aux included) through K2 and
+    the ported backward on the card against dense attention on the CPU."""
+    from keystone_tpu_torch.models.lm import next_token_loss
+
+    cpu, dev = _moe_pair(card)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(0, 97, size=(2, 33)))
+    assert _min_route_margin(cpu.experts, lambda: cpu(toks[:, :-1])) > 1e-4
+
+    def grads(m, device):
+        params = m.leaves()
+        for p in params:
+            p.requires_grad_(True)
+        loss = next_token_loss(m, toks.to(device))
+        return loss, torch.autograd.grad(loss, params, allow_unused=True)
+
+    want_loss, want = grads(cpu, "cpu")
+    got_loss, got = grads(dev, card)
+    assert abs(float(got_loss.detach()) - float(want_loss.detach())) <= 1e-5 * float(want_loss.detach())
+    for g, w in zip(got, want):
+        if w is None or w.numel() == 0:
+            continue
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(w.abs().max()) + 1e-12
+
+
+def test_vit_on_card_matches_cpu(card):
+    """ViT's f32 attention through K2 on the card against dense attention
+    on the CPU: features within 1e-4 of max|f|, K2 once a block."""
+    from keystone_tpu_torch.ops import flash_attention
+    from keystone_tpu_torch.ops.vit import ViTBlock, ViTFeaturizer
+
+    cpu = ViTFeaturizer.create(device="cpu", generator=torch.Generator().manual_seed(0))
+    dev = ViTFeaturizer(
+        patch_embed=cpu.patch_embed.to(card), pos_embed=cpu.pos_embed.to(card),
+        blocks=tuple(ViTBlock(*(getattr(b, n).to(card) for n in ("wq", "wk", "wv", "wo", "w1",
+                                                                  "w2")), num_heads=b.num_heads)
+                     for b in cpu.blocks))
+    x = torch.rand((512, 32, 32, 3), generator=torch.Generator().manual_seed(1))
+    before = flash_attention.FLASH_ATTENTION.launches
+    got = dev(x.to(card))
+    torch.cuda.synchronize()
+    assert flash_attention.FLASH_ATTENTION.launches == before + len(cpu.blocks)
+    want = cpu(x)
+    err = float((got.cpu() - want).abs().max() / want.abs().max())
+    assert err <= 1e-4, err
+
+
+def test_vit_ridge_and_linear_pixels_on_card(card):
+    from keystone_tpu_torch.models import cifar_linear_pixels, vit_ridge
+    from keystone_tpu_torch.ops import flash_attention
+
+    before = flash_attention.FLASH_ATTENTION.launches
+    res = vit_ridge.main(["--synthetic", "2000", "--chunk-size", "512"], device="cuda")
+    # ceil(2000/512) + 1 test chunk (400 rows), 4 blocks each
+    assert flash_attention.FLASH_ATTENTION.launches == before + (4 + 1) * 4
+    assert res["n_train"] == 2000 and res["test_error"] <= 0.05
+    res = cifar_linear_pixels.main(["--synthetic", "2000"], device="cuda")
+    assert res["n_test"] == 400 and res["test_error"] <= 0.05

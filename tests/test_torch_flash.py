@@ -1,14 +1,21 @@
 """keystone_tpu_torch's attention against the JAX package's: the flash
 forward (kernel K2's plain version, which the wrapper takes for a CPU
 tensor) against the Pallas kernel in interpret mode, and dense attention
-against dense attention. Inputs come from numpy seeds."""
+against dense attention. Inputs come from numpy seeds.
+
+Each test starts from a state no earlier test file of the same worker can
+have changed (:func:`fresh_state`)."""
+
+import os
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from jax._src import compilation_cache  # noqa: E402
 
 from keystone_tpu.ops import attention as jattn  # noqa: E402
 from keystone_tpu.ops import flash_attention as jflash  # noqa: E402
@@ -17,6 +24,38 @@ from keystone_tpu_torch.ops import attention, flash_attention as flash  # noqa: 
 F32_TOL = 1e-5
 # one bf16 step after an f32 sum taken in another order
 BF16_TOL = 8e-3
+
+
+@pytest.fixture(autouse=True)
+def fresh_state(monkeypatch):
+    """What a test file that ran earlier in the same process may leave
+    behind, set afresh for each test:
+
+    - K2's launch count, counted from 0 inside the test;
+    - the ``KST_FLASH_*`` and ``KST_LOCAL_ATTN`` knobs, which both
+      packages read per call: unset, so both take their defaults;
+    - JAX's persistent compilation cache, which the JAX package's export
+      and refit paths turn on for the whole process, in a directory that
+      every worker of the run shares: off, so the reference is compiled
+      here, not read from another process's entry;
+    - torch's default dtype and float32 matmul precision: float32 and
+      "highest"."""
+    for name in list(os.environ):
+        if name.startswith("KST_FLASH_") or name == "KST_LOCAL_ATTN":
+            monkeypatch.delenv(name)
+    monkeypatch.setattr(flash.FLASH_ATTENTION, "launches", 0)
+    cache = (jax.config.jax_enable_compilation_cache, jax.config.jax_compilation_cache_dir)
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
+    dtype, precision = torch.get_default_dtype(), torch.get_float32_matmul_precision()
+    torch.set_default_dtype(torch.float32)
+    torch.set_float32_matmul_precision("highest")
+    yield
+    torch.set_default_dtype(dtype)
+    torch.set_float32_matmul_precision(precision)
+    jax.config.update("jax_enable_compilation_cache", cache[0])
+    jax.config.update("jax_compilation_cache_dir", cache[1])
+    compilation_cache.reset_cache()
 
 
 def _qkv(seed, b, h, s_q, s_k, d):
@@ -48,9 +87,8 @@ def test_flash_matches_jax_f32(shape, causal, offsets):
     b, h, s_q, s_k, d = shape
     q, k, v = _qkv(sum(shape), b, h, s_q, s_k, d)
     kw = dict(causal=causal, q_offset=offsets[0], k_offset=offsets[1])
-    before = flash.FLASH_ATTENTION.launches
     got = _port(q, k, v, **kw)
-    assert flash.FLASH_ATTENTION.launches == before  # the CPU takes the plain version
+    assert flash.FLASH_ATTENTION.launches == 0  # the CPU takes the plain version
     want = np.asarray(_jax(q, k, v, **kw))
     assert got.dtype == torch.float32 and got.shape == (b, h, s_q, d)
     np.testing.assert_allclose(got.numpy(), want, rtol=F32_TOL, atol=F32_TOL)

@@ -52,6 +52,24 @@ assert res["steps_ran"] == 2 and res["loss_first"] > 0
 _, losses = train(ring.replace(remat=True, remat_policy="dots"), synthetic_corpus(400, 32),
                   steps=1, batch=2, seq=16, logit_chunk=8)
 assert len(losses) == 1 and losses[0] > 0
+moe_lm = TransformerLM.create(vocab=32, max_seq=24, dim=16, depth=2, num_heads=2, moe_every=2,
+                              num_experts=4, device="cpu")
+toks = generate(quantize_for_decode(moe_lm).replace(int8_kernel="kernel"), [[1, 2, 3]], max_new=4)
+assert toks.shape == (1, 4) and toks.device.type == "cpu"
+assert len(DecodeLoop(moe_lm, slots=2, s_max=16).run([[4, 5]], max_new=3)[0]) == 3
+res = lm_transformer.main(["--steps", "2", "--batch", "2", "--seq", "8", "--dim", "16",
+                           "--depth", "2", "--num-heads", "2", "--vocab", "32",
+                           "--moe-every", "2", "--num-experts", "4"], device="cpu")
+assert res["steps_ran"] == 2 and res["loss_first"] > 0
+from keystone_tpu_torch.models import cifar_linear_pixels, vit_ridge
+from keystone_tpu_torch.loaders.cifar import load_cifar
+from keystone_tpu_torch.ops import images, moe, vit
+from keystone_tpu_torch.utils.images import LabeledImages, rgb_to_gray
+res = vit_ridge.main(["--synthetic", "40", "--dim", "16", "--depth", "1", "--num-heads", "2",
+                      "--chunk-size", "16"], device="cpu")
+assert res["n_train"] == 40 and res["n_test"] == 8
+res = cifar_linear_pixels.main(["--synthetic", "40", "--lam", "1"], device="cpu")
+assert res["n_train"] == 40 and res["n_test"] == 8
 import numpy as np
 from keystone_tpu_torch import observe, resilience
 from keystone_tpu_torch.observe import events, health, schema, spans, telemetry
@@ -160,10 +178,11 @@ def _constructors():
     import numpy as np
 
     from keystone_tpu_torch import convert
+    from keystone_tpu_torch.models import cifar_linear_pixels, vit_ridge
     from keystone_tpu_torch.models import mnist_random_fft as m
     from keystone_tpu_torch.models import timit_pipeline as tm
     from keystone_tpu_torch.core.pipeline import Identity
-    from keystone_tpu_torch.ops import linear, stats
+    from keystone_tpu_torch.ops import linear, moe, stats, vit
     from keystone_tpu_torch.parallel import shard_batch
     from keystone_tpu_torch.serve import server
     from keystone_tpu_torch.serve.export import export_pipeline
@@ -188,6 +207,14 @@ def _constructors():
         "convert.transformer_lm": lambda: convert.transformer_lm(leaves, num_heads=1),
         "serve.export_pipeline": lambda: export_pipeline(Identity(), z, optimize=False),
         "serve.build_app": lambda: server.build_app("mnist", {"synthetic": "10"}),
+        "MoELayer.create": lambda: moe.MoELayer.create(4, 8, 2),
+        "convert.moe_layer": lambda: convert.moe_layer(
+            {"w_router": z, "w1": z[None], "w2": z[None]}),
+        "ViTFeaturizer.create": lambda: vit.ViTFeaturizer.create(dim=8, depth=1, num_heads=2),
+        "convert.vit_featurizer": lambda: convert.vit_featurizer(
+            {"patch_embed": z, "pos_embed": z, "blocks": []}),
+        "vit_ridge.main": lambda: vit_ridge.main(["--synthetic", "10"]),
+        "cifar_linear_pixels.main": lambda: cifar_linear_pixels.main(["--synthetic", "10"]),
     }
 
 

@@ -251,8 +251,13 @@ def test_unknown_options_raise(tiny, monkeypatch):
         pm.replace(seq_mode="ring")
     with pytest.raises(ValueError, match="seq_mode"):
         pm.replace(seq_mode="tree")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        lm.TransformerLM.create(moe_every=2, device="cpu")
+    # a MoE model is made, with the JAX package's structure: the same leaf
+    # shapes in the same order and the same parameter count
+    pmoe = lm.TransformerLM.create(moe_every=2, device="cpu")
+    jmoe = jlm.TransformerLM.create(jax.random.key(0), moe_every=2)
+    assert [tuple(p.shape) for p in pmoe.leaves()] == [
+        tuple(x.shape) for x in jax.tree_util.tree_leaves(jmoe)]
+    assert pmoe.num_params() == jmoe.num_params()
     with pytest.raises(ValueError, match="remat_policy"):
         pm.replace(remat=True, remat_policy="nope")(toks)
     monkeypatch.setenv("KST_LOCAL_ATTN", "bogus")

@@ -359,7 +359,11 @@ def test_unported_train_options_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match="A6"):
         lm.shard_params(pm, create_mesh(data=1, model=2, devices=["cpu"] * 2))
     assert lm.shard_params(pm, create_mesh(data=2, devices=["cpu"] * 2)) is pm
-    with pytest.raises(NotImplementedError, match="MoE"):
-        lm_transformer.main(["--moe-every", "2", "--steps", "1"], device="cpu")
+    # --moe-every trains a MoE model with the JAX package's parameter count
+    moe_argv = ["--moe-every", "2", "--num-experts", "4", "--steps", "2", "--batch", "2",
+                "--seq", "16", "--dim", "32", "--depth", "2", "--num-heads", "4", "--vocab", "31"]
+    res, j_res = lm_transformer.main(moe_argv, device="cpu"), jlm.main(moe_argv)
+    assert res.keys() == j_res.keys() and res["params"] == j_res["params"]
+    assert res["steps_ran"] == 2 and np.isfinite(res["loss_first"])
     with pytest.raises(ValueError, match="schedule"):
         lm_transformer.main(["--schedule", "linear"], device="cpu")
