@@ -21,7 +21,10 @@ from keystone_tpu_torch.models.lm.model import LMBlock, TransformerLM
 from keystone_tpu_torch.core.pipeline import Pipeline
 from keystone_tpu_torch.models.mnist_random_fft import FeaturizerBank
 from keystone_tpu_torch.models.timit_pipeline import ScaledCosineBank
+from keystone_tpu_torch.ops.images import Convolver, FusedConvRectifyPool
+from keystone_tpu_torch.ops.linalg import BatchPCATransformer, PCATransformer, ZCAWhitener
 from keystone_tpu_torch.ops.linear import BlockLinearMapper, LinearMapper, NormalEqState
+from keystone_tpu_torch.ops.naive_bayes import NaiveBayesModel
 from keystone_tpu_torch.ops.moe import MoELayer
 from keystone_tpu_torch.ops.vit import ViTBlock, ViTFeaturizer
 from keystone_tpu_torch.ops.quantization import QTensor
@@ -249,3 +252,66 @@ def vit_featurizer(
         mesh=mesh,
         seq_axis=seq_axis,
     )
+
+
+def convolver(
+    filters: np.ndarray,
+    whitener_means: np.ndarray | None = None,
+    *,
+    device: torch.device | str | None = None,
+    **options,
+) -> Convolver:
+    """A :class:`Convolver` from its filter bank (F, k²C) and whitener
+    means; ``options`` are the JAX node's other fields (``patch_size``,
+    ``normalize_patches``, ``var_constant``, ``impl``, ``precision``)."""
+    device = resolve_device(device)
+    return Convolver(
+        filters=_t(filters, device),
+        whitener_means=None if whitener_means is None else _t(whitener_means, device),
+        **options,
+    )
+
+
+def fused_conv_rectify_pool(
+    filters: np.ndarray,
+    whitener_means: np.ndarray | None = None,
+    *,
+    device: torch.device | str | None = None,
+    **options,
+) -> FusedConvRectifyPool:
+    """A :class:`FusedConvRectifyPool` from its filter bank and whitener
+    means; ``options`` are the JAX node's other fields (``patch_size``,
+    ``alpha``, ``pool_stride``, ``pool_size``, ``pool_fn``, ``impl``, ...)."""
+    device = resolve_device(device)
+    return FusedConvRectifyPool(
+        filters=_t(filters, device),
+        whitener_means=None if whitener_means is None else _t(whitener_means, device),
+        **options,
+    )
+
+
+def zca_whitener(
+    whitener: np.ndarray, means: np.ndarray, *, device: torch.device | str | None = None
+) -> ZCAWhitener:
+    """A :class:`ZCAWhitener` from its (d, d) matrix and (d,) means."""
+    device = resolve_device(device)
+    return ZCAWhitener(whitener=_t(whitener, device), means=_t(means, device))
+
+
+def pca_transformer(
+    pca_mat: np.ndarray, *, batch: bool = False, device: torch.device | str | None = None
+) -> PCATransformer | BatchPCATransformer:
+    """A :class:`PCATransformer` (or, with ``batch``, the descriptor-matrix
+    :class:`BatchPCATransformer`) from its (d, dims) matrix."""
+    device = resolve_device(device)
+    cls = BatchPCATransformer if batch else PCATransformer
+    return cls(pca_mat=_t(pca_mat, device))
+
+
+def naive_bayes_model(
+    log_pi: np.ndarray, log_theta: np.ndarray, *, device: torch.device | str | None = None
+) -> NaiveBayesModel:
+    """A :class:`NaiveBayesModel` from its (C,) log priors and (C, D) log
+    likelihoods."""
+    device = resolve_device(device)
+    return NaiveBayesModel(log_pi=_t(log_pi, device), log_theta=_t(log_theta, device))

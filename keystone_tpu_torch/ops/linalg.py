@@ -1,0 +1,139 @@
+"""Dense linear-algebra estimators: PCA, ZCA whitening, LDA — port of
+``keystone_tpu/ops/linalg.py``.
+
+Small replicated computations on the samples' device: the SVD and the
+symmetric eigenproblem go to ``torch.linalg`` (cuSOLVER on the card).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from keystone_tpu_torch.core.pipeline import Estimator, LabelEstimator, Transformer
+from keystone_tpu_torch.ops.linear import LinearMapper
+
+
+@dataclasses.dataclass(eq=False)
+class PCATransformer(Transformer):
+    """(N, d) @ pca_mat (d, dims) → (N, dims)."""
+
+    pca_mat: torch.Tensor
+
+    def __call__(self, batch):
+        return batch @ self.pca_mat
+
+
+@dataclasses.dataclass(eq=False)
+class BatchPCATransformer(Transformer):
+    """Feature-major descriptor matrices: (N, d, m) → (N, dims, m)."""
+
+    pca_mat: torch.Tensor
+
+    def __call__(self, batch):
+        return torch.einsum("dk,ndm->nkm", self.pca_mat.to(batch.dtype), batch)
+
+
+def _svd(a: torch.Tensor):
+    """``torch.linalg.svd(a, full_matrices=False)``. On the card through
+    cuSOLVER's ``gesvd`` (QR iteration, LAPACK's algorithm), not torch's
+    default Jacobi driver, whose looser stop left the random-patch filters
+    built on the card 2.2e-5 of max|filters| from the CPU's where
+    ``gesvd`` leaves 4.7e-6 (``chip_smoke.py`` phase 27 on an NVIDIA H100
+    80GB HBM3 at 700 W). ``gesvd`` wants rows ≥ columns: a wide matrix
+    goes through its transpose."""
+    if not a.is_cuda:
+        return torch.linalg.svd(a, full_matrices=False)
+    if a.shape[0] < a.shape[1]:
+        u, s, vt = torch.linalg.svd(a.T, full_matrices=False, driver="gesvd")
+        return vt.T, s, u.T
+    return torch.linalg.svd(a, full_matrices=False, driver="gesvd")
+
+
+def compute_pca(data, dims: int) -> torch.Tensor:
+    """The first ``dims`` principal directions (d, dims) from the SVD of
+    the centred sample, each column's sign fixed by the MATLAB rule: its
+    largest-magnitude entry positive."""
+    data = torch.as_tensor(data)
+    centered = data - data.mean(dim=0)
+    _, _, vt = _svd(centered)
+    pca = vt.T
+    col_max = pca.max(dim=0).values
+    col_abs_max = pca.abs().max(dim=0).values
+    signs = torch.where(col_max == col_abs_max, 1.0, -1.0).to(pca.dtype)
+    return (pca * signs)[:, :dims]
+
+
+@dataclasses.dataclass(eq=False)
+class PCAEstimator(Estimator):
+    """PCA fitted on (N, d) rows (column-sampled descriptors flattened
+    first)."""
+
+    dims: int = 64
+
+    def fit(self, data) -> PCATransformer:
+        return PCATransformer(pca_mat=compute_pca(data, self.dims))
+
+    def fit_batch(self, data) -> BatchPCATransformer:
+        return BatchPCATransformer(pca_mat=compute_pca(data, self.dims))
+
+
+@dataclasses.dataclass(eq=False)
+class ZCAWhitener(Transformer):
+    """(x − means) @ whitener."""
+
+    whitener: torch.Tensor  # (d, d)
+    means: torch.Tensor  # (d,)
+
+    def __call__(self, batch):
+        return (batch - self.means) @ self.whitener
+
+
+@dataclasses.dataclass(eq=False)
+class ZCAWhitenerEstimator(Estimator):
+    """``W = V diag((s²/(n−1) + eps)^-½) Vᵀ`` from the thin SVD of the
+    centred sample (:func:`_svd`). W does not depend on the singular
+    vectors' signs."""
+
+    eps: float = 0.1
+
+    def fit(self, data) -> ZCAWhitener:
+        data = torch.as_tensor(data)
+        means = data.mean(dim=0)
+        n = data.shape[0]
+        _, s, vt = _svd(data - means)
+        scale = torch.rsqrt(s * s / (n - 1.0) + self.eps)
+        return ZCAWhitener(whitener=(vt.T * scale) @ vt, means=means)
+
+
+@dataclasses.dataclass(eq=False)
+class LinearDiscriminantAnalysis(LabelEstimator):
+    """Multi-class LDA as the symmetric generalized eigenproblem: S_W
+    Cholesky-whitened (with a 1e-6·tr(S_W)/d ridge), then ``eigh`` of
+    L⁻¹ S_B L⁻ᵀ; the ``num_dimensions`` leading directions mapped back
+    through L⁻ᵀ. The columns' signs are whatever ``eigh`` returns."""
+
+    num_dimensions: int = 2
+
+    def fit(self, data, labels) -> LinearMapper:
+        x = torch.as_tensor(data)
+        y = np.asarray(labels)
+        d = x.shape[1]
+        mean_all = x.mean(dim=0)
+        s_w = torch.zeros((d, d), dtype=x.dtype, device=x.device)
+        s_b = torch.zeros_like(s_w)
+        for c in np.unique(y):
+            xc = x[torch.as_tensor(np.flatnonzero(y == c), device=x.device)]
+            mu = xc.mean(dim=0)
+            dev = xc - mu
+            s_w = s_w + dev.T @ dev
+            dm = (mu - mean_all)[:, None]
+            s_b = s_b + xc.shape[0] * (dm @ dm.T)
+        eye = torch.eye(d, dtype=x.dtype, device=x.device)
+        s_w = s_w + 1e-6 * torch.trace(s_w) / d * eye
+        li = torch.linalg.solve_triangular(torch.linalg.cholesky(s_w), eye, upper=False)
+        vals, vecs = torch.linalg.eigh(li @ s_b @ li.T)
+        order = torch.argsort(-vals)[: self.num_dimensions]
+        return LinearMapper(x=li.T @ vecs[:, order])

@@ -28,6 +28,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import threading
 from typing import Callable
 
 import numpy as np
@@ -142,6 +143,32 @@ def _matmul_precision(precision: str | None):
         yield
     finally:
         torch.set_float32_matmul_precision(before)
+
+
+# the flags a convolution scope sets are process-wide: one scope at a time
+_CONV_FLAGS_LOCK = threading.RLock()
+
+
+@contextlib.contextmanager
+def _conv_precision(precision: str | None):
+    """:func:`_matmul_precision` for a convolution. cuDNN reads its own
+    TF32 flag, not torch's matmul precision, so this also sets
+    ``torch.backends.cudnn.allow_tf32``: off for full f32 (``None`` with
+    no ``KEYSTONE_MATMUL_PRECISION``, ``highest``, ``float32``), on for any
+    name that asks for less, and restored afterwards. The scope holds a
+    lock, so two threads' scopes (a MicroBatcher's and an ExportedApply's)
+    cannot interleave their sets and restores."""
+    name = precision or os.environ.get(ENV_MATMUL_PRECISION, "").strip() or "highest"
+    if name.lower() not in _PRECISIONS:
+        raise ValueError(f"unknown matmul precision {name!r}")
+    with _CONV_FLAGS_LOCK:
+        before = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = _PRECISIONS[name.lower()] != "highest"
+        try:
+            with _matmul_precision(name):
+                yield
+        finally:
+            torch.backends.cudnn.allow_tf32 = before
 
 
 def stabilized_cho_solve(mat: torch.Tensor, jitter: float = 1e-6):

@@ -1,12 +1,13 @@
 """Statistical feature nodes — port of ``keystone_tpu/ops/stats.py``'s
-scaler, random-FFT and cosine random-feature nodes. All nodes map
-``(N, d)`` float batches on the batch's own device; padded rows are
-masked out of a fit with ``n_valid``."""
+scaler, random-FFT, cosine random-feature and term-frequency nodes. The
+tensor nodes map ``(N, d)`` float batches on the batch's own device;
+padded rows are masked out of a fit with ``n_valid``."""
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Callable
 
 import numpy as np
 import torch
@@ -184,3 +185,20 @@ class CosineRandomFeatures(Transformer):
         b = torch.rand((num_features,), generator=generator) * (2 * np.pi)
         device = resolve_device(device)
         return CosineRandomFeatures(w=(gamma * w).to(device), b=b.to(device))
+
+
+@dataclasses.dataclass(eq=False)
+class TermFrequency(Transformer):
+    """Per-document term counts re-weighted by ``fn``: a batch of token
+    sequences → a batch of {token: weight} dicts (host code)."""
+
+    fn: Callable[[float], float] = lambda x: x
+
+    def __call__(self, batch):
+        out = []
+        for doc in batch:
+            counts: dict = {}
+            for tok in doc:
+                counts[tok] = counts.get(tok, 0) + 1
+            out.append({t: self.fn(c) for t, c in counts.items()})
+        return out

@@ -1,16 +1,21 @@
 """Optimizer passes over the plan IR — port of the parts of
-``keystone_tpu/plan/passes.py`` the MNIST plans need:
+``keystone_tpu/plan/passes.py`` the single-chain plans need:
 
-- the rewrite-rule registry and :func:`select_operators` (the streaming
-  fit's absorption rule registers itself from ``plan/fused_fit.py``);
+- the rewrite-rule registry; :func:`rewrite_nodes` (the classic
+  ``core.fusion.optimize`` path) and :func:`select_operators` (the
+  planner) share one chain walk, :func:`_rewrite_chain`, so they cannot
+  drift on rule order or window semantics. The conv chain's rule
+  registers itself from ``core/fusion.py``, the streaming fit's
+  absorption rule from ``plan/fused_fit.py``;
 - :func:`choose_chunk_size` — the largest power-of-two chunk whose
   working set fits a quarter of the memory budget;
 - :func:`choose_staging` — host→device staging depth from the transfer
   vs compute estimate.
 
 Passes mutate only the plan and record decisions. Automatic
-materialization (which only matters for multi-branch plans) and sharded
-dispatch wait for later slices.
+materialization, the walk over branches and its cache points (which only
+matter for multi-branch plans) and sharded dispatch wait for later
+slices.
 """
 
 from __future__ import annotations
@@ -18,9 +23,10 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-from typing import Any, Callable
+from typing import Any, Callable, Sequence
 
 from keystone_tpu_torch.core.pipeline import node_label
+from keystone_tpu_torch.observe import metrics as _metrics
 from keystone_tpu_torch.plan.ir import NodeCost, Plan, PlanNode
 
 
@@ -48,18 +54,35 @@ def rewrite_rule(name: str, window: int):
 
 
 def registered_rules() -> tuple[RewriteRule, ...]:
-    # rules live with their node definitions; importing the module here
+    # rules live with their node definitions; importing the modules here
     # (lazily, to dodge the import cycle) guarantees registration
+    import keystone_tpu_torch.core.fusion  # noqa: F401
     import keystone_tpu_torch.plan.fused_fit  # noqa: F401
 
     return tuple(_RULES)
 
 
+def rewrite_nodes(nodes: Sequence[Any]) -> tuple[list[Any], list[dict]]:
+    """Slide every registered rule over a raw transformer chain. Returns
+    the rewritten node list and one decision record per application. The
+    chain is lifted into a throwaway plan and walked by
+    :func:`_rewrite_chain`, the planner's own walk; ``plan_rewrites`` is
+    not counted (the classic path counts ``fusion_rewrites`` instead)."""
+    chain = [PlanNode(label=node_label(n, i), op=n) for i, n in enumerate(nodes)]
+    plan = Plan(prefix=chain, budget_bytes=0)
+    _rewrite_chain(plan, chain, count_metrics=False)
+    return [pn.op for pn in chain], plan.decisions
+
+
 def select_operators(plan: Plan) -> Plan:
     """Rewrite pass over the plan chain: apply registered rules, folding
     each replaced window's cost into the fused node and recording the
-    decision."""
-    chain = plan.prefix
+    decision in the plan and the ``plan_rewrites`` counter."""
+    _rewrite_chain(plan, plan.prefix)
+    return plan
+
+
+def _rewrite_chain(plan: Plan, chain: list[PlanNode], count_metrics: bool = True) -> None:
     i = 0
     while i < len(chain):
         applied = None
@@ -96,8 +119,9 @@ def select_operators(plan: Plan) -> Plan:
         plan.decide(
             "rewrite", rule=rule.name, node=label, replaced=[pn.label for pn in window]
         )
+        if count_metrics:
+            _metrics.get_registry().counter("plan_rewrites", rule=rule.name).inc()
         i += 1
-    return plan
 
 
 def choose_chunk_size(

@@ -102,3 +102,110 @@ def test_linear_pixels_run_matches_jax(lam):
     assert res["n_train"] == j_res["n_train"] and res["n_test"] == j_res["n_test"]
     for key in ("train_error", "test_error"):
         assert abs(res[key] - j_res[key]) <= 0.01, (key, res[key], j_res[key])
+
+
+# --- the conv workloads: cifar_random_patch and cifar_random, at the JAX
+# tests' own sizes (tests/test_cifar_pipelines.py: 150 images, 16 filters)
+
+from keystone_tpu.core import fusion as j_fusion  # noqa: E402
+from keystone_tpu.models import cifar_random as j_rc  # noqa: E402
+from keystone_tpu.models import cifar_random_patch as j_rp  # noqa: E402
+from keystone_tpu.ops import linear as j_linear  # noqa: E402
+from keystone_tpu.ops import stats as j_stats  # noqa: E402
+from keystone_tpu_torch.models import cifar_random, cifar_random_patch  # noqa: E402
+from keystone_tpu_torch.ops import linear, stats  # noqa: E402
+
+CONV_TOL = 1e-5  # of max|out|: f32 products, sums in another order
+RP_CONF = dict(synthetic=150, num_filters=16, pool_size=14, pool_stride=13, lam=50.0,
+               block_size=512, chunk_size=64)
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("patch_steps", [1, 2])
+def test_build_filters_match_jax(patch_steps):
+    """The three draws of one generator in the JAX package's order (the
+    images, the window subsample to 100,000, the filters), the ZCA
+    whitener and the folded filters: the JAX package's filters up to
+    float rounding."""
+    conf = dict(RP_CONF, patch_steps=patch_steps)
+    images = cifar_linear_pixels._load(cifar_linear_pixels.LinearPixelsConfig(synthetic=150),
+                                       "train").images
+    filters, means = cifar_random_patch.build_filters(
+        images, cifar_random_patch.RandomCifarConfig(**conf), device="cpu")
+    j_filters, j_means = j_rp.build_filters(images, j_rp.RandomCifarConfig(**conf))
+    assert tuple(filters.shape) == (16, 108)
+    assert _rel(filters.numpy(), np.asarray(j_filters)) <= CONV_TOL
+    assert _rel(means.numpy(), np.asarray(j_means)) <= CONV_TOL
+
+
+def test_random_patch_features_and_fit_match_jax():
+    """On the JAX package's filters: the fused featurizer's features, the
+    scaler and the one-pass block least squares' weights and scores."""
+    jc = j_rp.RandomCifarConfig(**RP_CONF)
+    data = cifar_linear_pixels._load(cifar_linear_pixels.LinearPixelsConfig(synthetic=150),
+                                     "train")
+    j_filters, j_means = j_rp.build_filters(data.images, jc)
+    j_feat = j_fusion.optimize(
+        j_images.Convolver(filters=j_filters, whitener_means=j_means, patch_size=6)
+        >> j_images.SymmetricRectifier(alpha=0.25) >> j_images.Pooler(stride=13, pool_size=14)
+        >> j_images.ImageVectorizer())
+    want = np.array(j_feat(jnp.asarray(data.images)))
+    feat = cifar_random_patch.make_featurizer(
+        torch.from_numpy(np.array(j_filters)), torch.from_numpy(np.array(j_means)),
+        cifar_random_patch.RandomCifarConfig(**RP_CONF))
+    assert type(feat.nodes[0]).__name__ == "FusedConvRectifyPool"
+    got = feat(torch.from_numpy(data.images))
+    assert tuple(got.shape) == (150, 8 * 16)
+    assert _rel(got.numpy(), want) <= CONV_TOL
+
+    labels = data.labels
+    j_scaled = j_stats.StandardScaler().fit(jnp.asarray(want))(jnp.asarray(want))
+    j_ind = 2 * np.eye(10, dtype=np.float32)[labels] - 1  # ±1 indicators
+    j_model = j_linear.BlockLeastSquaresEstimator(block_size=512, num_iter=1, lam=50.0).fit(
+        j_scaled, jnp.asarray(j_ind))
+    scaled = stats.StandardScaler().fit(torch.from_numpy(want))(torch.from_numpy(want))
+    model = linear.BlockLeastSquaresEstimator(block_size=512, num_iter=1, lam=50.0).fit(
+        scaled, torch.from_numpy(j_ind))
+    assert _rel(scaled.numpy(), np.asarray(j_scaled)) <= CONV_TOL
+    assert _rel(model.xs[0].numpy(), np.asarray(j_model.xs[0])) <= CONV_TOL
+    assert _rel(model(scaled).numpy(), np.asarray(j_model(j_scaled))) <= CONV_TOL
+
+
+def _errors_agree(res, j_res, n_train, n_test):
+    assert set(j_res) <= set(res) and res["device"] == "cpu"
+    assert res["n_train"] == j_res["n_train"] and res["n_test"] == j_res["n_test"]
+    # within one sample
+    assert abs(res["train_error"] - j_res["train_error"]) <= 1.0 / n_train + 1e-12
+    assert abs(res["test_error"] - j_res["test_error"]) <= 1.0 / n_test + 1e-12
+
+
+def test_cifar_random_patch_run_matches_jax():
+    res = cifar_random_patch.run(cifar_random_patch.RandomCifarConfig(**RP_CONF), device="cpu")
+    j_res = j_rp.run(j_rp.RandomCifarConfig(**RP_CONF), mesh=None)
+    _errors_agree(res, j_res, 150, 30)
+    assert res["num_features"] == 8 * 16 and len(res["test_predictions"]) == 30
+
+
+@pytest.mark.parametrize("planned,sample_frac", [(False, 0.0), (True, 0.0), (False, 0.6)])
+def test_cifar_random_run_matches_jax(monkeypatch, planned, sample_frac):
+    """Classic and ``KEYSTONE_PLAN=1`` (the scaler streamed into the exact
+    fit), and ``sample_frac``'s mask, drawn before the filter bank."""
+    if planned:
+        monkeypatch.setenv("KEYSTONE_PLAN", "1")
+    else:
+        monkeypatch.delenv("KEYSTONE_PLAN", raising=False)
+    conf = dict(synthetic=150, num_filters=16, lam=10.0, chunk_size=64, sample_frac=sample_frac)
+    res = cifar_random.run(cifar_random.RandomCifarFilterConfig(**conf), device="cpu")
+    j_res = j_rc.run(j_rc.RandomCifarFilterConfig(**conf), mesh=None)
+    _errors_agree(res, j_res, j_res["n_train"], 30)
+    assert ("fit_decisions" in res) == planned
+    if sample_frac:
+        assert 0 < res["n_train"] < 150
+    keep, filters = cifar_random.random_filters(cifar_random.RandomCifarFilterConfig(**conf), 150)
+    assert filters.shape == (16, 108) and filters.dtype == np.float32
+    assert (keep is None) == (sample_frac == 0.0)

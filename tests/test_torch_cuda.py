@@ -1142,3 +1142,111 @@ def test_vit_ridge_and_linear_pixels_on_card(card):
     assert res["n_train"] == 2000 and res["test_error"] <= 0.05
     res = cifar_linear_pixels.main(["--synthetic", "2000"], device="cuda")
     assert res["n_test"] == 400 and res["test_error"] <= 0.05
+
+
+def _conv_case(seed, n=64):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 255, size=(n, 32, 32, 3)).astype(np.float32)
+    filters = rng.normal(size=(64, 108)).astype(np.float32)
+    means = rng.normal(size=(108,)).astype(np.float32)
+    return x, filters, means
+
+
+@pytest.mark.parametrize("impl", ["auto", "xla"])
+def test_convolver_on_card_matches_cpu(card, impl):
+    """The cuDNN convolution with its box sums (TF32 off: the entry
+    points' ``resolve_device`` and the node's own scope) against the CPU,
+    within 1e-5 of max|out|; the fused node too."""
+    from keystone_tpu_torch.ops import images
+
+    x, filters, means = _conv_case(0)
+    node = images.Convolver(filters=torch.from_numpy(filters),
+                            whitener_means=torch.from_numpy(means), impl=impl)
+    want = node(torch.from_numpy(x))
+    dev = images.Convolver(filters=node.filters.to(card), whitener_means=node.whitener_means.to(card),
+                           impl=impl)
+    torch.backends.cudnn.allow_tf32 = True  # the node must scope it off itself
+    try:
+        got = dev(torch.from_numpy(x).to(card)).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    fused = images.FusedConvRectifyPool(filters=dev.filters, whitener_means=dev.whitener_means,
+                                        alpha=0.25)
+    cpu_fused = images.FusedConvRectifyPool(filters=node.filters, whitener_means=node.whitener_means,
+                                            alpha=0.25)
+    got, want = fused(torch.from_numpy(x).to(card)).cpu(), cpu_fused(torch.from_numpy(x))
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_conv2d_separable_on_card_is_full_f32(card):
+    """Both passes in full f32 even with cuDNN's TF32 switched on around
+    the call: within 1e-6 of max|out| of the CPU (TF32 would read about
+    1e-3)."""
+    from keystone_tpu_torch.utils.images import conv2d_separable
+
+    rng = np.random.default_rng(1)
+    x = rng.uniform(0, 255, size=(8, 64, 64, 3)).astype(np.float32)
+    kx, ky = rng.normal(size=9).astype(np.float32), rng.normal(size=6).astype(np.float32)
+    want = conv2d_separable(torch.from_numpy(x), kx, ky)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = conv2d_separable(torch.from_numpy(x).to(card), kx, ky).cpu()
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+def test_zca_on_card_matches_cpu(card):
+    """The whitener from cuSOLVER's SVD of a (100,000 × 108) patch sample
+    against the CPU's LAPACK, within 1e-5 of max|W|, and against float64
+    within 2e-6 (the CPU's f32 reads 8e-7; torch's default Jacobi driver
+    on the card read 2.2e-5); PCA of a wide sample too."""
+    from keystone_tpu_torch.ops import images, linalg
+
+    x, _, _ = _conv_case(2, n=140)
+    flat = images.ImageVectorizer()(images.Windower()(torch.from_numpy(x)))[:100_000]
+    base = images.normalize_patch_rows(flat, 10.0)
+    want = linalg.ZCAWhitenerEstimator().fit(base)
+    exact = linalg.ZCAWhitenerEstimator().fit(base.double())
+    got = linalg.ZCAWhitenerEstimator().fit(base.to(card))
+    scale = float(want.whitener.abs().max())
+    assert float((got.whitener.cpu() - want.whitener).abs().max()) <= 1e-5 * scale
+    assert float((got.whitener.cpu().double() - exact.whitener).abs().max()) <= 2e-6 * scale
+    assert float((got.means.cpu() - want.means).abs().max()) <= 1e-5 * float(want.means.abs().max())
+    # a wide sample (through gesvd's transpose) whose singular values lie
+    # 17 % apart, so its leading vectors are defined to about 1e-6 in f32
+    rng = np.random.default_rng(5)
+    u = np.linalg.qr(rng.normal(size=(30, 30)))[0]
+    v = np.linalg.qr(rng.normal(size=(50, 30)))[0]
+    wide = torch.from_numpy(((u * np.geomspace(100.0, 1.0, 30)) @ v.T).astype(np.float32))
+    pca = linalg.compute_pca(wide.to(card), 10).cpu()
+    want_pca = linalg.compute_pca(wide, 10)
+    assert float((pca - want_pca).abs().max()) <= 1e-5 * float(want_pca.abs().max())
+
+
+def test_naive_bayes_on_card_matches_cpu(card):
+    from keystone_tpu_torch.ops.naive_bayes import NaiveBayesEstimator
+
+    rng = np.random.default_rng(3)
+    x = (rng.random((4000, 600)) < 0.05).astype(np.float32)
+    labels = rng.integers(0, 20, size=4000)
+    want = NaiveBayesEstimator(num_classes=20).fit(torch.from_numpy(x), labels, n_valid=3900)
+    got = NaiveBayesEstimator(num_classes=20).fit(torch.from_numpy(x).to(card), labels,
+                                                  n_valid=3900)
+    for g, w in ((got.log_pi, want.log_pi), (got.log_theta, want.log_theta)):
+        assert float((g.cpu() - w).abs().max()) <= 1e-6 * float(w.abs().max())
+    assert torch.equal(got(torch.from_numpy(x).to(card)).argmax(1).cpu(),
+                       want(torch.from_numpy(x)).argmax(1))
+
+
+def test_conv_and_text_workloads_on_card(card):
+    from keystone_tpu_torch.models import (cifar_random, cifar_random_patch, newsgroups_pipeline)
+
+    res = cifar_random_patch.main(["--synthetic", "2000", "--num-filters", "32"], device="cuda")
+    assert res["n_test"] == 400 and res["test_error"] <= 0.05 and res["num_features"] == 256
+    res = cifar_random.main(["--synthetic", "2000", "--num-filters", "32"], device="cuda")
+    assert res["test_error"] <= 0.05
+    res = newsgroups_pipeline.main(["--synthetic", "2000", "--corenlp"], device="cuda")
+    assert res["device"].startswith("cuda") and res["test_error"] <= 0.05

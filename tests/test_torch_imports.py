@@ -70,6 +70,23 @@ res = vit_ridge.main(["--synthetic", "40", "--dim", "16", "--depth", "1", "--num
 assert res["n_train"] == 40 and res["n_test"] == 8
 res = cifar_linear_pixels.main(["--synthetic", "40", "--lam", "1"], device="cpu")
 assert res["n_train"] == 40 and res["n_test"] == 8
+from keystone_tpu_torch.core import fusion
+from keystone_tpu_torch.loaders import newsgroups
+from keystone_tpu_torch.models import (cifar_random, cifar_random_patch, newsgroups_pipeline,
+                                       stupid_backoff_pipeline)
+from keystone_tpu_torch.ops import corenlp, linalg, naive_bayes, nlp, sparse
+from keystone_tpu_torch.utils.images import conv2d_separable
+res = cifar_random_patch.main(["--synthetic", "40", "--num-filters", "4", "--lam", "10",
+                               "--chunk-size", "16"], device="cpu")
+assert res["n_train"] == 40 and res["num_features"] == 32
+for plan in ("0", "1"):
+    os.environ["KEYSTONE_PLAN"] = plan
+    res = cifar_random.main(["--synthetic", "40", "--num-filters", "4", "--lam", "10"], device="cpu")
+    assert res["n_train"] == 40 and ("fit_decisions" in res) == (plan == "1")
+for extra in ([], ["--corenlp"]):
+    res = newsgroups_pipeline.main(["--synthetic", "40"] + extra, device="cpu")
+    assert res["n_train"] == 40 and res["vocab_size"] > 0
+assert stupid_backoff_pipeline.main(["--synthetic", "40"])["num_ngrams"] > 0
 import numpy as np
 from keystone_tpu_torch import observe, resilience
 from keystone_tpu_torch.observe import events, health, schema, spans, telemetry
@@ -178,7 +195,8 @@ def _constructors():
     import numpy as np
 
     from keystone_tpu_torch import convert
-    from keystone_tpu_torch.models import cifar_linear_pixels, vit_ridge
+    from keystone_tpu_torch.models import (cifar_linear_pixels, cifar_random, cifar_random_patch,
+                                           newsgroups_pipeline, vit_ridge)
     from keystone_tpu_torch.models import mnist_random_fft as m
     from keystone_tpu_torch.models import timit_pipeline as tm
     from keystone_tpu_torch.core.pipeline import Identity
@@ -215,6 +233,16 @@ def _constructors():
             {"patch_embed": z, "pos_embed": z, "blocks": []}),
         "vit_ridge.main": lambda: vit_ridge.main(["--synthetic", "10"]),
         "cifar_linear_pixels.main": lambda: cifar_linear_pixels.main(["--synthetic", "10"]),
+        "cifar_random.main": lambda: cifar_random.main(["--synthetic", "10"]),
+        "cifar_random_patch.main": lambda: cifar_random_patch.main(["--synthetic", "10"]),
+        "cifar_random_patch.build_filters": lambda: cifar_random_patch.build_filters(
+            np.zeros((2, 8, 8, 3), np.float32), cifar_random_patch.RandomCifarConfig(num_filters=1)),
+        "newsgroups_pipeline.main": lambda: newsgroups_pipeline.main(["--synthetic", "10"]),
+        "convert.convolver": lambda: convert.convolver(z, patch_size=1),
+        "convert.fused_conv_rectify_pool": lambda: convert.fused_conv_rectify_pool(z, patch_size=1),
+        "convert.zca_whitener": lambda: convert.zca_whitener(z, z[0]),
+        "convert.pca_transformer": lambda: convert.pca_transformer(z),
+        "convert.naive_bayes_model": lambda: convert.naive_bayes_model(z[0], z),
     }
 
 
