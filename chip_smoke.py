@@ -184,6 +184,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    where the planner picks the int8 Gram for ``cifar_random``'s
    streamed fit.
 
+30. VOC SIFT-Fisher: ``voc_sift_fisher.main`` with ``VOCConfig``'s
+   defaults (256², 5 SIFT scales, step 3, bin 4; desc 80, vocab 256,
+   1,000,000 PCA and GMM samples, 100 EM iterations, λ 0.5, chunks of 64,
+   blocks of 4,096) on 1,024 + 256 synthetic images: load, SIFT, PCA, GMM,
+   Fisher, featurize, fit, test and total s, samples/s, peak memory,
+   train mAP > 0.3 (the JAX package's gate) and no hand kernel launched;
+   10 EM iterations on the run's own GMM sample from the CPU's start,
+   card against CPU: means within 1e-3 of max|mean|; the card's PCA of the
+   run's sample against the CPU's by the projector onto its subspace; the
+   JAX package's test configuration on the card and on the CPU from one
+   set of artifacts: Fisher features within 1e-4 of max|f|, mAPs within
+   1e-4;
+31. SIFT at ``bench_sift``'s shape (16 × 256², ``default_rng(4)``):
+   images/s, device ms and launches of a call (profiler), the bytes bound
+   of the orientation planes' passes; the card's descriptors against the
+   CPU's (all within ±1, ≥ 99.9 % equal) and both goldens on the card
+   (≥ 99.5 % within ±1).
+
 Phase 7 also holds K2 with its lse against its plain version at the train
 steps' shapes, (8, 16, 2,048, 64) and (1, 8, 16,384, 64), bf16 causal.
 
@@ -3087,6 +3105,207 @@ def phase_text(device) -> dict:
             "nb_fit_device_ms": fit_ms, "nb_card_equals_cpu": same, "launches": counts}
 
 
+# --- phases 30-31: the VOC SIFT-Fisher workload (voc_sift_fisher.VOCConfig's
+# defaults: 256², 5 SIFT scales, desc 80, vocab 256, 1e6 PCA and GMM samples,
+# 100 EM iterations, λ 0.5, chunks of 64, blocks of 4,096)
+VOC_ARGV = ["--synthetic", "1024"]  # 1,024 train and 256 test images
+VOC_MIN_TRAIN_MAP = 0.3  # the JAX package's own gate (tests/test_voc_pipeline.py)
+# the JAX package's test configuration, run on the card and on the CPU
+VOC_TINY = dict(synthetic=24, image_size=64, sift_scales=2, desc_dim=16, vocab_size=4,
+                num_pca_samples=2000, num_gmm_samples=1000, lam=5.0, block_size=512,
+                chunk_size=8)
+VOC_TINY_FEAT_TOL = 1e-4  # of max|f|, Fisher features on the card against the CPU
+VOC_TINY_MAP_TOL = 1e-4
+VOC_EM_ITERS = 10
+VOC_EM_TOL = 1e-3  # of max|mean|, the card's EM against the CPU's from one start
+SIFT_N, SIFT_HW = 16, 256  # bench.py's bench_sift shape (SIFT_N, SIFT_HW)
+SIFT_MIN_EQUAL = 0.999  # card against CPU: ≥ 99.9 % of entries equal, all within ±1
+SIFT_GOLDEN_MIN = 0.995  # the reference's golden gate: ≥ 99.5 % within ±1
+
+
+def phase_voc(device) -> dict:
+    """Phase 30: ``voc_sift_fisher.main`` at the reference's full width on
+    1,024 + 256 synthetic images (the GMM and PCA samples it draws are
+    kept for the gates); the card's EM from the CPU's start against the
+    CPU's, on that GMM sample; the card's PCA against the CPU's by the
+    projector onto the kept subspace; and the JAX package's test
+    configuration on the card and on the CPU from one set of artifacts."""
+    import tempfile
+
+    from keystone_tpu_torch.core.config import parse_config
+    from keystone_tpu_torch.core.kernels import BUILD_DIR
+    from keystone_tpu_torch.models import fisher_common
+    from keystone_tpu_torch.models import voc_sift_fisher as voc
+    from keystone_tpu_torch.ops import gmm
+    from keystone_tpu_torch.ops.images import GrayScaler, PixelScaler
+    from keystone_tpu_torch.ops.sift import SIFTExtractor
+
+    kept = {}
+    estimator, compute_pca = fisher_common.GaussianMixtureModelEstimator, fisher_common.compute_pca
+
+    class KeepingEstimator(estimator):
+        def fit(self, samples):
+            kept["gmm_sample"] = samples
+            return super().fit(samples)
+
+    def keeping_pca(data, dims):
+        kept["pca_sample"] = data
+        return compute_pca(data, dims)
+
+    fisher_common.GaussianMixtureModelEstimator = KeepingEstimator
+    fisher_common.compute_pca = keeping_pca
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    try:
+        res = voc.main(list(VOC_ARGV), device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        fisher_common.GaussianMixtureModelEstimator = estimator
+        fisher_common.compute_pca = compute_pca
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    print(f"VOC SIFT-Fisher {VOC_ARGV}: train mAP {res['train_map']:.4f}, test mAP "
+          f"{res['test_map']:.4f}; load {res['load_s']:.3f} s, SIFT {res['sift_s']:.3f} s, PCA "
+          f"{res['pca_s']:.3f} s, GMM {res['gmm_s']:.3f} s, Fisher {res['fisher_s']:.3f} s, "
+          f"featurize {res['featurize_s']:.3f} s, fit {res['fit_s']:.3f} s, test "
+          f"{res['test_s']:.3f} s, total {res['total_s']:.3f} s, "
+          f"{res['featurize_fit_samples_per_s']:.1f} samples/s; peak memory {peak_gb:.2f} GiB; "
+          f"features {res['num_features']}; launches {counts}")
+    conf = parse_config(voc.VOCConfig, VOC_ARGV)
+    check(res["n_train"] == conf.synthetic and res["n_test"] == conf.synthetic // 4,
+          f"VOC sizes {res}")
+    check(res["device"].startswith("cuda"), f"VOC ran on {res['device']}")
+    check(res["train_map"] > VOC_MIN_TRAIN_MAP, f"VOC train mAP {res['train_map']}")
+    check(not any(counts.values()), f"a hand kernel launched on the VOC path: {counts}")
+
+    # EM from one start on the run's own GMM sample, card against CPU
+    x = kept.pop("gmm_sample")
+    x_cpu = x.cpu()
+    init = gmm.gmm_init(x_cpu, conf.vocab_size, seed=42, var_floor=gmm.VAR_FLOOR)
+    t0 = time.perf_counter()
+    want = gmm.gmm_em(x_cpu, *init, VOC_EM_ITERS)
+    cpu_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = gmm.gmm_em(x, *(a.to(device) for a in init), VOC_EM_ITERS)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    em_err = _rel(got[0].cpu(), want[0])
+    em_rows = int(x.shape[0])
+    em_flops = 8.0 * em_rows * x.shape[1] * conf.vocab_size  # 4 products an iteration
+    em_ms = 1e3 * card_s / VOC_EM_ITERS
+    print(f"  EM on the run's GMM sample {tuple(x.shape)}, k {conf.vocab_size}, "
+          f"{VOC_EM_ITERS} iterations from the CPU's start: card {em_ms:.2f} ms an iteration "
+          f"({em_flops / (em_ms / 1e3) / 1e12:.2f} TFLOP/s of f32 products), CPU "
+          f"{1e3 * cpu_s / VOC_EM_ITERS:.1f} ms; means card vs CPU {em_err:.3e} of max|mean|")
+    check(em_err <= VOC_EM_TOL, f"the card's EM means differ from the CPU's by {em_err:.3e}")
+    del x, x_cpu, got, want
+
+    # the PCA of the run's own sample, card against CPU, by its projector
+    sample = kept.pop("pca_sample")
+    p_card = compute_pca(sample, conf.desc_dim).double()
+    p_cpu = compute_pca(sample.cpu(), conf.desc_dim).double()
+    pca_err = _rel((p_card @ p_card.T).cpu(), p_cpu @ p_cpu.T)
+    print(f"  PCA of the run's sample {tuple(sample.shape)}: the card's projector onto its "
+          f"{conf.desc_dim} directions vs the CPU's {pca_err:.3e} of max")
+    del sample
+
+    # the JAX package's test configuration: the CPU fits and writes the
+    # artifacts, the card loads them
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        files = {k: os.path.join(tmp, f) for k, f in (
+            ("pca_file", "pca.csv"), ("gmm_mean_file", "m.csv"), ("gmm_var_file", "v.csv"),
+            ("gmm_wt_file", "w.csv"))}
+        tiny = voc.VOCConfig(**VOC_TINY, **files)
+        tiny_cpu = voc.run(tiny, device="cpu")
+        tiny_card = voc.run(tiny, device="cuda")
+        desc = (PixelScaler() >> GrayScaler() >> SIFTExtractor(num_scales=tiny.sift_scales))(
+            torch.from_numpy(voc._load(tiny, "train").images))
+        feats = []
+        for dev in ("cpu", device):
+            branch = fisher_common.FisherBranch(
+                tiny.desc_dim, tiny.vocab_size, tiny.num_pca_samples, tiny.num_gmm_samples,
+                tiny.seed, pca_file=files["pca_file"],
+                gmm_files=(files["gmm_mean_file"], files["gmm_var_file"], files["gmm_wt_file"]),
+                device=dev)
+            branch.fit(desc.to(dev), tiny.chunk_size)
+            feats.append(branch.featurize(desc.to(dev), tiny.chunk_size).cpu())
+    feat_err = _rel(feats[1], feats[0])
+    map_err = max(abs(tiny_card[k] - tiny_cpu[k]) for k in ("train_map", "test_map"))
+    print(f"  the JAX package's test configuration: train mAP card {tiny_card['train_map']:.4f} "
+          f"CPU {tiny_cpu['train_map']:.4f}, test mAP card {tiny_card['test_map']:.4f} CPU "
+          f"{tiny_cpu['test_map']:.4f}; Fisher features card vs CPU {feat_err:.3e} of max|f|")
+    check(feat_err <= VOC_TINY_FEAT_TOL, f"tiny VOC Fisher features differ by {feat_err:.3e}")
+    check(map_err <= VOC_TINY_MAP_TOL, f"tiny VOC mAPs differ by {map_err:.3e}")
+    return {"run": _rows(res), "peak_mem_gib": peak_gb, "launches": counts,
+            "em_check": {"rows": em_rows,
+                         "iters": VOC_EM_ITERS, "card_ms_per_iter": em_ms,
+                         "cpu_ms_per_iter": 1e3 * cpu_s / VOC_EM_ITERS,
+                         "tflops": em_flops / (em_ms / 1e3) / 1e12, "means_max_rel_err": em_err},
+            "pca_projector_max_rel_err": pca_err,
+            "tiny": {"card": _rows(tiny_card), "cpu": _rows(tiny_cpu),
+                     "feature_max_rel_err": feat_err, "map_max_abs_err": map_err}}
+
+
+def phase_sift_bench(device) -> dict:
+    """Phase 31: SIFT at ``bench_sift``'s shape (16 × 256², ``default_rng(4)``
+    images, the VOC defaults): images/s, device ms and launches of one
+    call (profiler), a bytes bound for the orientation planes' passes; the
+    card's descriptors against the CPU's, and both goldens on the card."""
+    import pathlib
+
+    import numpy as np
+
+    from keystone_tpu_torch.ops.sift import NUM_ORIENTATIONS, SIFTExtractor
+
+    imgs = np.random.default_rng(4).random((SIFT_N, SIFT_HW, SIFT_HW)).astype(np.float32)
+    ext = SIFTExtractor()
+    batch = torch.from_numpy(imgs).to(device)
+    out = ext(batch)
+    torch.cuda.synchronize()
+    wall_s = _wall(lambda: ext(batch), 5)
+    ms = time_ms(lambda: ext(batch))
+    prof = train_step_profile(lambda: ext(batch))
+    # per scale the (N, H, W, 8) planes are written once, read and written by
+    # each of the triangular convolution's two passes, and read by the gather
+    plane_bytes = 4.0 * SIFT_N * SIFT_HW * SIFT_HW * NUM_ORIENTATIONS
+    bound_ms = 1e3 * 6 * plane_bytes * ext.num_scales / HBM_BYTES_PER_S
+    cpu = ext(torch.from_numpy(imgs))
+    got = out.cpu()
+    equal = float((got == cpu).float().mean())
+    max_diff = float((got - cpu).abs().max())
+    goldens = {}
+    gdir = pathlib.Path(__file__).resolve().parent / "tests" / "goldens"
+    for name in ("synthetic", "voc000012"):
+        golden = np.loadtxt(gdir / f"sift_{name}.csv", delimiter=",")
+        img = np.loadtxt(gdir / f"sift_{name}_input.csv", delimiter=",").astype(np.float32)
+        header = (gdir / f"sift_{name}.csv").read_text().splitlines()[0]
+        p = dict(kv.split("=") for kv in header.lstrip("# ").split() if "=" in kv)
+        g_ext = SIFTExtractor(step=int(p["step"]), bin_size=int(p["bin_size"]),
+                              num_scales=int(p["num_scales"]), scale_step=int(p["scale_step"]))
+        desc = g_ext(torch.from_numpy(img)[None].to(device))[0].T.cpu().numpy()
+        check(desc.shape == golden.shape, f"golden {name}: {desc.shape} vs {golden.shape}")
+        goldens[name] = float((np.abs(desc - golden) <= 1.0).mean())
+    busy = prof and prof["device_busy_ms"]
+    launches = prof and prof["device_kernels"]
+    print(f"SIFT {(SIFT_N, SIFT_HW, SIFT_HW)} -> {tuple(out.shape)}: {SIFT_N / wall_s:.1f} "
+          f"images/s ({1e3 * wall_s:.2f} ms a call wall, {ms:.2f} ms by CUDA events); device "
+          f"busy {busy} ms over {launches} kernel launches a call; bytes bound of the "
+          f"orientation planes' passes {bound_ms:.3f} ms; card vs CPU: {equal:.5%} equal, "
+          f"max diff {max_diff}; goldens within ±1 {goldens}")
+    check(max_diff <= 1.0 and equal >= SIFT_MIN_EQUAL,
+          f"SIFT card vs CPU: {equal:.5%} equal, max diff {max_diff}")
+    for name, frac in goldens.items():
+        check(frac >= SIFT_GOLDEN_MIN, f"SIFT golden {name} on the card: {frac:.4%} within ±1")
+    return {"shape": [SIFT_N, SIFT_HW, SIFT_HW], "descriptors": list(out.shape),
+            "images_per_s": SIFT_N / wall_s, "wall_ms": 1e3 * wall_s, "event_ms": ms,
+            "device_busy_ms": busy, "launches_per_call": launches, "bound_ms": bound_ms,
+            "bound_by": "bytes", "profile": prof, "card_vs_cpu_equal": equal,
+            "card_vs_cpu_max_diff": max_diff, "goldens_within_1": goldens}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available")
@@ -3205,6 +3424,9 @@ def main() -> None:
     print(json.dumps({"cifar_conv_path": {"card": smi, **cifar}}))
     text = phase_text(device)
     print(json.dumps({"text_path": {"card": smi, **text}}))
+    voc_path = phase_voc(device)
+    voc_path["sift_at_bench_shape"] = phase_sift_bench(device)
+    print(json.dumps({"voc_path": {"card": smi, **voc_path}}))
 
     summary = {
         "card": smi,

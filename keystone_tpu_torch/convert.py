@@ -21,6 +21,7 @@ from keystone_tpu_torch.models.lm.model import LMBlock, TransformerLM
 from keystone_tpu_torch.core.pipeline import Pipeline
 from keystone_tpu_torch.models.mnist_random_fft import FeaturizerBank
 from keystone_tpu_torch.models.timit_pipeline import ScaledCosineBank
+from keystone_tpu_torch.ops.gmm import GaussianMixtureModel
 from keystone_tpu_torch.ops.images import Convolver, FusedConvRectifyPool
 from keystone_tpu_torch.ops.linalg import BatchPCATransformer, PCATransformer, ZCAWhitener
 from keystone_tpu_torch.ops.linear import BlockLinearMapper, LinearMapper, NormalEqState
@@ -315,3 +316,24 @@ def naive_bayes_model(
     likelihoods."""
     device = resolve_device(device)
     return NaiveBayesModel(log_pi=_t(log_pi, device), log_theta=_t(log_theta, device))
+
+
+def gmm(
+    means: np.ndarray,
+    variances: np.ndarray,
+    weights: np.ndarray,
+    *,
+    device: torch.device | str | None = None,
+) -> GaussianMixtureModel:
+    """A :class:`GaussianMixtureModel` from its (dim, k) means and
+    variances and (k,) weights."""
+    device = resolve_device(device)
+    return GaussianMixtureModel(
+        means=_t(means, device), variances=_t(variances, device), weights=_t(weights, device)
+    )
+
+
+def pca_matrix(mat: np.ndarray, *, device: torch.device | str | None = None) -> torch.Tensor:
+    """A (d, dims) PCA matrix (``compute_pca``'s output, the
+    ``BatchPCATransformer``'s ``pca_mat``) as a float32 tensor."""
+    return _t(mat, resolve_device(device))

@@ -120,7 +120,7 @@ def conv_convolver(
     (F, k²C) filter rows as (F, C, k, k); (N, oh, ow, F) float32 out.
     Eager PyTorch fuses nothing, so the algebra is two passes over the
     map: ``addcmul_`` in place, then ``addcdiv`` (or ``div_``)."""
-    from keystone_tpu_torch.ops.linear import _conv_precision
+    from keystone_tpu_torch.ops.linear import _matmul_precision
 
     k = patch_size
     f = filters.shape[0]
@@ -129,7 +129,7 @@ def conv_convolver(
     batch = batch.to(torch.float32)
     filters = filters.to(torch.float32)
     wts = filters.reshape(f, k, k, c).permute(0, 3, 1, 2)  # (F, C, k, k)
-    with _conv_precision(precision):
+    with _matmul_precision(precision):
         out = F.conv2d(batch.permute(0, 3, 1, 2), wts).permute(0, 2, 3, 1)
         shift = None
         if whitener_means is not None:
@@ -174,7 +174,7 @@ class Convolver(Transformer):
     precision: str | None = None
 
     def __call__(self, batch):
-        from keystone_tpu_torch.ops.linear import _conv_precision
+        from keystone_tpu_torch.ops.linear import _matmul_precision
 
         if self.impl not in ("auto", "conv", "xla"):
             raise ValueError(f"Convolver impl={self.impl!r}; expected auto|conv|xla")
@@ -194,7 +194,7 @@ class Convolver(Transformer):
             p = normalize_patch_rows(p, self.var_constant)
         if self.whitener_means is not None:
             p = p - self.whitener_means
-        with _conv_precision(self.precision):
+        with _matmul_precision(self.precision):
             return p @ self.filters.to(p.dtype).T
 
 

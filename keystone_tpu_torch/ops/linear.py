@@ -120,55 +120,67 @@ _PRECISIONS = {
 }
 
 
+# the float32 flags a precision scope sets are process-wide: one scope at
+# a time, so two threads' scopes (a MicroBatcher's and an
+# ExportedApply's) cannot interleave their sets and restores
+_FP32_FLAGS_LOCK = threading.RLock()
+
+
+def _fp32_flag_plan(level: str) -> list:
+    """((backend, op), value) for every process-wide float32 precision
+    flag, in the order to set them, for ``level`` (``highest``/``high``/
+    ``medium``): the generic flag and the CUDA and oneDNN backend flags
+    first, set to ``none``, because setting a parent writes its value into
+    every operator under it; then each operator the CPU and CUDA paths
+    read. ``highest`` is IEEE float32 everywhere. A lower level lets
+    cuBLAS and cuDNN take TF32 and oneDNN's matmul TF32 (``high``) or bf16
+    (``medium``), as ``torch.set_float32_matmul_precision`` does; oneDNN's
+    convolution stays IEEE."""
+    cuda = "ieee" if level == "highest" else "tf32"
+    onednn_matmul = {"highest": "ieee", "high": "tf32", "medium": "bf16"}[level]
+    return [
+        (("generic", "all"), "none"),
+        (("cuda", "all"), "none"),
+        (("mkldnn", "all"), "none"),
+        (("cuda", "matmul"), cuda),
+        (("cuda", "conv"), cuda),
+        (("cuda", "rnn"), cuda),
+        (("mkldnn", "matmul"), onednn_matmul),
+        (("mkldnn", "conv"), "ieee"),
+        (("mkldnn", "rnn"), "ieee"),
+    ]
+
+
 @contextlib.contextmanager
 def _matmul_precision(precision: str | None):
-    """Context for an estimator-level matmul-precision override.
+    """Scope the float32 precision of products and convolutions.
 
     ``precision=None`` falls back to the ``KEYSTONE_MATMUL_PRECISION`` env
-    knob and is a no-op when that too is unset (the port runs float32
-    products in full f32). A name maps onto
-    ``torch.set_float32_matmul_precision``: ``highest``/``float32`` →
-    full f32, ``high``/``tensorfloat32``/``bfloat16_3x`` → TF32,
-    ``default``/``bfloat16``/``fastest`` → bf16 passes."""
-    if precision is None:
-        precision = os.environ.get(ENV_MATMUL_PRECISION, "").strip() or None
-    if precision is None:
-        yield
-        return
-    if precision.lower() not in _PRECISIONS:
-        raise ValueError(f"unknown matmul precision {precision!r}")
-    before = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision(_PRECISIONS[precision.lower()])
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(before)
+    knob, and to full f32 when that too is unset. ``highest``/``float32``
+    → full f32, ``high``/``tensorfloat32``/``bfloat16_3x`` → TF32,
+    ``default``/``bfloat16``/``fastest`` → bf16 passes on oneDNN (TF32 on
+    the card), as ``torch.set_float32_matmul_precision`` maps them.
 
-
-# the flags a convolution scope sets are process-wide: one scope at a time
-_CONV_FLAGS_LOCK = threading.RLock()
-
-
-@contextlib.contextmanager
-def _conv_precision(precision: str | None):
-    """:func:`_matmul_precision` for a convolution. cuDNN reads its own
-    TF32 flag, not torch's matmul precision, so this also sets
-    ``torch.backends.cudnn.allow_tf32``: off for full f32 (``None`` with
-    no ``KEYSTONE_MATMUL_PRECISION``, ``highest``, ``float32``), on for any
-    name that asks for less, and restored afterwards. The scope holds a
-    lock, so two threads' scopes (a MicroBatcher's and an ExportedApply's)
-    cannot interleave their sets and restores."""
+    The scope sets every process-wide flag that cuBLAS, cuDNN and oneDNN
+    read (:func:`_fp32_flag_plan`), whatever state the process was left
+    in, and puts each back afterwards. It reads and writes them by
+    (backend, op) through the one accessor pair behind ``torch.backends``'
+    ``fp32_precision`` attributes, whose reads never raise (the legacy
+    getters raise once the two APIs were mixed). It holds a lock."""
     name = precision or os.environ.get(ENV_MATMUL_PRECISION, "").strip() or "highest"
     if name.lower() not in _PRECISIONS:
         raise ValueError(f"unknown matmul precision {name!r}")
-    with _CONV_FLAGS_LOCK:
-        before = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = _PRECISIONS[name.lower()] != "highest"
+    plan = _fp32_flag_plan(_PRECISIONS[name.lower()])
+    get, put = torch._C._get_fp32_precision_getter, torch._C._set_fp32_precision_setter
+    with _FP32_FLAGS_LOCK:
+        saved = [(flag, get(*flag)) for flag, _ in plan]
         try:
-            with _matmul_precision(name):
-                yield
+            for flag, value in plan:
+                put(*flag, value)
+            yield
         finally:
-            torch.backends.cudnn.allow_tf32 = before
+            for flag, value in saved:
+                put(*flag, value)
 
 
 def stabilized_cho_solve(mat: torch.Tensor, jitter: float = 1e-6):

@@ -1,7 +1,8 @@
 """Statistical feature nodes — port of ``keystone_tpu/ops/stats.py``'s
-scaler, random-FFT, cosine random-feature and term-frequency nodes. The
-tensor nodes map ``(N, d)`` float batches on the batch's own device;
-padded rows are masked out of a fit with ``n_valid``."""
+scaler, random-FFT, cosine random-feature, row-normalization, Hellinger,
+sampling and term-frequency nodes. The tensor nodes map ``(N, d)`` float
+batches on the batch's own device; padded rows are masked out of a fit
+with ``n_valid``."""
 
 from __future__ import annotations
 
@@ -185,6 +186,80 @@ class CosineRandomFeatures(Transformer):
         b = torch.rand((num_features,), generator=generator) * (2 * np.pi)
         device = resolve_device(device)
         return CosineRandomFeatures(w=(gamma * w).to(device), b=b.to(device))
+
+
+@dataclasses.dataclass(eq=False)
+class NormalizeRows(Transformer):
+    """Row L2 normalization with an ``eps`` floor on the norm."""
+
+    eps: float = EPS
+
+    def __call__(self, batch):
+        norms = torch.linalg.vector_norm(batch, dim=-1, keepdim=True)
+        return batch / torch.clamp_min(norms, self.eps)
+
+
+@dataclasses.dataclass(eq=False)
+class SignedHellingerMapper(Transformer):
+    """``sign(x) * sqrt(|x|)``."""
+
+    def __call__(self, batch):
+        return torch.sign(batch) * torch.sqrt(torch.abs(batch))
+
+
+def _draw(total: int, num: int, seed: int) -> np.ndarray:
+    """``num`` distinct sorted indices below ``total``: numpy's
+    ``default_rng(seed).choice`` without replacement, the JAX package's
+    draw, so the same seed picks the same rows."""
+    return np.sort(np.random.default_rng(seed).choice(total, num, replace=False))
+
+
+@dataclasses.dataclass(eq=False)
+class Sampler:
+    """Up to ``size`` rows of a batch, in their order: a host-level helper
+    that feeds fits on a sample (PCA, GMM, ZCA)."""
+
+    size: int = 1000
+    seed: int = 42
+
+    def __call__(self, batch):
+        n = batch.shape[0]
+        if n <= self.size:
+            return batch
+        return batch[torch.as_tensor(_draw(n, self.size, self.seed), device=batch.device)]
+
+
+def sample_columns(desc, num: int, seed: int) -> torch.Tensor:
+    """Up to ``num`` descriptor columns as (num, d) rows.
+
+    ``desc``: an (N, d, m) batch of feature-major descriptor matrices, or
+    a list of (d, n_i) matrices (ragged). The rows are those of the
+    flattened (N·m, d) column list, drawn by :func:`_draw`; for a batch
+    they are gathered as ``desc[i // m, :, i % m]`` without building the
+    transposed copy, which at the VOC workload's shape is 15 GB."""
+    if isinstance(desc, (list, tuple)):
+        flat = torch.cat([torch.as_tensor(m).T for m in desc], dim=0)  # (Σn_i, d)
+        if flat.shape[0] <= num:
+            return flat
+        return flat[torch.as_tensor(_draw(flat.shape[0], num, seed), device=flat.device)]
+    n, d, m = desc.shape
+    if n * m <= num:
+        return desc.transpose(1, 2).reshape(n * m, d)
+    idx = torch.as_tensor(_draw(n * m, num, seed), device=desc.device)
+    return desc[idx // m, :, idx % m]
+
+
+@dataclasses.dataclass(eq=False)
+class ColumnSampler:
+    """``num_cols`` columns sampled across descriptor matrices: an (N, d,
+    m) batch or a list of (d, n_i) matrices in, a (num_cols, d) row batch
+    for a PCA or GMM fit out."""
+
+    num_cols: int = 100000
+    seed: int = 42
+
+    def __call__(self, mats):
+        return sample_columns(mats, self.num_cols, self.seed)
 
 
 @dataclasses.dataclass(eq=False)

@@ -1,5 +1,5 @@
 """Resilience — port of ``keystone_tpu/resilience``'s fault injection
 (:mod:`.faults`, env-gated by ``KEYSTONE_FAULTS``), request-path
-watchdog (:mod:`.watchdog`) and the one emission schema they share
-(:mod:`.emit`). Retry policies, guards, cluster membership and chaos
-campaigns are not ported yet."""
+watchdog (:mod:`.watchdog`), retry policies (:mod:`.retry`) and the one
+emission schema they share (:mod:`.emit`). Guards, cluster membership
+and chaos campaigns are not ported yet."""

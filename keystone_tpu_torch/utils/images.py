@@ -49,15 +49,16 @@ def conv2d_separable(images, kernel_x, kernel_y) -> torch.Tensor:
     channel: ``kernel_x`` (kx,) along W, then ``kernel_y`` (ky,) along H,
     on (N, H, W, C) images. Each pass is one cuDNN cross-correlation with
     the reversed kernel (a true convolution), padded ``(k-1)//2`` before
-    and ``k//2`` after, so an even kernel keeps the size too. Full f32:
-    cuDNN's TF32 is off for both passes."""
-    from keystone_tpu_torch.ops.linear import _conv_precision
+    and ``k//2`` after, so an even kernel keeps the size too. Full f32
+    whatever precision flags the process holds: both passes run in the
+    full-f32 scope (TF32 off on cuDNN, IEEE on oneDNN)."""
+    from keystone_tpu_torch.ops.linear import _matmul_precision
 
     kx = torch.as_tensor(kernel_x, dtype=images.dtype, device=images.device).flip(0)
     ky = torch.as_tensor(kernel_y, dtype=images.dtype, device=images.device).flip(0)
     n, h, w, c = images.shape
     x = images.permute(0, 3, 1, 2).reshape(n * c, 1, h, w)
-    with _conv_precision("highest"):
+    with _matmul_precision("highest"):
         x = F.conv2d(F.pad(x, _pad(kx)), kx.reshape(1, 1, 1, -1))  # along W
         x = F.conv2d(F.pad(x, (0, 0) + _pad(ky)), ky.reshape(1, 1, -1, 1))  # along H
     return x.reshape(n, c, h, w).permute(0, 2, 3, 1)

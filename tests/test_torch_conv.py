@@ -122,27 +122,31 @@ def test_flat_patches_match_jax():
 def test_precision_scopes_the_cudnn_flag(monkeypatch):
     """cuDNN reads its own TF32 flag: a Convolver asking for less than full
     f32 turns it on for its convolution and restores it; None and
-    "highest" keep it off."""
+    "highest" keep it off, and oneDNN's convolution stays IEEE. The flags
+    are read through the ``fp32_precision`` API the scope sets them by
+    (torch's legacy getters refuse a state the new API wrote)."""
     seen = []
     conv2d = torch.nn.functional.conv2d
+    b = torch.backends
 
     def spy(*a, **kw):
-        seen.append((torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()))
+        seen.append((b.cudnn.conv.fp32_precision, b.cuda.matmul.fp32_precision,
+                     b.mkldnn.conv.fp32_precision))
         return conv2d(*a, **kw)
 
     monkeypatch.setattr(torch.nn.functional, "conv2d", spy)
     monkeypatch.delenv("KEYSTONE_MATMUL_PRECISION", raising=False)
     before = torch.backends.cudnn.allow_tf32
     filters = torch.ones((2, 12))
-    for precision, tf32 in ((None, False), ("highest", False), ("high", True),
-                            ("default", True)):
+    for precision, cuda in ((None, "ieee"), ("highest", "ieee"), ("high", "tf32"),
+                            ("default", "tf32")):
         seen.clear()
         images.Convolver(filters=filters, patch_size=2, precision=precision)(torch.ones((1, 5, 5, 3)))
-        assert [s[0] for s in seen] == [tf32], precision
+        assert seen == [(cuda, cuda, "ieee")], precision
         assert torch.backends.cudnn.allow_tf32 == before
     seen.clear()
     utils.conv2d_separable(torch.ones((1, 5, 5, 2)), [1.0, 2.0], [1.0])
-    assert seen == [(False, "highest")] * 2
+    assert seen == [("ieee", "ieee", "ieee")] * 2
     assert torch.backends.cudnn.allow_tf32 == before
 
 
@@ -150,24 +154,24 @@ def test_precision_scopes_do_not_interleave_across_threads():
     """Two threads' scopes run one after the other: a full-f32 scope that
     starts while a TF32 scope is open waits for it, sees the flag off, and
     the flag ends as it began (interleaved, the second scope would save
-    the first's True and restore it)."""
+    the first's TF32 and restore it)."""
     import threading
 
-    from keystone_tpu_torch.ops.linear import _conv_precision
+    from keystone_tpu_torch.ops.linear import _matmul_precision
 
     before = torch.backends.cudnn.allow_tf32
     opened, release, entered = threading.Event(), threading.Event(), threading.Event()
     seen = []
 
     def tf32_scope():
-        with _conv_precision("high"):
+        with _matmul_precision("high"):
             opened.set()
             release.wait(10)
 
     def f32_scope():
-        with _conv_precision(None):
+        with _matmul_precision(None):
             entered.set()
-            seen.append(torch.backends.cudnn.allow_tf32)
+            seen.append(torch.backends.cudnn.conv.fp32_precision)
 
     a = threading.Thread(target=tf32_scope)
     a.start()
@@ -180,7 +184,7 @@ def test_precision_scopes_do_not_interleave_across_threads():
         release.set()
         a.join(10)
         b.join(10)
-    assert seen == [False]
+    assert seen == ["ieee"]
     assert torch.backends.cudnn.allow_tf32 == before
 
 
@@ -329,3 +333,65 @@ def test_planner_applies_the_conv_rule_and_counts_plan_rewrites():
     assert counter.value == before + 1
     torch.testing.assert_close(plan.execute(pipe, x, device=torch.device("cpu")),
                                pipe(torch.from_numpy(x)), rtol=0, atol=1e-4)
+
+
+# every process-wide float32 precision flag as (backend, op), parents
+# first: a parent's set writes into its operators
+FP32_FLAGS = [("generic", "all"), ("cuda", "all"), ("mkldnn", "all"), ("cuda", "matmul"),
+              ("cuda", "conv"), ("cuda", "rnn"), ("mkldnn", "matmul"), ("mkldnn", "conv"),
+              ("mkldnn", "rnn")]
+
+
+def _fp32_flags():
+    return [torch._C._get_fp32_precision_getter(*f) for f in FP32_FLAGS]
+
+
+@pytest.fixture
+def restore_fp32_flags():
+    """Put every float32 precision flag back as the test found it."""
+    saved = _fp32_flags()
+    yield
+    for flag, value in zip(FP32_FLAGS, saved):
+        torch._C._set_fp32_precision_setter(*flag, value)
+
+
+def _set_adverse(kind):
+    b = torch.backends
+    if kind == "onednn_conv_bf16":  # 2.4e-3 to 4e-3 of max on a CPU with AMX-BF16
+        b.mkldnn.conv.fp32_precision = "bf16"
+    elif kind == "onednn_matmul_bf16":
+        b.mkldnn.matmul.fp32_precision = "bf16"
+    elif kind == "generic_bf16":
+        b.fp32_precision = "bf16"
+    elif kind == "tf32_everywhere":
+        b.fp32_precision = "tf32"
+    elif kind == "mixed_apis":  # the legacy getters raise in this state
+        torch.set_float32_matmul_precision("medium")
+        b.mkldnn.conv.fp32_precision = "bf16"
+        b.cudnn.conv.fp32_precision = "ieee"
+    else:
+        raise AssertionError(kind)
+
+
+@pytest.mark.parametrize(
+    "kind", ["onednn_conv_bf16", "onednn_matmul_bf16", "generic_bf16", "tf32_everywhere",
+             "mixed_apis"])
+def test_full_f32_scope_holds_under_adverse_precision_state(kind, monkeypatch, restore_fp32_flags):
+    """``precision=None`` is full f32 whatever float32 precision state the
+    process was left in: the Convolver (the random-patch workload's case)
+    and ``conv2d_separable`` hold 1e-5 of max against the JAX package
+    with each adverse flag set, and the scope leaves the flags as it
+    found them."""
+    monkeypatch.delenv("KEYSTONE_MATMUL_PRECISION", raising=False)
+    x, filters, means = _conv_inputs(102, 3, 32, 32, 3, 6, 64, True)
+    want = np.asarray(j_images.Convolver(filters=jnp.asarray(filters),
+                                         whitener_means=jnp.asarray(means),
+                                         patch_size=6)(jnp.asarray(x)))
+    a, b = np.random.default_rng(1).normal(size=(2, 7)).astype(np.float32)
+    want_sep = np.asarray(j_utils.conv2d_separable(jnp.asarray(x), a, b))
+    _set_adverse(kind)
+    adverse = _fp32_flags()
+    got = convert.convolver(filters, means, device="cpu", patch_size=6)(torch.from_numpy(x))
+    assert _rel(got.numpy(), want) <= TOL
+    assert _rel(utils.conv2d_separable(torch.from_numpy(x), a, b).numpy(), want_sep) <= TOL
+    assert _fp32_flags() == adverse

@@ -1165,11 +1165,12 @@ def test_convolver_on_card_matches_cpu(card, impl):
     want = node(torch.from_numpy(x))
     dev = images.Convolver(filters=node.filters.to(card), whitener_means=node.whitener_means.to(card),
                            impl=impl)
+    before = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = True  # the node must scope it off itself
     try:
         got = dev(torch.from_numpy(x).to(card)).cpu()
     finally:
-        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = before
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
     fused = images.FusedConvRectifyPool(filters=dev.filters, whitener_means=dev.whitener_means,
                                         alpha=0.25)
@@ -1189,12 +1190,13 @@ def test_conv2d_separable_on_card_is_full_f32(card):
     x = rng.uniform(0, 255, size=(8, 64, 64, 3)).astype(np.float32)
     kx, ky = rng.normal(size=9).astype(np.float32), rng.normal(size=6).astype(np.float32)
     want = conv2d_separable(torch.from_numpy(x), kx, ky)
+    before = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = True
     try:
         got = conv2d_separable(torch.from_numpy(x).to(card), kx, ky).cpu()
         assert torch.backends.cudnn.allow_tf32
     finally:
-        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = before
     assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
 
 
@@ -1250,3 +1252,92 @@ def test_conv_and_text_workloads_on_card(card):
     assert res["test_error"] <= 0.05
     res = newsgroups_pipeline.main(["--synthetic", "2000", "--corenlp"], device="cuda")
     assert res["device"].startswith("cuda") and res["test_error"] <= 0.05
+
+
+def _quantized_agree(got, want, min_equal=0.999):
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1.0
+    assert float((got == want).float().mean()) >= min_equal
+
+
+@pytest.mark.parametrize("hw,scales", [(64, 3), (256, 5)])
+def test_sift_on_card_matches_cpu(card, hw, scales):
+    """Descriptors on the card against the CPU's on the same images: the
+    float stages within 1e-5 of max, the quantized output within ±1
+    everywhere and ≥ 99.9 % equal (``floor(512·v)`` flips at rounding
+    edges)."""
+    from keystone_tpu_torch.ops import sift
+
+    x = torch.from_numpy(np.random.default_rng(hw).uniform(0, 1, (3, hw, hw)).astype(np.float32))
+    planes = sift._orientation_planes(x)
+    planes_card = sift._orientation_planes(x.to(card)).cpu()
+    assert float((planes_card - planes).abs().max()) <= 1e-5 * float(planes.abs().max())
+    desc = sift._scale_descriptors(x, 6, 3, 2)
+    desc_card = sift._scale_descriptors(x.to(card), 6, 3, 2).cpu()
+    assert float((desc_card - desc).abs().max()) <= 1e-5 * float(desc.abs().max())
+    ext = sift.SIFTExtractor(num_scales=scales)
+    _quantized_agree(ext(x.to(card)).cpu(), ext(x))
+
+
+@pytest.mark.parametrize("name", ["synthetic", "voc000012"])
+def test_sift_goldens_on_card(card, name):
+    import pathlib
+
+    from keystone_tpu_torch.ops import sift
+
+    goldens = pathlib.Path(__file__).parent / "goldens"
+    golden = np.loadtxt(goldens / f"sift_{name}.csv", delimiter=",")
+    img = np.loadtxt(goldens / f"sift_{name}_input.csv", delimiter=",").astype(np.float32)
+    header = (goldens / f"sift_{name}.csv").read_text().splitlines()[0]
+    p = dict(kv.split("=") for kv in header.lstrip("# ").split() if "=" in kv)
+    ext = sift.SIFTExtractor(step=int(p["step"]), bin_size=int(p["bin_size"]),
+                             num_scales=int(p["num_scales"]), scale_step=int(p["scale_step"]))
+    out = ext(torch.from_numpy(img)[None].to(card))[0].T.cpu().numpy()
+    assert out.shape == golden.shape
+    assert (np.abs(out - golden) <= 1.0).mean() >= 0.995
+
+
+def test_gmm_em_and_fisher_on_card_match_cpu(card):
+    """EM from one start for 10 iterations, with cuBLAS's TF32 switched on
+    around the call (the E and M products must scope it off): means
+    within 1e-4 of max|mean| of the CPU's; the Fisher vectors of the
+    fitted model within 1e-5 of max|f|."""
+    from keystone_tpu_torch.ops import gmm
+
+    rng = np.random.default_rng(2)
+    centers = rng.normal(scale=3.0, size=(12, 16))
+    x = torch.from_numpy((centers[rng.integers(0, 12, 20000)]
+                          + rng.normal(size=(20000, 16))).astype(np.float32))
+    init = gmm.gmm_init(x, 8, seed=1, var_floor=gmm.VAR_FLOOR)
+    want = gmm.gmm_em(x, *init, 10)
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = [a.cpu() for a in gmm.gmm_em(x.to(card), *(a.to(card) for a in init), 10)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    model = gmm.GaussianMixtureModel(*want)
+    desc = torch.from_numpy(rng.normal(size=(4, 16, 300)).astype(np.float32))
+    fv = gmm.FisherVector(gmm=model)(desc)
+    fv_card = gmm.FisherVector(gmm=gmm.GaussianMixtureModel(*(a.to(card) for a in want)))(
+        desc.to(card)).cpu()
+    assert float((fv_card - fv).abs().max()) <= 1e-5 * float(fv.abs().max())
+
+
+def test_voc_on_card_matches_cpu(card, tmp_path):
+    """``voc_sift_fisher.run`` on the card and on the CPU from the same PCA
+    and GMM artifacts (the CPU run writes them): mAPs within 1e-4."""
+    from keystone_tpu_torch.models import voc_sift_fisher as voc
+
+    files = dict(pca_file=str(tmp_path / "pca.csv"), gmm_mean_file=str(tmp_path / "m.csv"),
+                 gmm_var_file=str(tmp_path / "v.csv"), gmm_wt_file=str(tmp_path / "w.csv"))
+    conf = voc.VOCConfig(synthetic=24, image_size=64, sift_scales=2, desc_dim=16, vocab_size=4,
+                         num_pca_samples=2000, num_gmm_samples=1000, lam=5.0, block_size=512,
+                         chunk_size=8, **files)
+    cpu = voc.run(conf, device="cpu")
+    dev = voc.run(conf, device="cuda")
+    assert dev["device"].startswith("cuda") and cpu["train_map"] > 0.3
+    assert abs(dev["train_map"] - cpu["train_map"]) <= 1e-4
+    assert abs(dev["test_map"] - cpu["test_map"]) <= 1e-4

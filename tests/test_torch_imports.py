@@ -87,6 +87,16 @@ for extra in ([], ["--corenlp"]):
     res = newsgroups_pipeline.main(["--synthetic", "40"] + extra, device="cpu")
     assert res["n_train"] == 40 and res["vocab_size"] > 0
 assert stupid_backoff_pipeline.main(["--synthetic", "40"])["num_ngrams"] > 0
+from keystone_tpu_torch.evaluation import binary, mean_ap
+from keystone_tpu_torch.loaders import image_loaders
+from keystone_tpu_torch.models import fisher_common, voc_sift_fisher
+from keystone_tpu_torch.ops import gmm, sift
+from keystone_tpu_torch.resilience import retry
+from keystone_tpu_torch.utils import stats
+res = voc_sift_fisher.main(["--synthetic", "16", "--image-size", "32", "--sift-scales", "1",
+                            "--desc-dim", "8", "--vocab-size", "2", "--num-pca-samples", "500",
+                            "--num-gmm-samples", "300", "--chunk-size", "8"], device="cpu")
+assert res["n_train"] == 16 and res["device"] == "cpu"
 import numpy as np
 from keystone_tpu_torch import observe, resilience
 from keystone_tpu_torch.observe import events, health, schema, spans, telemetry
@@ -196,11 +206,12 @@ def _constructors():
 
     from keystone_tpu_torch import convert
     from keystone_tpu_torch.models import (cifar_linear_pixels, cifar_random, cifar_random_patch,
-                                           newsgroups_pipeline, vit_ridge)
+                                           fisher_common, newsgroups_pipeline, vit_ridge,
+                                           voc_sift_fisher)
     from keystone_tpu_torch.models import mnist_random_fft as m
     from keystone_tpu_torch.models import timit_pipeline as tm
     from keystone_tpu_torch.core.pipeline import Identity
-    from keystone_tpu_torch.ops import linear, moe, stats, vit
+    from keystone_tpu_torch.ops import gmm, linear, moe, stats, vit
     from keystone_tpu_torch.parallel import shard_batch
     from keystone_tpu_torch.serve import server
     from keystone_tpu_torch.serve.export import export_pipeline
@@ -243,6 +254,11 @@ def _constructors():
         "convert.zca_whitener": lambda: convert.zca_whitener(z, z[0]),
         "convert.pca_transformer": lambda: convert.pca_transformer(z),
         "convert.naive_bayes_model": lambda: convert.naive_bayes_model(z[0], z),
+        "voc_sift_fisher.main": lambda: voc_sift_fisher.main(["--synthetic", "8"]),
+        "FisherBranch": lambda: fisher_common.FisherBranch(2, 2, 10, 10, 0),
+        "GaussianMixtureModel.load_csv": lambda: gmm.GaussianMixtureModel.load_csv("m", "v", "w"),
+        "convert.gmm": lambda: convert.gmm(z, z, z[0]),
+        "convert.pca_matrix": lambda: convert.pca_matrix(z),
     }
 
 

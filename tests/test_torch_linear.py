@@ -166,12 +166,19 @@ def test_block_widths_and_split():
 
 
 def test_matmul_precision_knob(monkeypatch):
+    """The env knob's names map as ``torch.set_float32_matmul_precision``
+    maps them (read through the ``fp32_precision`` API the scope sets
+    them by); the flags end as they began."""
+    b = torch.backends
     before = torch.get_float32_matmul_precision()
     monkeypatch.setenv("KEYSTONE_MATMUL_PRECISION", "default")
     with tl._matmul_precision(None):
-        assert torch.get_float32_matmul_precision() == "medium"
+        assert (b.cuda.matmul.fp32_precision, b.mkldnn.matmul.fp32_precision) == ("tf32", "bf16")
     with tl._matmul_precision("highest"):
-        assert torch.get_float32_matmul_precision() == "highest"
+        assert (b.cuda.matmul.fp32_precision, b.mkldnn.matmul.fp32_precision) == ("ieee", "ieee")
+    monkeypatch.delenv("KEYSTONE_MATMUL_PRECISION")
+    with tl._matmul_precision(None):
+        assert (b.cuda.matmul.fp32_precision, b.mkldnn.matmul.fp32_precision) == ("ieee", "ieee")
     assert torch.get_float32_matmul_precision() == before
     with pytest.raises(ValueError):
         with tl._matmul_precision("bogus"):
