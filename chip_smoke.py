@@ -190,8 +190,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    blocks of 4,096) on 1,024 + 256 synthetic images: load, SIFT, PCA, GMM,
    Fisher, featurize, fit, test and total s, samples/s, peak memory,
    train mAP > 0.3 (the JAX package's gate) and no hand kernel launched;
-   10 EM iterations on the run's own GMM sample from the CPU's start,
-   card against CPU: means within 1e-3 of max|mean|; the card's PCA of the
+   10 EM iterations on the first 250,000 rows of the run's own GMM sample
+   from the CPU's start, card against CPU: means within 1e-3 of
+   max|mean|; the card's PCA of the
    run's sample against the CPU's by the projector onto its subspace; the
    JAX package's test configuration on the card and on the CPU from one
    set of artifacts: Fisher features within 1e-4 of max|f|, mAPs within
@@ -201,6 +202,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    of the orientation planes' passes; the card's descriptors against the
    CPU's (all within ±1, ≥ 99.9 % equal) and both goldens on the card
    (≥ 99.5 % within ±1).
+
+32. ImageNet SIFT + LCS Fisher vectors at ``ImageNetConfig``'s widths
+   (desc 64, vocab 16, 5 SIFT scales, LCS stride 4, border 16, patch 6,
+   λ 6e-5, mixture weight 0.25, blocks of 4,096, chunks of 32; D = 4,096
+   features): ``imagenet_sift_lcs_fv.main`` eager on 1,024 + 256
+   synthetic images of 8 classes (test top-1 error ≤ 5 %), then
+   ``--streaming`` with ``KEYSTONE_PLAN=1`` on 4,096 + 1,024 images of
+   1,000 classes (the solver at (D, C) = (4,096, 1,000); the planner's fit
+   decisions and ``plan_featurize_passes_saved``); load, SIFT, LCS, PCA,
+   GMM, Fisher, fit and test s, samples/s, peak memory; no hand kernel
+   launched in either. A small configuration: LCS on the card within
+   1e-5 of max of the CPU's, each branch's Fisher features from one set
+   of descriptors and artifacts within 1e-4 of max|f| or 4 times what a
+   1e-7 relative nudge of the descriptors moves the CPU's, where that is
+   more;
+33. the class-weighted solver alone at ``bench.py``'s two shapes
+   (``bench_weighted``: N 32,768, D 1,024, C 147, 2 passes;
+   ``weighted_imagenet_problem``: N 16,384, D 4,096, C 1,000, 1 pass): fit
+   s, TFLOP/s by ``bench.py``'s count, the path taken, the class-chunk
+   count, peak memory; the card's weights within 1e-4 of max|W| of the
+   CPU's at reduced shapes taking the grid Woodbury, grid dense and
+   masked paths.
 
 Phase 7 also holds K2 with its lse against its plain version at the train
 steps' shapes, (8, 16, 2,048, 64) and (1, 8, 16,384, 64), bf16 causal.
@@ -3117,6 +3140,7 @@ VOC_TINY = dict(synthetic=24, image_size=64, sift_scales=2, desc_dim=16, vocab_s
 VOC_TINY_FEAT_TOL = 1e-4  # of max|f|, Fisher features on the card against the CPU
 VOC_TINY_MAP_TOL = 1e-4
 VOC_EM_ITERS = 10
+VOC_EM_ROWS = 250_000  # the CPU's EM check runs on the sample's first rows
 VOC_EM_TOL = 1e-3  # of max|mean|, the card's EM against the CPU's from one start
 SIFT_N, SIFT_HW = 16, 256  # bench.py's bench_sift shape (SIFT_N, SIFT_HW)
 SIFT_MIN_EQUAL = 0.999  # card against CPU: ≥ 99.9 % of entries equal, all within ±1
@@ -3179,8 +3203,9 @@ def phase_voc(device) -> dict:
     check(res["train_map"] > VOC_MIN_TRAIN_MAP, f"VOC train mAP {res['train_map']}")
     check(not any(counts.values()), f"a hand kernel launched on the VOC path: {counts}")
 
-    # EM from one start on the run's own GMM sample, card against CPU
-    x = kept.pop("gmm_sample")
+    # EM from one start on the first rows of the run's own GMM sample, card
+    # against CPU (the CPU's iterations are the cost: 13.7 s each at 1e6 rows)
+    x = kept.pop("gmm_sample")[:VOC_EM_ROWS]
     x_cpu = x.cpu()
     init = gmm.gmm_init(x_cpu, conf.vocab_size, seed=42, var_floor=gmm.VAR_FLOOR)
     t0 = time.perf_counter()
@@ -3306,6 +3331,246 @@ def phase_sift_bench(device) -> dict:
             "card_vs_cpu_max_diff": max_diff, "goldens_within_1": goldens}
 
 
+# --- phases 32-33: the ImageNet SIFT + LCS Fisher workload at ImageNetConfig's
+# widths (desc 64, vocab 16, 5 SIFT scales, LCS stride 4, border 16, patch 6,
+# λ 6e-5, mixture weight 0.25, blocks of 4,096, chunks of 32: D = 2 branches ×
+# 2·64·16 = 4,096 features), and the weighted solver at bench.py's two shapes
+IMNET_ARGV = ["--synthetic", "1024"]  # 1,024 + 256 images, 8 classes (the default)
+IMNET_MAX_TOP1 = 0.05  # the synthetic classes are far apart
+IMNET_STREAM_ARGV = ["--synthetic", "4096", "--synthetic-classes", "1000", "--streaming"]
+IMNET_FEATURES = 2 * 2 * 64 * 16
+# a small configuration, featurized on the card and on the CPU from one set of
+# descriptors and artifacts
+IMNET_TINY = dict(synthetic=48, synthetic_classes=4, desc_dim=8, vocab_size=4,
+                  num_pca_samples=2000, num_gmm_samples=1000, image_size=64, chunk_size=8,
+                  stream_batch=16)
+# the card's Fisher features against the CPU's, of max|f|: 1e-4, or 4 times
+# what a 1e-7 relative (f32 round-off) perturbation of the descriptors moves
+# the CPU's own features, where that is more. The projection is of
+# uncentred descriptors (as in the reference), so a coordinate with a
+# large common offset and a small spread loses digits to cancellation: at
+# the small configuration the LCS branch moves 1.5e-3 under it (CPU).
+IMNET_TINY_FEAT_TOL = 1e-4
+IMNET_EPS_PERTURB = 1e-7
+IMNET_FLOOR_MARGIN = 4.0
+LCS_TOL = 1e-5  # of max, LCS descriptors on the card against the CPU
+# bench.py:538 bench_weighted (TIMIT's class count) and :580
+# weighted_imagenet_problem (ImageNet's solver block and class count)
+WEIGHTED_BENCH = {
+    "bench_weighted": dict(seed=3, n=32_768, d=1024, c=147, num_iter=2, class_chunk=16),
+    "weighted_imagenet": dict(seed=5, n=16_384, d=4096, c=1000, num_iter=1, class_chunk=64),
+}
+# reduced shapes that take each solve path, the card's weights against the CPU's
+WEIGHTED_CHECKS = {
+    "grid_woodbury": dict(seed=11, n=4096, d=512, c=32, num_iter=2, class_chunk=16),
+    "grid_dense": dict(seed=12, n=4096, d=128, c=8, num_iter=2, class_chunk=4),
+    "masked": dict(seed=13, n=2048, d=96, c=6, num_iter=1, class_chunk=4, dominant=0.85),
+}
+WEIGHTED_TOL = 1e-4  # of max|W| (intercepts: of max(max|W|, max|b|), as tests/test_torch_weighted.py)
+
+
+def imagenet_small_checks(device) -> dict:
+    """Phase 32's small configuration, card against CPU: LCS descriptors;
+    each branch's Fisher features from one set of CPU descriptors, the
+    branch fitted on the CPU (writing the PCA and GMM artifacts) and
+    loaded on the card, held to :data:`IMNET_TINY_FEAT_TOL` or to
+    :data:`IMNET_FLOOR_MARGIN` times the CPU's own move under a
+    :data:`IMNET_EPS_PERTURB` relative perturbation of the descriptors;
+    and ``run`` on both (errors printed)."""
+    import tempfile
+
+    from keystone_tpu_torch.core.kernels import BUILD_DIR
+    from keystone_tpu_torch.models import fisher_common
+    from keystone_tpu_torch.models import imagenet_sift_lcs_fv as imnet
+    from keystone_tpu_torch.ops.lcs import LCSExtractor
+
+    conf = imnet.ImageNetConfig(**IMNET_TINY)
+    images = torch.from_numpy(imnet._load(conf, "train")[0].images)
+    lcs_err = _rel(LCSExtractor()(images.to(device) / 255.0).cpu(), LCSExtractor()(images / 255.0))
+    _, _, sift_fn, lcs_fn = imnet._extractors(conf)
+    gen = torch.Generator().manual_seed(0)
+    branches = {}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        for name, fn in (("sift", sift_fn), ("lcs", lcs_fn)):
+            desc = fn(images)
+            files = [os.path.join(tmp, f"{name}_{k}.csv") for k in ("pca", "m", "v", "w")]
+            feats = {}
+            for dev in ("cpu", device):
+                branch = fisher_common.FisherBranch(
+                    conf.desc_dim, conf.vocab_size, conf.num_pca_samples, conf.num_gmm_samples,
+                    conf.seed, pca_file=files[0], gmm_files=tuple(files[1:]), device=dev)
+                branch.fit(desc.to(dev), conf.chunk_size)
+                feats[str(dev)] = branch.featurize(desc.to(dev), conf.chunk_size).cpu()
+                if dev == "cpu":
+                    nudged = desc * (1 + IMNET_EPS_PERTURB * torch.randn(desc.shape, generator=gen))
+                    feats["nudged"] = branch.featurize(nudged, conf.chunk_size)
+            floor = _rel(feats["nudged"], feats["cpu"])
+            err = _rel(feats[str(device)], feats["cpu"])
+            tol = max(IMNET_TINY_FEAT_TOL, IMNET_FLOOR_MARGIN * floor)
+            branches[name] = {"max_rel_err": err, "eps_floor": floor, "tol": tol}
+    tiny_cpu, tiny_card = imnet.run(conf, device="cpu"), imnet.run(conf, device="cuda")
+    errors = {k: (tiny_card[k], tiny_cpu[k]) for k in ("train_top1_error", "test_top1_error",
+                                                      "test_top5_error")}
+    print(f"  small configuration: LCS card vs CPU {lcs_err:.3e} of max; Fisher features from "
+          f"one set of descriptors and artifacts, card vs CPU (and the CPU's move under a "
+          f"{IMNET_EPS_PERTURB:g} relative nudge of the descriptors) {branches}; errors "
+          f"(card, CPU) {errors}")
+    check(lcs_err <= LCS_TOL, f"LCS on the card differs from the CPU's by {lcs_err:.3e}")
+    for name, b in branches.items():
+        check(b["max_rel_err"] <= b["tol"], f"ImageNet {name} features differ by {b}")
+    return {"lcs_max_rel_err": lcs_err, "fisher_features": branches, "errors_card_cpu": errors}
+
+
+def phase_imagenet(device) -> dict:
+    """Phase 32: ``imagenet_sift_lcs_fv`` at ``ImageNetConfig``'s widths.
+    (a) ``run``, eager, on 1,024 + 256 synthetic images of 8 classes:
+    top-1 error ≤ 5 %, the parts' seconds, samples/s, peak memory;
+    (b) ``run_streaming`` with ``KEYSTONE_PLAN=1`` on 4,096 + 1,024 images
+    of 1,000 classes, the solver at (D, C) = (4,096, 1,000): the
+    planner's fit decisions, ``plan_featurize_passes_saved``, both
+    errors. No hand kernel launches in either leg. Then a small
+    configuration: LCS on the card against the CPU, the Fisher features
+    from one set of descriptors and artifacts on both, and ``run`` on
+    both."""
+    from keystone_tpu_torch.models import imagenet_sift_lcs_fv as imnet
+    from keystone_tpu_torch.observe import metrics
+    from keystone_tpu_torch.ops import weighted_linear
+
+    legs = {}
+    for name, argv in (("eager", IMNET_ARGV), ("streaming_planned", IMNET_STREAM_ARGV)):
+        planned = name == "streaming_planned"
+        os.environ["KEYSTONE_PLAN"] = "1" if planned else "0"
+        saved = metrics.get_registry().counter("plan_featurize_passes_saved")
+        saved_before = saved.value
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        try:
+            res = imnet.main(list(argv), device="cuda")
+            torch.cuda.synchronize()
+        finally:
+            os.environ.pop("KEYSTONE_PLAN", None)
+        counts = _counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        times = {k: round(v, 3) for k, v in res.items() if k.endswith("_s")}
+        print(f"ImageNet SIFT+LCS FV {argv}: train top-1/top-5 error "
+              f"{res['train_top1_error']:.4f}/{res['train_top5_error']:.4f}, test "
+              f"{res['test_top1_error']:.4f}/{res['test_top5_error']:.4f}; seconds {times}; "
+              f"{res['samples_per_s']:.1f} samples/s; peak memory {peak_gb:.2f} GiB; features "
+              f"{res['num_features']}; launches {counts}")
+        check(res["device"].startswith("cuda"), f"ImageNet ran on {res['device']}")
+        check(res["num_features"] == IMNET_FEATURES, f"ImageNet features {res['num_features']}")
+        check(not any(counts.values()), f"a hand kernel launched on the ImageNet path: {counts}")
+        leg = {"run": _rows(res), "peak_mem_gib": peak_gb, "launches": counts}
+        if planned:
+            decisions = res["fit_decisions"]
+            passes_saved = saved.value - saved_before
+            print(f"  the planner's fit decisions: {decisions}; "
+                  f"plan_featurize_passes_saved +{passes_saved}")
+            check(passes_saved == 1, f"plan_featurize_passes_saved moved by {passes_saved}")
+            check(any(d["action"] in ("fit_fallback", "fuse_fit") for d in decisions),
+                  f"no fit decision recorded: {decisions}")
+            state = weighted_linear.BlockWeightedLeastSquaresEstimator.fit_stats_state_bytes(
+                IMNET_FEATURES, 1000)
+            leg.update(fit_decisions=decisions, passes_saved=passes_saved,
+                       state_gb=state / 1e9)
+        else:
+            check(res["test_top1_error"] <= IMNET_MAX_TOP1,
+                  f"ImageNet test top-1 error {res['test_top1_error']}")
+        legs[name] = leg
+
+    return {"legs": legs, "tiny": imagenet_small_checks(device)}
+
+
+def weighted_problem(seed, n, d, c, dominant=None, **_):
+    """``bench.py``'s weighted-solver data (:538, :580): class centers plus
+    unit noise, ±1 indicators; ``dominant`` puts that share of the rows in
+    class 0 (the masked layout)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cls = rng.integers(0, c, size=n)
+    if dominant is not None:
+        cls[: int(dominant * n)] = 0
+    centers = rng.normal(size=(c, d)).astype(np.float32)
+    data = (centers[cls] + rng.normal(size=(n, d))).astype(np.float32)
+    labels = -np.ones((n, c), np.float32)
+    labels[np.arange(n), cls] = 1.0
+    return torch.from_numpy(data), torch.from_numpy(labels), cls
+
+
+def weighted_flops(n, d, c, num_iter, cls) -> float:
+    """``bench.py``'s FLOP count of a weighted fit (:566-570, :607-611):
+    the population and class Grams, the Woodbury prep and G, and a pass's
+    residual products and per-class solves."""
+    import numpy as np
+
+    l_pad = max(-(-int(np.bincount(cls).max()) // 64) * 64, 64)
+    lp1 = l_pad + 1
+    setup = 2 * n * d * d * 2 + 2 * c * d * d * lp1 + 2 * c * d * lp1**2
+    per_pass = 2 * n * d * c + 8 * c * d * d
+    return setup + num_iter * per_pass
+
+
+def phase_weighted(device) -> dict:
+    """Phase 33: the weighted solver alone at ``bench_weighted``'s and
+    ``weighted_imagenet_problem``'s shapes: fit s (one warm fit, then the
+    mean of timed ones), TFLOP/s by ``bench.py``'s count, the path taken,
+    the class-chunk count, peak memory; then the card's weights against
+    the CPU's at reduced shapes that take each path."""
+    from keystone_tpu_torch.ops import weighted_linear as wl
+
+    out = {}
+    for name, shape in WEIGHTED_BENCH.items():
+        x, y, cls = weighted_problem(**shape)
+        est = wl.BlockWeightedLeastSquaresEstimator(
+            block_size=shape["d"], num_iter=shape["num_iter"], lam=1e-3, mixture_weight=0.5,
+            class_chunk=shape["class_chunk"])
+        path = wl.fit_path(est, y, shape["d"])
+        xd, yd = x.to(device), y.to(device)
+        del x, y
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        est.fit(xd, yd)
+        fit_s = _wall(lambda: est.fit(xd, yd), 2)
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        counts = _counts()
+        flops = weighted_flops(shape["n"], shape["d"], shape["c"], shape["num_iter"], cls)
+        print(f"weighted fit {name} (N {shape['n']}, D {shape['d']}, C {shape['c']}, "
+              f"{shape['num_iter']} passes): {fit_s:.4f} s, {flops / fit_s / 1e12:.2f} TFLOP/s of "
+              f"{flops / 1e12:.3f} TFLOP; path {path}; peak memory {peak_gb:.2f} GiB; "
+              f"launches {counts}")
+        check(not any(counts.values()), f"a hand kernel launched in the weighted fit: {counts}")
+        out[name] = {**shape, "fit_s": fit_s, "tflop": flops / 1e12,
+                     "tflops_per_s": flops / fit_s / 1e12, "path": path, "peak_mem_gib": peak_gb}
+        del xd, yd
+
+    checks = {}
+    for name, shape in WEIGHTED_CHECKS.items():
+        x, y, _ = weighted_problem(**shape)
+        est = wl.BlockWeightedLeastSquaresEstimator(
+            block_size=shape["d"], num_iter=shape["num_iter"], lam=1e-3, mixture_weight=0.5,
+            class_chunk=shape["class_chunk"])
+        path = wl.fit_path(est, y, shape["d"])
+        want = est.fit(x, y)
+        got = est.fit(x.to(device), y.to(device))
+        x_w, x_g = torch.cat(want.xs), torch.cat(got.xs).cpu()
+        scale = float(x_w.abs().max())
+        err = float((x_g - x_w).abs().max()) / scale
+        b_err = float((got.b.cpu() - want.b).abs().max()) / max(scale, float(want.b.abs().max()))
+        checks[name] = {"path": path, "max_rel_err": err, "intercept_max_rel_err": b_err}
+        print(f"  weighted {name} {path}: card vs CPU weights {err:.3e} of max|W|, intercepts "
+              f"{b_err:.3e} of max(max|W|, max|b|)")
+        err = max(err, b_err)
+        check(err <= WEIGHTED_TOL, f"weighted {name}: the card's weights differ by {err:.3e}")
+    check({c["path"]["layout"] for c in checks.values()} == {"grid", "masked"}
+          and {b["solve"] for c in checks.values() for b in c["path"]["blocks"]}
+          >= {"woodbury", "dense_hoisted"}, f"the checks missed a path: {checks}")
+    return {"bench": out, "card_vs_cpu": checks}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available")
@@ -3427,6 +3692,9 @@ def main() -> None:
     voc_path = phase_voc(device)
     voc_path["sift_at_bench_shape"] = phase_sift_bench(device)
     print(json.dumps({"voc_path": {"card": smi, **voc_path}}))
+    imagenet = phase_imagenet(device)
+    imagenet["weighted_solver"] = phase_weighted(device)
+    print(json.dumps({"imagenet_path": {"card": smi, **imagenet}}))
 
     summary = {
         "card": smi,

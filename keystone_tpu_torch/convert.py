@@ -28,6 +28,7 @@ from keystone_tpu_torch.ops.linear import BlockLinearMapper, LinearMapper, Norma
 from keystone_tpu_torch.ops.naive_bayes import NaiveBayesModel
 from keystone_tpu_torch.ops.moe import MoELayer
 from keystone_tpu_torch.ops.vit import ViTBlock, ViTFeaturizer
+from keystone_tpu_torch.ops.weighted_linear import WeightedEqState
 from keystone_tpu_torch.ops.quantization import QTensor
 from keystone_tpu_torch.ops.stats import (
     CosineRandomFeatures,
@@ -137,6 +138,36 @@ def normal_eq_state(
         atb=_t(atb, device),
         mean_a=_t(mean_a, device),
         mean_b=_t(mean_b, device),
+        n=_t(n, device),
+    )
+
+
+def block_weighted_mapper(
+    xs: Sequence[np.ndarray],
+    b: np.ndarray,
+    *,
+    block_size: int = 4096,
+    device: torch.device | str | None = None,
+) -> BlockLinearMapper:
+    """The :class:`BlockLinearMapper` a weighted fit returns, from its
+    per-block weights and (C,) intercept (it carries no feature means)."""
+    return block_linear_mapper(xs, b, None, block_size=block_size, device=device)
+
+
+def weighted_eq_state(
+    ata, at_labels, class_ata, class_sum, sum_a, n_c, n, *,
+    device: torch.device | str | None = None,
+) -> WeightedEqState:
+    """A :class:`WeightedEqState` from the accumulated per-class
+    statistics, leaf for leaf."""
+    device = resolve_device(device)
+    return WeightedEqState(
+        ata=_t(ata, device),
+        at_labels=_t(at_labels, device),
+        class_ata=_t(class_ata, device),
+        class_sum=_t(class_sum, device),
+        sum_a=_t(sum_a, device),
+        n_c=_t(n_c, device),
         n=_t(n, device),
     )
 

@@ -45,6 +45,27 @@ def default_stage_depth() -> int:
     return _DEFAULT_DEPTH
 
 
+ENV_TUNE = "KEYSTONE_TUNE"
+
+
+def tune_active():
+    """The active autotuner, or None: the one gate the tuner-fed paths
+    share (the ingest frontier reads it). ``None`` unless
+    ``KEYSTONE_TUNE`` is set or a tuner module was loaded. The port has no
+    tuner yet, so ``KEYSTONE_TUNE`` raises rather than run untuned."""
+    import sys
+
+    mod = sys.modules.get("keystone_tpu_torch.plan.tune")
+    if mod is not None:
+        return mod.active()
+    if os.environ.get(ENV_TUNE, "").strip():
+        raise NotImplementedError(
+            f"{ENV_TUNE} asks for the autotuner, which waits for plan/tune.py "
+            "(ROADMAP A8)"
+        )
+    return None
+
+
 def tree_map(fn: Callable, tree: Any) -> Any:
     """Apply ``fn`` to every array leaf of a tensor / tuple / list tree."""
     if isinstance(tree, (tuple, list)):

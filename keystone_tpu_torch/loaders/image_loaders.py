@@ -1,6 +1,6 @@
 """Tar/JPEG image ingestion — port of ``keystone_tpu/loaders/
-image_loaders.py``'s VOC half (the reference's ImageLoaderUtils.scala and
-VOCLoader.scala); the ImageNet loaders are not ported yet.
+image_loaders.py`` (the reference's ImageLoaderUtils.scala, VOCLoader.scala
+and ImageNetLoader.scala).
 
 Tars are streamed on the host with Python's tarfile and PIL (imported
 where an image is decoded), decoded in parallel by threads (PIL's JPEG
@@ -218,4 +218,48 @@ def load_voc(
     labels = -np.ones((len(names), max(k, 1)), np.int32)
     for i, ls in enumerate(labels_ragged):
         labels[i, : len(ls)] = ls
+    return LabeledImages(labels=labels, images=images)
+
+
+def load_class_map(class_map_path: str) -> dict[str, int]:
+    """Parse a "synset class_index" map file (the reference's
+    ImageNetLoader)."""
+    class_map: dict[str, int] = {}
+    with open(class_map_path) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) >= 2:
+                class_map[parts[0]] = int(parts[1])
+    return class_map
+
+
+def make_synset_label_of(class_map: dict[str, int]):
+    """name → class index: the synset prefix of the basename, else the
+    parent directory's name; −1 when unmapped."""
+
+    def label_of(name: str) -> int:
+        base = os.path.basename(name)
+        synset = base.split("_")[0]
+        if synset in class_map:
+            return class_map[synset]
+        parent = os.path.basename(os.path.dirname(name))
+        return class_map.get(parent, -1)
+
+    return label_of
+
+
+def load_imagenet(
+    tar_path: str, class_map_path: str, *, target_size: int | None = 256
+) -> LabeledImages:
+    """ImageNet tar(s) + "synset class_index" map file → labeled images
+    (the reference's ImageNetLoader: the label from the entry name's
+    synset through the map). Images with no map entry are dropped with a
+    warning: a −1 label would wrap to the last class in the indicators."""
+    label_of = make_synset_label_of(load_class_map(class_map_path))
+    names, images = load_tar_images(_expand(tar_path, ".tar"), target_size)
+    labels = np.asarray([label_of(n) for n in names], np.int32)
+    unmapped = labels < 0
+    if unmapped.any():
+        _logger().warning("dropping %d images with no class-map entry", int(unmapped.sum()))
+        labels, images = labels[~unmapped], images[~unmapped]
     return LabeledImages(labels=labels, images=images)

@@ -36,20 +36,47 @@ class BatchPCATransformer(Transformer):
         return torch.einsum("dk,ndm->nkm", self.pca_mat.to(batch.dtype), batch)
 
 
-def _svd(a: torch.Tensor):
-    """``torch.linalg.svd(a, full_matrices=False)``. On the card through
+# rows × columns of the largest matrix handed to one cuSOLVER ``gesvd`` call:
+# 1e6 × 128 ran (chip_smoke.py phase 30), 1e7 × 128 was refused in the
+# call's workspace query (CUSOLVER_STATUS_INVALID_VALUE, phase 32, NVIDIA
+# H100 80GB HBM3, 700 W)
+_GESVD_MAX_ELEMENTS = 1 << 27
+
+
+def _stacked_r(a: torch.Tensor, block_rows: int) -> torch.Tensor:
+    """A matrix with ``a``'s singular values and right singular vectors
+    and at most ``block_rows`` rows: the R factors of row blocks' QRs,
+    stacked, and again until few enough rows are left (TSQR: AᵀA = RᵀR
+    for the stack of the blocks' Rs). ``block_rows`` ≥ 2·columns, so that
+    each round halves the rows at least."""
+    if block_rows < 2 * a.shape[1]:
+        raise ValueError(f"block_rows {block_rows} < 2 × {a.shape[1]} columns")
+    while a.shape[0] > block_rows:
+        a = torch.cat([torch.linalg.qr(a[i : i + block_rows], mode="r").R
+                       for i in range(0, a.shape[0], block_rows)])
+    return a
+
+
+def _svd_s_vt(a: torch.Tensor):
+    """The singular values and right singular vectors (``s``, ``vt``) of
+    ``torch.linalg.svd(a, full_matrices=False)``. On the card through
     cuSOLVER's ``gesvd`` (QR iteration, LAPACK's algorithm), not torch's
     default Jacobi driver, whose looser stop left the random-patch filters
     built on the card 2.2e-5 of max|filters| from the CPU's where
     ``gesvd`` leaves 4.7e-6 (``chip_smoke.py`` phase 27 on an NVIDIA H100
     80GB HBM3 at 700 W). ``gesvd`` wants rows ≥ columns: a wide matrix
-    goes through its transpose."""
+    goes through its transpose; a tall one past ``_GESVD_MAX_ELEMENTS``
+    through :func:`_stacked_r` first, as LAPACK's ``gesvd`` itself takes a
+    QR first for a tall matrix."""
     if not a.is_cuda:
-        return torch.linalg.svd(a, full_matrices=False)
+        _, s, vt = torch.linalg.svd(a, full_matrices=False)
+        return s, vt
     if a.shape[0] < a.shape[1]:
-        u, s, vt = torch.linalg.svd(a.T, full_matrices=False, driver="gesvd")
-        return vt.T, s, u.T
-    return torch.linalg.svd(a, full_matrices=False, driver="gesvd")
+        u, s, _ = torch.linalg.svd(a.T, full_matrices=False, driver="gesvd")
+        return s, u.T
+    a = _stacked_r(a, max(_GESVD_MAX_ELEMENTS // a.shape[1], 2 * a.shape[1]))
+    _, s, vt = torch.linalg.svd(a, full_matrices=False, driver="gesvd")
+    return s, vt
 
 
 def compute_pca(data, dims: int) -> torch.Tensor:
@@ -58,7 +85,7 @@ def compute_pca(data, dims: int) -> torch.Tensor:
     largest-magnitude entry positive."""
     data = torch.as_tensor(data)
     centered = data - data.mean(dim=0)
-    _, _, vt = _svd(centered)
+    _, vt = _svd_s_vt(centered)
     pca = vt.T
     col_max = pca.max(dim=0).values
     col_abs_max = pca.abs().max(dim=0).values
@@ -94,7 +121,7 @@ class ZCAWhitener(Transformer):
 @dataclasses.dataclass(eq=False)
 class ZCAWhitenerEstimator(Estimator):
     """``W = V diag((s²/(n−1) + eps)^-½) Vᵀ`` from the thin SVD of the
-    centred sample (:func:`_svd`). W does not depend on the singular
+    centred sample (:func:`_svd_s_vt`). W does not depend on the singular
     vectors' signs."""
 
     eps: float = 0.1
@@ -103,7 +130,7 @@ class ZCAWhitenerEstimator(Estimator):
         data = torch.as_tensor(data)
         means = data.mean(dim=0)
         n = data.shape[0]
-        _, s, vt = _svd(data - means)
+        s, vt = _svd_s_vt(data - means)
         scale = torch.rsqrt(s * s / (n - 1.0) + self.eps)
         return ZCAWhitener(whitener=(vt.T * scale) @ vt, means=means)
 

@@ -47,36 +47,44 @@ def _row_mask(n_rows: int, n_valid, dtype, device) -> torch.Tensor:
 
 
 def _cholesky_or_nan(m: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor of ``m``; all-NaN when ``m`` is not positive
-    definite (the failure signal the JAX reference's factor gives)."""
+    """Lower Cholesky factor of each matrix of ``m`` (leading axes batch);
+    all-NaN where a matrix is not positive definite (the failure signal
+    the JAX reference's factor gives)."""
     c, info = torch.linalg.cholesky_ex(m)
-    if int(info) != 0:
-        return torch.full_like(m, float("nan"))
-    return c
+    return torch.where((info != 0)[..., None, None], float("nan"), c)
 
 
 def _cho_factor_escalating(m: torch.Tensor, jitter: float, max_steps: int = 5):
     """Cholesky with an escalating jitter floor: factor ``m + j·I``,
     multiplying ``j`` by 32 until the factor is NaN-free (rank-deficient
-    Grams can be INDEFINITE at the f32 noise level). Returns the (lower
-    factor, jitter used) pair."""
-    eye = torch.eye(m.shape[0], dtype=m.dtype, device=m.device)
-    j = jitter
-    c = _cholesky_or_nan(m + j * eye)
-    steps = 0
-    while bool(torch.isnan(c).any()) and steps < max_steps:
-        j *= 32.0
-        c = _cholesky_or_nan(m + j * eye)
-        steps += 1
-    return c, j
+    Grams can be INDEFINITE at the f32 noise level). Leading axes of ``m``
+    batch: each matrix escalates on its own, as the reference's vmapped
+    while loop does. Returns the (lower factor, jitter used) pair, the
+    jitter a float for one matrix and a tensor for a batch."""
+    eye = torch.eye(m.shape[-1], dtype=m.dtype, device=m.device)
+    j = torch.full(m.shape[:-2], jitter, dtype=m.dtype, device=m.device)
+    c = _cholesky_or_nan(m + jitter * eye)
+    for _ in range(max_steps):
+        bad = torch.isnan(c).flatten(-2).any(-1)
+        if not bool(bad.any()):
+            break
+        if m.ndim == 2:
+            j = j * 32.0
+            c = _cholesky_or_nan(m + j * eye)
+            continue
+        idx = bad.nonzero(as_tuple=True)
+        j[idx] *= 32.0
+        c[idx] = _cholesky_or_nan(m[idx] + j[idx][..., None, None] * eye)
+    return c, (float(j) if m.ndim == 2 else j)
 
 
 def ridge_factor(ata: torch.Tensor, lam, jitter: float = 1e-6):
     """Equilibrated escalating-jitter Cholesky of ``AᵀA + λI`` as
-    ``(lower factor, inv_s)`` — hoisted out of BCD's pass loop."""
-    inv_s = torch.rsqrt(torch.clamp_min(torch.diagonal(ata), 1e-30))
-    m = ata * (inv_s[:, None] * inv_s[None, :])
-    m = m + torch.diag(lam * inv_s * inv_s)
+    ``(lower factor, inv_s)`` — hoisted out of BCD's pass loop. Leading
+    axes of ``ata`` batch (one factor per matrix)."""
+    inv_s = torch.rsqrt(torch.clamp_min(torch.diagonal(ata, dim1=-2, dim2=-1), 1e-30))
+    m = ata * (inv_s[..., :, None] * inv_s[..., None, :])
+    m = m + torch.diag_embed(lam * inv_s * inv_s)
     c, _ = _cho_factor_escalating(m, jitter)
     return c, inv_s
 
@@ -84,11 +92,11 @@ def ridge_factor(ata: torch.Tensor, lam, jitter: float = 1e-6):
 def ridge_solve_prefactored(factor, ata, atb, lam, refine: int = 2):
     """Solve with a :func:`ridge_factor` result; refinement targets the
     ORIGINAL system, recovering what the equilibrated/jittered factor
-    loses."""
+    loses. Batched factors take batched ``ata`` and ``atb``."""
     c, inv_s = factor
 
     def solve_prec(rhs):
-        return inv_s[:, None] * torch.cholesky_solve(rhs * inv_s[:, None], c)
+        return inv_s[..., :, None] * torch.cholesky_solve(rhs * inv_s[..., :, None], c)
 
     x = solve_prec(atb)
     for _ in range(refine):

@@ -4,7 +4,8 @@
 - :mod:`.costs` — sampled per-node costs and the device peak table;
 - :mod:`.passes` — rewrite rules, chunk-size and staging selection;
 - :mod:`.fused_fit` — the fused streaming normal-equations fit;
-- :mod:`.executor` — chunked planned apply and the streamed fit.
+- :mod:`.executor` — chunked planned apply, the streamed fit and the
+  shared-prefix apply.
 
 Entry points::
 
@@ -29,7 +30,7 @@ import torch
 from keystone_tpu_torch.core.pipeline import Transformer
 from keystone_tpu_torch.plan import costs as _costs
 from keystone_tpu_torch.plan import passes as _passes
-from keystone_tpu_torch.plan.executor import fit_stream, run_plan
+from keystone_tpu_torch.plan.executor import apply_shared, fit_stream, run_plan, shared_prefix_nodes
 from keystone_tpu_torch.plan.fused_fit import fit_streaming, plan_fit
 from keystone_tpu_torch.plan.ir import NodeCost, Plan, PlanNode, chain_from
 
@@ -45,6 +46,8 @@ __all__ = [
     "plan_fit",
     "execute",
     "fit_stream",
+    "apply_shared",
+    "shared_prefix_nodes",
     "fit_streaming",
     "run_plan",
     "enabled",

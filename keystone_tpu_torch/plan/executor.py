@@ -8,7 +8,9 @@ pass (:func:`run_plan`) and fused streaming fit (:func:`fit_stream`).
   sink's ``featurize → fit_stats_update`` step, with the int8 Gram (K1)
   when the planner chose it, and returns the accumulated state;
 - :func:`serve_stream` drains a served batch larger than the biggest
-  bucket through the bucket's program in staged chunks.
+  bucket through the bucket's program in staged chunks;
+- :func:`shared_prefix_nodes` and :func:`apply_shared`: the per-chunk
+  form of prefix sharing, one prefix apply feeding several branches.
 
 The metrics counters, spans and telemetry rows of the JAX executor's
 apply and fit passes are not wired yet; ``plan.decisions`` keep the
@@ -18,7 +20,7 @@ record. :func:`serve_stream` records the reference's.
 from __future__ import annotations
 
 import time
-from typing import Any, Callable
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
@@ -75,6 +77,65 @@ def _prefix_nodes(chain) -> list[Any]:
     if isinstance(prefix, Pipeline):
         return list(prefix.nodes)
     return [prefix]
+
+
+def shared_prefix_nodes(chains: Sequence[Any]) -> list[Any]:
+    """The longest common (by object identity) leading node run across
+    the chains' prefixes."""
+    node_lists = [_prefix_nodes(c) for c in chains]
+    shared: list[Any] = []
+    for nodes in zip(*node_lists):
+        if all(n is nodes[0] for n in nodes):
+            shared.append(nodes[0])
+        else:
+            break
+    return shared
+
+
+def apply_shared(
+    prefix_fn: Callable,
+    branch_fns: Sequence[Callable],
+    data,
+    *,
+    chunk_size: int,
+    device=None,
+    mesh: Any = None,
+    stage_depth: int | None = None,
+) -> list:
+    """Chunked shared-prefix apply: for each fixed-size chunk run
+    ``prefix_fn`` ONCE and feed its output to every branch (e.g.
+    pixel-scaled images feeding both the SIFT and the LCS branch), so the
+    shared intermediate never materializes corpus-wide. Returns one
+    concatenated output per branch, on the device. Chunks go through the
+    staging engine on ``device`` (the card unless the caller asks for
+    the CPU; with a ``mesh``, its data device, the chunk rounded up to
+    its data axis). Each call with more than one branch counts
+    ``plan_shared_prefix_applies``."""
+    from keystone_tpu_torch.core.runtime import resolve_device
+    from keystone_tpu_torch.core.staging import run_staged
+
+    target = chunk_size
+    if mesh is not None:
+        from keystone_tpu_torch.parallel.mesh import data_sharding, shard_chunk_size
+
+        target = shard_chunk_size(chunk_size, mesh)
+        device = data_sharding(mesh)
+    device = resolve_device(device)
+
+    def chunks():
+        for start in range(0, data.shape[0], target):
+            yield pad_to_chunk(data[start : start + target], target)
+
+    def all_branches(chunk):
+        shared = prefix_fn(chunk)
+        return tuple(fn(shared) for fn in branch_fns)
+
+    per_chunk = list(run_staged(chunks(), all_branches, device, stage_depth=stage_depth))
+    if len(branch_fns) > 1:
+        # the unit is one chunked apply that shared a prefix; the
+        # corpus-level passes-saved count belongs to the caller
+        _metrics.get_registry().counter("plan_shared_prefix_applies").inc()
+    return [torch.cat([chunk[j] for chunk in per_chunk], dim=0) for j in range(len(branch_fns))]
 
 
 def fit_stream(plan: Plan, data: Any, labels: Any, *, n_valid=None):

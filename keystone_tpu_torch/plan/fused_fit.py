@@ -13,7 +13,8 @@ Port of ``keystone_tpu/plan/fused_fit.py``:
   :func:`keystone_tpu_torch.ops.gram.ata_int8`) when the probe's
   quantization error clears the threshold AND the device's int8 rate beats
   fp32, or when ``KEYSTONE_GRAM_OP=int8`` asks for it — else the exact
-  fp32 Gram; a ``fit_operator`` decision records it either way.
+  fp32 Gram; a ``fit_operator`` decision records it either way. The
+  class-weighted solver always gets fp32 (``exact_per_class_grams``).
 
 Entry points::
 
@@ -35,6 +36,7 @@ from keystone_tpu_torch.core.pipeline import (
     Transformer,
     node_label,
 )
+from keystone_tpu_torch.observe import metrics as _metrics
 from keystone_tpu_torch.plan.ir import NodeCost, Plan, PlanNode
 from keystone_tpu_torch.plan.passes import rewrite_rule
 
@@ -109,21 +111,26 @@ def _hstack_host(feats: Any) -> np.ndarray:
 
 
 def _choose_gram(
-    plan: Plan, probe_feats: Any, requested: str | None
+    plan: Plan, est: Any, probe_feats: Any, requested: str | None
 ) -> tuple[str, float | None]:
     """Operator selection for the Gram accumulation: int8 only when the
-    request (argument > ``KEYSTONE_GRAM_OP``) allows it, the probe's
-    quantization error clears the threshold, and the device's int8 rate
-    actually beats fp32. Every branch records the same ``fit_operator``
-    decision shape."""
+    request (argument > ``KEYSTONE_GRAM_OP``) allows it, the estimator
+    takes a ``gram_fn`` (the weighted solver's per-class Grams stay
+    exact), the probe's quantization error clears the threshold, and the
+    device's int8 rate actually beats fp32. Every branch records the
+    same ``fit_operator`` decision shape and counts ``plan_fit_operator``."""
     from keystone_tpu_torch.ops import gram as _gram
+    from keystone_tpu_torch.ops.weighted_linear import BlockWeightedLeastSquaresEstimator
     from keystone_tpu_torch.plan.costs import int8_gram_speedup
 
     request = (requested or _gram.gram_op_request()).lower()
+    exact_only = isinstance(est, BlockWeightedLeastSquaresEstimator)
     threshold = _gram.int8_error_threshold()
     speedup = int8_gram_speedup(plan.device_kind)
     err: float | None = None
-    if request == "fp32":
+    if exact_only:
+        op, reason = "fp32", "exact_per_class_grams"
+    elif request == "fp32":
         op, reason = "fp32", "requested"
     else:
         # gate on the operand the operator will actually see: the update
@@ -146,6 +153,7 @@ def _choose_gram(
         threshold=threshold,
         int8_speedup=speedup,
     )
+    _metrics.get_registry().counter("plan_fit_operator", op=op).inc()
     return op, err
 
 
@@ -208,13 +216,20 @@ def plan_fit(
     k = int(labels.shape[-1])
     info.d, info.k, info.widths = d, k, widths
 
-    # state-residency guard: the accumulated stats must themselves fit
+    # state-residency guard: the accumulated stats must themselves fit,
+    # and so must what the finalize builds from them where the estimator
+    # prices that (the weighted solver's per-class systems are C·d²
+    # again: at ImageNet's (D, C) = (4,096, 1,000) the 67 GB state alone
+    # would pass an 80 GB card, the fit would not)
     state_bytes = int(est.fit_stats_state_bytes(d, k))
-    if state_bytes > plan.budget_bytes:
+    peak = getattr(est, "fit_stats_peak_bytes", None)
+    peak_bytes = int(peak(d, k)) if peak is not None else state_bytes
+    if peak_bytes > plan.budget_bytes:
         plan.decide(
             "fit_fallback",
             reason="state_over_budget",
             state_bytes=state_bytes,
+            peak_bytes=peak_bytes,
             budget_bytes=plan.budget_bytes,
         )
         return plan
@@ -253,7 +268,7 @@ def plan_fit(
         )
         return plan
 
-    op, err = _choose_gram(plan, probe_feats, gram)
+    op, err = _choose_gram(plan, est, probe_feats, gram)
     fused_sink = dataclasses.replace(fused_sink, gram=op)
     plan.prefix[-1].op = fused_sink
     info.fused, info.gram, info.quant_error = True, op, err
@@ -289,13 +304,17 @@ def fit_streaming(
 ):
     """Fit a chained label estimator through the planned fused streaming
     path; returns the fitted :class:`Pipeline` (the contract of
-    ``chain.fit``). When the plan can't fuse, the classic materialized fit
-    runs on ``device`` instead, with the fallback recorded in the plan."""
+    ``chain.fit``). When the plan can't fuse — an estimator without the
+    protocol, a non-row-wise prefix, a state over the memory budget — the
+    classic materialized fit runs on ``device`` instead, with the
+    fallback recorded as a plan decision and counted under
+    ``plan_fit_materialized`` (the fused path never touches it)."""
     from keystone_tpu_torch.core.staging import to_device
 
     plan = plan_fit(chain, data, labels, device=device, n_valid=n_valid, **kw)
     info: FitPlanInfo = plan.fit
     if not info.fused:
+        _metrics.get_registry().counter("plan_fit_materialized").inc()
         fit_kw = {} if n_valid is None else {"n_valid": n_valid}
         fitted = chain.fit(
             to_device(data, device), to_device(labels, device), **fit_kw

@@ -7,6 +7,8 @@ Tolerances: float32 products and sums taken in another order, 1e-5 of
 max|out| (the two packages read about 1e-7 to 1e-6); data movement and
 max pooling, exactly."""
 
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -23,7 +25,7 @@ from keystone_tpu.utils import images as j_utils  # noqa: E402
 from keystone_tpu_torch import convert  # noqa: E402
 from keystone_tpu_torch.core import fusion  # noqa: E402
 from keystone_tpu_torch.observe import events, metrics  # noqa: E402
-from keystone_tpu_torch.ops import images  # noqa: E402
+from keystone_tpu_torch.ops import images, linear  # noqa: E402
 from keystone_tpu_torch.plan import passes  # noqa: E402
 from keystone_tpu_torch.utils import images as utils  # noqa: E402
 
@@ -346,13 +348,31 @@ def _fp32_flags():
     return [torch._C._get_fp32_precision_getter(*f) for f in FP32_FLAGS]
 
 
+def _fp32_state():
+    """The whole float32 precision state: torch's legacy matmul-precision
+    string, which torch keeps apart from the flags, then every flag."""
+    return torch.get_float32_matmul_precision(), _fp32_flags()
+
+
+@contextlib.contextmanager
+def _fp32_state_restored():
+    """Put the whole float32 precision state back as it was found: the
+    legacy string first, since its setter writes flags (``medium`` sets
+    oneDNN's matmul to bf16), then the nine flags over it."""
+    legacy, saved = _fp32_state()
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(legacy)
+        for flag, value in zip(FP32_FLAGS, saved):
+            torch._C._set_fp32_precision_setter(*flag, value)
+
+
 @pytest.fixture
 def restore_fp32_flags():
-    """Put every float32 precision flag back as the test found it."""
-    saved = _fp32_flags()
-    yield
-    for flag, value in zip(FP32_FLAGS, saved):
-        torch._C._set_fp32_precision_setter(*flag, value)
+    """Put the whole float32 precision state back as the test found it."""
+    with _fp32_state_restored():
+        yield
 
 
 def _set_adverse(kind):
@@ -395,3 +415,20 @@ def test_full_f32_scope_holds_under_adverse_precision_state(kind, monkeypatch, r
     assert _rel(got.numpy(), want) <= TOL
     assert _rel(utils.conv2d_separable(torch.from_numpy(x), a, b).numpy(), want_sep) <= TOL
     assert _fp32_flags() == adverse
+
+
+def test_fixture_puts_back_the_whole_precision_state():
+    """``restore_fp32_flags`` and ``test_torch_flash.fresh_state``'s scope
+    leave no precision state behind: after the ``mixed_apis`` state is set
+    and undone, the legacy string and every flag read as before, and a
+    CPU float32 product holds 1e-6 of max against float64 (oneDNN's bf16
+    reads about 1e-3)."""
+    before = _fp32_state()
+    with _fp32_state_restored():
+        _set_adverse("mixed_apis")
+    with linear._matmul_precision("highest"):  # what fresh_state enters
+        pass
+    assert _fp32_state() == before
+    a, b = np.random.default_rng(3).normal(size=(2, 256, 256)).astype(np.float32)
+    got = (torch.from_numpy(a) @ torch.from_numpy(b)).numpy()
+    assert _rel(got, a.astype(np.float64) @ b.astype(np.float64)) <= 1e-6

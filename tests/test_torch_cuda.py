@@ -1341,3 +1341,115 @@ def test_voc_on_card_matches_cpu(card, tmp_path):
     assert dev["device"].startswith("cuda") and cpu["train_map"] > 0.3
     assert abs(dev["train_map"] - cpu["train_map"]) <= 1e-4
     assert abs(dev["test_map"] - cpu["test_map"]) <= 1e-4
+
+
+def _weighted_data(seed, n, d, c, dominant=None):
+    rng = np.random.default_rng(seed)
+    cls = rng.integers(0, c, size=n)
+    if dominant is not None:
+        cls[: int(dominant * n)] = 0
+        rng.shuffle(cls)
+    a = ((rng.normal(size=(c, d)) * 2)[cls] + rng.normal(size=(n, d))).astype(np.float32)
+    y = -np.ones((n, c), np.float32)
+    y[np.arange(n), cls] = 1.0
+    return torch.from_numpy(a), torch.from_numpy(y)
+
+
+@pytest.mark.parametrize(
+    "n,d,c,block,iters,dominant,solve",
+    [
+        (400, 160, 8, 160, 3, None, "woodbury"),
+        (2000, 256, 6, 128, 1, None, "dense"),
+        (2000, 256, 6, 128, 3, None, "dense_hoisted"),
+        (300, 24, 4, 12, 2, 0.85, "dense_hoisted"),  # the masked layout
+    ],
+)
+def test_weighted_fit_on_card_matches_cpu(card, n, d, c, block, iters, dominant, solve):
+    """The weighted fit on the card against the CPU's on the same rows,
+    with cuBLAS's TF32 switched on around the call (the solver's scope
+    must hold full f32): weights and intercept within 1e-4 of max|W|."""
+    from keystone_tpu_torch.ops import weighted_linear as wl
+
+    a, y = _weighted_data(n + d, n, d, c, dominant)
+    est = wl.BlockWeightedLeastSquaresEstimator(block_size=block, num_iter=iters, lam=0.1,
+                                                mixture_weight=0.25, class_chunk=4)
+    assert {b["solve"] for b in wl.fit_path(est, y, d)["blocks"]} == {solve}
+    want = est.fit(a, y)
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = est.fit(a.to(card), y.to(card))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    x_w, x_g = torch.cat(want.xs), torch.cat(got.xs).cpu()
+    scale = float(x_w.abs().max())
+    assert float((x_g - x_w).abs().max()) <= 1e-4 * scale
+    assert float((got.b.cpu() - want.b).abs().max()) <= 1e-4 * max(scale, float(want.b.abs().max()))
+
+
+def test_weighted_fit_stats_on_card_match_cpu(card):
+    from keystone_tpu_torch.ops import weighted_linear as wl
+
+    a, y = _weighted_data(5, 900, 48, 5)
+    est = wl.BlockWeightedLeastSquaresEstimator(block_size=16, num_iter=2, lam=0.3)
+    models = []
+    for dev in ("cpu", card):
+        state = est.fit_stats_init(48, 5, device=dev)
+        for s in range(0, 900, 256):
+            state = est.fit_stats_update(state, a[s : s + 256].to(dev), y[s : s + 256].to(dev))
+        models.append(est.fit_stats_finalize(state))
+    x_w, x_g = torch.cat(models[0].xs), torch.cat(models[1].xs).cpu()
+    assert float((x_g - x_w).abs().max()) <= 1e-4 * float(x_w.abs().max())
+
+
+def test_lcs_hog_daisy_on_card_match_cpu(card):
+    """The descriptor stack's float outputs on the card within 1e-5 of
+    max of the CPU's on the same images."""
+    from keystone_tpu_torch.ops import daisy, hog, lcs
+
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.uniform(0, 1, (3, 96, 80, 3)).astype(np.float32))
+    for ext, inp in ((lcs.LCSExtractor(), x), (hog.HogExtractor(), x),
+                     (daisy.DaisyExtractor(), x[..., :1])):
+        want = ext(inp)
+        got = ext(inp.to(card)).cpu()
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max()), type(ext)
+
+
+def test_imagenet_streaming_on_card_matches_cpu(card):
+    """``featurize_stream`` on the card equals ``apply_in_chunks`` of the
+    same featurizer there; the ImageNet run on the card gives the CPU's
+    top-1 and top-5 errors at a tiny width (four far-apart synthetic
+    classes: each run fits its own PCA and GMM)."""
+    from keystone_tpu_torch.loaders import streaming
+    from keystone_tpu_torch.models import imagenet_sift_lcs_fv as imnet
+
+    conf = imnet.ImageNetConfig(synthetic=48, synthetic_classes=4, desc_dim=8, vocab_size=4,
+                                num_pca_samples=2000, num_gmm_samples=1000, image_size=64,
+                                chunk_size=8, stream_batch=16)
+    _, _, _, lcs_fn = imnet._extractors(conf)
+    batches = [b for b, _ in imnet.synthetic_source(conf, "train")()]
+    got = streaming.featurize_stream(iter(batches), lcs_fn, chunk_size=8, device=card)
+    want = torch.cat([apply_in_chunks(lcs_fn, b, 8, card) for b in batches]).cpu().numpy()
+    np.testing.assert_array_equal(got, want)
+    cpu = imnet.run(conf, device="cpu")
+    dev = imnet.run(conf, device="cuda")
+    assert dev["device"].startswith("cuda")
+    for key in ("train_top1_error", "test_top1_error", "test_top5_error"):
+        assert dev[key] == cpu[key], key
+
+
+def test_pca_of_a_tall_sample_on_card_matches_cpu(card):
+    """Past one ``gesvd`` call's size (2²⁷ elements) the card's PCA takes
+    a blockwise QR first: the projector onto its 8 leading directions
+    within 1e-4 of max of the CPU's (LAPACK's SVD of the whole sample)."""
+    from keystone_tpu_torch.ops import linalg
+
+    rng = np.random.default_rng(6)
+    n, d = (1 << 27) // 32 + 4099, 32
+    scales = np.concatenate([np.linspace(6.0, 2.0, 8), np.full(d - 8, 0.5)]).astype(np.float32)
+    x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32) * scales)
+    want = linalg.compute_pca(x, 8).double()
+    got = linalg.compute_pca(x.to(card), 8).double().cpu()
+    p_got, p_want = got @ got.T, want @ want.T
+    assert float((p_got - p_want).abs().max()) <= 1e-4 * float(p_want.abs().max())

@@ -20,6 +20,7 @@ from jax._src import compilation_cache  # noqa: E402
 from keystone_tpu.ops import attention as jattn  # noqa: E402
 from keystone_tpu.ops import flash_attention as jflash  # noqa: E402
 from keystone_tpu_torch.ops import attention, flash_attention as flash  # noqa: E402
+from keystone_tpu_torch.ops.linear import _matmul_precision  # noqa: E402
 
 F32_TOL = 1e-5
 # one bf16 step after an f32 sum taken in another order
@@ -38,8 +39,13 @@ def fresh_state(monkeypatch):
       and refit paths turn on for the whole process, in a directory that
       every worker of the run shares: off, so the reference is compiled
       here, not read from another process's entry;
-    - torch's default dtype and float32 matmul precision: float32 and
-      "highest"."""
+    - torch's default dtype: float32;
+    - every float32 precision flag: full f32, through the port's own
+      scope, which puts each flag back afterwards. Torch's legacy
+      getter and setter are not used: the legacy string they read and
+      write is kept apart from the flags, and writing back a string that
+      another test left (``medium``) would set oneDNN's matmul to bf16
+      for the rest of the process."""
     for name in list(os.environ):
         if name.startswith("KST_FLASH_") or name == "KST_LOCAL_ATTN":
             monkeypatch.delenv(name)
@@ -47,12 +53,11 @@ def fresh_state(monkeypatch):
     cache = (jax.config.jax_enable_compilation_cache, jax.config.jax_compilation_cache_dir)
     jax.config.update("jax_enable_compilation_cache", False)
     compilation_cache.reset_cache()
-    dtype, precision = torch.get_default_dtype(), torch.get_float32_matmul_precision()
+    dtype = torch.get_default_dtype()
     torch.set_default_dtype(torch.float32)
-    torch.set_float32_matmul_precision("highest")
-    yield
+    with _matmul_precision("highest"):
+        yield
     torch.set_default_dtype(dtype)
-    torch.set_float32_matmul_precision(precision)
     jax.config.update("jax_enable_compilation_cache", cache[0])
     jax.config.update("jax_compilation_cache_dir", cache[1])
     compilation_cache.reset_cache()

@@ -97,6 +97,18 @@ res = voc_sift_fisher.main(["--synthetic", "16", "--image-size", "32", "--sift-s
                             "--desc-dim", "8", "--vocab-size", "2", "--num-pca-samples", "500",
                             "--num-gmm-samples", "300", "--chunk-size", "8"], device="cpu")
 assert res["n_train"] == 16 and res["device"] == "cpu"
+from keystone_tpu_torch.loaders import imagenet_stream, streaming
+from keystone_tpu_torch.models import imagenet_sift_lcs_fv
+from keystone_tpu_torch.ops import daisy, hog, lcs, weighted_linear
+from keystone_tpu_torch.plan import apply_shared, shared_prefix_nodes
+imnet_argv = ["--synthetic", "16", "--synthetic-classes", "2", "--image-size", "32",
+              "--sift-scales", "1", "--desc-dim", "4", "--vocab-size", "2", "--lcs-border", "8",
+              "--num-pca-samples", "300", "--num-gmm-samples", "200", "--chunk-size", "8",
+              "--stream-batch", "8"]
+for plan, extra in (("0", []), ("1", ["--streaming"])):
+    os.environ["KEYSTONE_PLAN"] = plan
+    res = imagenet_sift_lcs_fv.main(imnet_argv + extra, device="cpu")
+    assert res["n_train"] == 16 and res["device"] == "cpu"
 import numpy as np
 from keystone_tpu_torch import observe, resilience
 from keystone_tpu_torch.observe import events, health, schema, spans, telemetry
@@ -208,8 +220,12 @@ def _constructors():
     from keystone_tpu_torch.models import (cifar_linear_pixels, cifar_random, cifar_random_patch,
                                            fisher_common, newsgroups_pipeline, vit_ridge,
                                            voc_sift_fisher)
+    from keystone_tpu_torch.loaders import streaming
+    from keystone_tpu_torch.models import imagenet_sift_lcs_fv
     from keystone_tpu_torch.models import mnist_random_fft as m
     from keystone_tpu_torch.models import timit_pipeline as tm
+    from keystone_tpu_torch.ops import weighted_linear
+    from keystone_tpu_torch.plan import apply_shared
     from keystone_tpu_torch.core.pipeline import Identity
     from keystone_tpu_torch.ops import gmm, linear, moe, stats, vit
     from keystone_tpu_torch.parallel import shard_batch
@@ -259,6 +275,17 @@ def _constructors():
         "GaussianMixtureModel.load_csv": lambda: gmm.GaussianMixtureModel.load_csv("m", "v", "w"),
         "convert.gmm": lambda: convert.gmm(z, z, z[0]),
         "convert.pca_matrix": lambda: convert.pca_matrix(z),
+        "imagenet_sift_lcs_fv.main": lambda: imagenet_sift_lcs_fv.main(["--synthetic", "8"]),
+        "imagenet_sift_lcs_fv.run_streaming": lambda: imagenet_sift_lcs_fv.run_streaming(
+            imagenet_sift_lcs_fv.ImageNetConfig(synthetic=8)),
+        "weighted_eq_init": lambda: weighted_linear.weighted_eq_init(3, 2),
+        "BlockWeightedLeastSquaresEstimator.fit_stats_init": lambda: (
+            weighted_linear.BlockWeightedLeastSquaresEstimator().fit_stats_init(3, 2)),
+        "convert.weighted_eq_state": lambda: convert.weighted_eq_state(
+            z, z, z[None], z, z[0], z[0], 1.0),
+        "convert.block_weighted_mapper": lambda: convert.block_weighted_mapper([z], z[0]),
+        "featurize_stream": lambda: streaming.featurize_stream(iter([z]), Identity(), chunk_size=2),
+        "apply_shared": lambda: apply_shared(Identity(), (Identity(),), z, chunk_size=2),
     }
 
 

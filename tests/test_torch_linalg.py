@@ -72,6 +72,25 @@ def test_pca_matches_jax_with_the_matlab_sign(n, d, dims):
     assert _rel(got, want) <= TOL
 
 
+@pytest.mark.parametrize("n,d,block", [(5000, 24, 300), (1000, 64, 128), (640, 8, 100)])
+def test_stacked_r_keeps_the_svd(n, d, block):
+    """The blockwise QR the card takes for a tall sample past one
+    ``gesvd`` call's size: the stacked Rs have at most ``block`` rows and
+    the sample's singular values (1e-5 of the largest) and right singular
+    subspace (the leading 4 directions' projector, 1e-5 of max)."""
+    x = torch.from_numpy(_sample(n + d, n, d))
+    x = x - x.mean(dim=0)
+    r = linalg._stacked_r(x, block)
+    assert r.shape[0] <= block and r.shape[1] == d
+    _, s_want, vt_want = torch.linalg.svd(x.double(), full_matrices=False)
+    _, s_got, vt_got = torch.linalg.svd(r.double(), full_matrices=False)
+    assert _rel(s_got, s_want) <= TOL
+    p_got, p_want = vt_got[:4].T @ vt_got[:4], vt_want[:4].T @ vt_want[:4]
+    assert _rel(p_got, p_want) <= TOL
+    with pytest.raises(ValueError, match="block_rows"):
+        linalg._stacked_r(x, d)
+
+
 def test_batch_pca_and_convert_match_jax():
     x = _sample(6, 400, 24)
     est = j_linalg.PCAEstimator(dims=5)
