@@ -225,6 +225,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    CPU's at reduced shapes taking the grid Woodbury, grid dense and
    masked paths.
 
+34. native host code built from the repository's C++ sources by ``g++``:
+   the port's CSV (5,000 MNIST-shaped rows) and CIFAR (10,000 records)
+   readers against their numpy paths, exactly; ``SIFTExtractor(backend=
+   "native")`` against the card's SIFT on 4 images of 256² (±1, ≥ 99.9 %
+   equal); the native EM (20,000 × 32, k 16, 10 iterations) and Fisher
+   vectors against the card's ``ops/gmm`` from the same start (EM 1e-3,
+   weights 1e-4, Fisher 5e-4 absolute); host ms of each; no hand kernel;
+35. the online-learning loop at the main path's width (MNIST random-FFT,
+   ``num_ffts`` 32, D = 16,384, ``KEYSTONE_GRAM_OP=int8``):
+   ``bootstrap_state`` on 40,000 rows, ``serve.server`` on the saved
+   checkpoint over HTTP, ``RefitDaemon.run_once`` folding four chunks of
+   5,000 rows and publishing, ``/admin/reload`` (the daemon's notify) and
+   SIGHUP swapping while six threads hammer ``/predict``: zero client
+   errors, ``model_swaps`` counting each swap, the served scores the
+   folded model's, the folded state (and its file) bit for bit a fresh
+   ``fit_stream`` of the same chunks, K1 once a fit chunk (5 + 4) and its
+   first launch bit for bit, a negated-labels shadow candidate refused
+   (409) and a clean one promoted (200); an fp32 leg whose published
+   weights lie within 1e-5 of max|W| of one fit over the union; fold ms,
+   publish s (finalize, state write), state bytes, swap ms (load, export,
+   capture), requests/s and p99, peak memory;
+36. checkpoint and resume: LM training at the flagship width, 8 steps with
+   a checkpoint every 4, uninterrupted, preempted by ``train.preempt``
+   after step 5 and resumed, stopped by a real SIGTERM
+   (``train.sigterm``) in a ``lm_transformer`` subprocess and resumed:
+   losses and every checkpointed leaf bit for bit (else within what two
+   uninterrupted runs differ by, measured); save s and bytes; TIMIT's
+   classic fit at phase 22's configuration with ``--checkpoint-every 1``,
+   2 of 5 epochs and then resumed, against an uninterrupted fit bit for
+   bit.
+
 Phase 7 also holds K2 with its lse against its plain version at the train
 steps' shapes, (8, 16, 2,048, 64) and (1, 8, 16,384, 64), bf16 causal.
 
@@ -3571,6 +3602,621 @@ def phase_weighted(device) -> dict:
     return {"bench": out, "card_vs_cpu": checks}
 
 
+# --- phases 34-36: native host code, online learning, checkpoint and resume ------
+NATIVE_CSV_ROWS = 5_000  # MNIST-shaped rows: a label and 784 pixel values
+NATIVE_CIFAR_RECORDS = 10_000  # one CIFAR-10 batch file
+NATIVE_SIFT_N, NATIVE_SIFT_HW = 4, 256
+NATIVE_GMM = dict(n=20_000, d=32, k=16, iters=10)
+NATIVE_FISHER_N, NATIVE_FISHER_M = 16, 1_000
+# tests/test_torch_native.py: native against the device paths
+NATIVE_EM_ATOL, NATIVE_W_ATOL, NATIVE_FV_ATOL = 1e-3, 1e-4, 5e-4
+
+REFIT_BOOT_ROWS = 40_000
+REFIT_CHUNK_ROWS, REFIT_CHUNKS = 5_000, 4
+REFIT_THREADS = 6
+REFIT_FP32_TOL = 1e-5  # of max|W|: the fp32 fold against one fit over the union
+REFIT_UNION_CHUNKS = (8192, 5000, 2048)  # row groupings of the fp32 union fits
+REFIT_SERVE_TOL = 1e-5  # of max|score|: served scores against the folded model, eager
+SHADOW_REQUESTS, SHADOW_MIN_SAMPLES = 24, 20
+
+RESUME_STEPS, RESUME_EVERY = 8, 4
+RESUME_PREEMPT_AT, RESUME_SIGTERM_AT = 4, 2  # fault keys: the step index they follow
+TIMIT_CKPT_ARGV = ["--synthetic", "32768"] + TIMIT_BANK + ["--checkpoint-every", "1"]
+TIMIT_CKPT_CRASH_EPOCHS = 2
+
+
+def _host_ms(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_native(device) -> dict:
+    """Phase 34: the host C++ paths built from the repository's sources —
+    the CSV and CIFAR readers against their numpy paths, native dense SIFT
+    against the card's, the native EM and Fisher vectors against the
+    card's ``ops/gmm`` from one start — each timed on the host."""
+    import tempfile
+
+    import numpy as np
+
+    from keystone_tpu_torch import native
+    from keystone_tpu_torch.core.kernels import BUILD_DIR
+    from keystone_tpu_torch.loaders import cifar
+    from keystone_tpu_torch.native import enceval
+    from keystone_tpu_torch.ops import gmm, sift
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    native.require_lib()
+    enceval.ENCEVAL_LIB.require()
+    res: dict = {"build_s": time.perf_counter() - t0,
+                 "openmp": {"io": native.IO_LIB.openmp, "enceval": enceval.ENCEVAL_LIB.openmp}}
+    print(f"native: host libraries built in {res['build_s']:.1f} s, OpenMP {res['openmp']}")
+    rng = np.random.default_rng(34)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        mat = np.concatenate([rng.integers(1, 11, (NATIVE_CSV_ROWS, 1)),
+                              rng.integers(0, 256, (NATIVE_CSV_ROWS, 784))], axis=1)
+        path = os.path.join(tmp, "mnist.csv")
+        np.savetxt(path, mat, fmt="%d", delimiter=",")
+        got, nat_ms = _host_ms(lambda: native.native_load_csv(path))
+        want, np_ms = _host_ms(lambda: np.loadtxt(path, delimiter=",", dtype=np.float32, ndmin=2))
+        check(got is not None and np.array_equal(got, want), "native CSV differs from np.loadtxt")
+        res["csv"] = {"rows": NATIVE_CSV_ROWS, "native_ms": nat_ms, "numpy_ms": np_ms}
+        recs = rng.integers(0, 256, (NATIVE_CIFAR_RECORDS, cifar.RECORD)).astype(np.uint8)
+        recs[:, 0] = rng.integers(0, 10, NATIVE_CIFAR_RECORDS)
+        path = os.path.join(tmp, "data_batch_1.bin")
+        recs.tofile(path)
+        got, nat_ms = _host_ms(lambda: native.native_load_cifar(path))
+        want, np_ms = _host_ms(lambda: cifar._read_numpy(path))
+        check(got is not None and all(np.array_equal(g, w) for g, w in zip(got, want)),
+              "native CIFAR differs from the numpy reader")
+        res["cifar"] = {"records": NATIVE_CIFAR_RECORDS, "native_ms": nat_ms, "numpy_ms": np_ms}
+    print(f"native: CSV {res['csv']['native_ms']:.1f} ms against numpy "
+          f"{res['csv']['numpy_ms']:.1f}; CIFAR {res['cifar']['native_ms']:.1f} ms against "
+          f"{res['cifar']['numpy_ms']:.1f} (equal)")
+
+    imgs = torch.from_numpy(rng.random((NATIVE_SIFT_N, NATIVE_SIFT_HW, NATIVE_SIFT_HW))
+                            .astype(np.float32)).to(device)
+    on_card = sift.SIFTExtractor()(imgs)
+    torch.cuda.synchronize()
+    ext = sift.SIFTExtractor(backend="native")
+    host, sift_ms = _host_ms(lambda: ext(imgs))
+    check(host.device == imgs.device, "native SIFT did not return on the caller's device")
+    diff = (host - on_card).abs()
+    equal = float((diff == 0).float().mean())
+    print(f"native SIFT {tuple(host.shape)}: {sift_ms:.1f} host ms (card "
+          f"{time_ms(lambda: sift.SIFTExtractor()(imgs), reps=2, rounds=1):.2f} ms), max "
+          f"|native-card| {float(diff.max()):.0f}, {equal:.5%} equal")
+    check(float(diff.max()) <= 1.0 and equal >= SIFT_MIN_EQUAL,
+          f"native SIFT against the card's: max {float(diff.max())}, {equal:.5%} equal")
+    res["sift"] = {"shape": list(host.shape), "host_ms": sift_ms, "equal": equal,
+                   "max_abs": float(diff.max())}
+    del imgs, on_card, host, diff
+
+    g = NATIVE_GMM
+    centers = rng.normal(scale=4, size=(g["k"], g["d"]))
+    x = (centers[rng.integers(0, g["k"], g["n"])] + rng.normal(size=(g["n"], g["d"]))
+         ).astype(np.float32)
+    xc = torch.from_numpy(x).to(device)
+    start = gmm.gmm_init(xc, g["k"], 42, gmm.VAR_FLOOR)
+    card_fit = gmm.gmm_em(xc, *start, g["iters"])
+    torch.cuda.synchronize()
+    (mu, var, w), em_ms = _host_ms(lambda: enceval.gmm_em(
+        x, g["k"], g["iters"], init=tuple(t.cpu() for t in start)))
+    errs = [float((torch.from_numpy(h) - c.cpu()).abs().max())
+            for h, c in zip((mu, var, w), card_fit)]
+    batch = torch.from_numpy(rng.normal(size=(NATIVE_FISHER_N, g["d"], NATIVE_FISHER_M))
+                             .astype(np.float32) * 3).to(device)
+    model = gmm.GaussianMixtureModel(means=card_fit[0], variances=card_fit[1],
+                                     weights=card_fit[2])
+    fv_card = gmm.fisher_vectors(batch, model)
+    fv_host, fv_ms = _host_ms(lambda: gmm.FisherVector(gmm=model, backend="native")(batch))
+    fv_err = float((fv_host - fv_card).abs().max())
+    print(f"native EM {g['iters']} iterations on {g['n']} x {g['d']} at k {g['k']}: "
+          f"{em_ms:.1f} host ms, |native-card| means {errs[0]:.2e} variances {errs[1]:.2e} "
+          f"weights {errs[2]:.2e}; Fisher ({NATIVE_FISHER_N}, {g['d']}, {NATIVE_FISHER_M}): "
+          f"{fv_ms:.1f} host ms, |native-card| {fv_err:.2e}")
+    check(errs[0] <= NATIVE_EM_ATOL and errs[1] <= NATIVE_EM_ATOL and errs[2] <= NATIVE_W_ATOL,
+          f"native EM against the card's: {errs}")
+    check(fv_err <= NATIVE_FV_ATOL, f"native Fisher vectors against the card's: {fv_err}")
+    res["gmm_em"] = {**g, "host_ms": em_ms, "max_abs": dict(zip(("means", "variances",
+                                                                  "weights"), errs))}
+    res["fisher"] = {"shape": [NATIVE_FISHER_N, g["d"], NATIVE_FISHER_M], "host_ms": fv_ms,
+                     "max_abs": fv_err}
+    launched = {k: v for k, v in _counts().items() if v}
+    check(not launched, f"phase 34 launched hand kernels: {launched}")
+    return res
+
+
+def _write_chunk(path: str, data, labels) -> None:
+    """A labeled chunk as the refit daemon's producers drop it: a temp
+    name, then a rename."""
+    import numpy as np
+
+    tmp = path + ".partial"
+    with open(tmp, "wb") as f:
+        np.savez(f, data=data, labels=labels)
+    os.replace(tmp, path)
+
+
+def _hammer(url: str, rows, threads: int):
+    """``threads`` clients POSTing /predict of 1–40 rows until stopped:
+    (stop event, answers list of (status, payload, s), errors list,
+    threads)."""
+    import threading
+
+    import numpy as np
+
+    stop, answers, errors = threading.Event(), [], []
+
+    def client(seed):
+        r = np.random.default_rng(seed)
+        while not stop.is_set():
+            a = int(r.integers(0, len(rows) - 40))
+            n = int(r.integers(1, 41))
+            try:
+                status, payload, sec = _http(url + "/predict", {"rows": rows[a:a + n].tolist()})
+                if status != 200 or len(payload["predictions"]) != n:
+                    errors.append(f"status {status}, {len(payload['predictions'])} rows for {n}")
+                answers.append((status, None, sec))
+            except Exception as e:  # noqa: BLE001 — every client failure is counted
+                errors.append(repr(e))
+
+    ts = [threading.Thread(target=client, args=(s,), daemon=True) for s in range(threads)]
+    for t in ts:
+        t.start()
+    return stop, answers, errors, ts
+
+
+def _time_folds(daemon) -> list:
+    """Time each of ``daemon``'s chunk folds (ms, the device synchronized
+    on both sides) into the list returned."""
+    fold_ms: list = []
+    raw_fold = daemon.fold
+
+    def timed_fold(fname):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        n = raw_fold(fname)
+        torch.cuda.synchronize()
+        fold_ms.append((time.perf_counter() - t) * 1e3)
+        return n
+
+    daemon.fold = timed_fold
+    return fold_ms
+
+
+def _wait_swaps(app, url: str, n: int, timeout: float = 120.0) -> dict:
+    """/healthz once the app's swapper has returned its ``n``-th swap."""
+    deadline = time.monotonic() + timeout
+    while (app.swapper.last or {}).get("swaps", 0) < n and time.monotonic() < deadline:
+        time.sleep(0.05)
+    return _http(url + "/healthz")[1]
+
+
+def phase_refit(device) -> dict:
+    """Phase 35: the online-learning loop at the main path's width (MNIST
+    random-FFT, ``num_ffts`` 32, D = 16,384, the int8 Gram forced):
+    ``bootstrap_state`` on 40,000 rows, ``serve.server`` on the saved
+    checkpoint over HTTP, ``RefitDaemon.run_once`` folding four chunks of
+    5,000 rows and publishing, ``/admin/reload`` (the daemon's notify) and
+    SIGHUP swapping while six threads hammer ``/predict``; the folded
+    state against a fresh ``fit_stream`` of the same chunks, an fp32 leg
+    against one fit over the union, K1's launches and first launch, and
+    the shadow gate (409 for negated labels, 200 for a clean candidate)."""
+    import signal
+    import tempfile
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+
+    from keystone_tpu_torch.core.config import parse_config
+    from keystone_tpu_torch.core.kernels import BUILD_DIR
+    from keystone_tpu_torch.core.pipeline import ChainedLabelEstimator, Pipeline
+    from keystone_tpu_torch.core.serialization import load_fitted, save_fitted
+    from keystone_tpu_torch.learn import refit
+    from keystone_tpu_torch.learn.merge import load_fit_state
+    from keystone_tpu_torch.models import mnist_random_fft as m
+    from keystone_tpu_torch.ops import gram
+    from keystone_tpu_torch.ops.linear import BlockLeastSquaresEstimator, NormalEqState
+    from keystone_tpu_torch.ops.util import ClassLabelIndicators
+    from keystone_tpu_torch.plan import fit_stream, plan_fit
+    from keystone_tpu_torch.plan.fused_fit import _DEFAULT_FIT_CHUNK
+    from keystone_tpu_torch.serve import server
+
+    conf = parse_config(m.MnistRandomFFTConfig, MAIN_ARGV)
+    train, test = m._load(conf, "train"), m._load(conf, "test")
+    x = train.data
+    y = ClassLabelIndicators(num_classes=m.NUM_CLASSES)(train.labels).numpy()
+    nb, nc = REFIT_BOOT_ROWS, REFIT_CHUNK_ROWS
+    chunks = [(x[nb + i * nc: nb + (i + 1) * nc], y[nb + i * nc: nb + (i + 1) * nc])
+              for i in range(REFIT_CHUNKS)]
+    bank = m.FeaturizerBank.create(conf.num_ffts, conf.block_size, conf.seed, x.shape[-1], device)
+    est = BlockLeastSquaresEstimator(block_size=conf.block_size, lam=conf.lam)
+    chain = ChainedLabelEstimator(prefix=bank, est=est)
+    probe_rows = test.data[:32]
+    res: dict = {"bootstrap_rows": nb, "chunk_rows": nc, "chunks": REFIT_CHUNKS}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    prev_gram = os.environ.get("KEYSTONE_GRAM_OP")
+    os.environ["KEYSTONE_GRAM_OP"] = "int8"
+    prev_hup = None
+    first_q: list = []
+    raw_int8_gram = gram.int8_gram
+
+    def recording_int8_gram(q):
+        if not first_q:
+            first_q.append(q.clone())
+        return raw_int8_gram(q)
+
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        state_path = os.path.join(tmp, "state.ksts")
+        watch, out = os.path.join(tmp, "chunks"), os.path.join(tmp, "models")
+        os.makedirs(watch)
+        os.makedirs(out)
+        # ---- the main path: counts from 0 -------------------------------
+        _zero_counts()
+        gram.int8_gram = recording_int8_gram
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe0, _ = refit.bootstrap_state(chain, torch.from_numpy(x[:nb]),
+                                             torch.from_numpy(y[:nb]), state_path, device=device)
+            torch.cuda.synchronize()
+            res["bootstrap_s"] = time.perf_counter() - t0
+            boot_launches = gram.INT8_GRAM.launches
+            current = os.path.join(out, refit.CURRENT_MODEL)
+            save_fitted(pipe0, current, version=0, sample=x[:1])
+            t0 = time.perf_counter()
+            app = server.build_app(current, {}, device=device)
+            res["serve_build_s"] = time.perf_counter() - t0
+            httpd = ThreadingHTTPServer(("127.0.0.1", 0), server._handler_for(app))
+            serve_thread = threading.Thread(target=httpd.serve_forever,
+                                            kwargs={"poll_interval": 0.05}, daemon=True)
+            serve_thread.start()
+            url = f"http://127.0.0.1:{httpd.server_address[1]}"
+            prev_hup = server.install_reload_signal(app)
+            for i, (a, b) in enumerate(chunks):
+                _write_chunk(os.path.join(watch, f"chunk_{i:04d}.npz"), a, b)
+            boot_scores = pipe0(torch.from_numpy(probe_rows).to(device))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mem_before = torch.cuda.memory_allocated()
+            stop, answers, errors, clients = _hammer(url, test.data, REFIT_THREADS)
+            t_burst = time.perf_counter()
+            time.sleep(0.5)
+            daemon = refit.RefitDaemon(state_path, watch, out_dir=out, notify_url=url,
+                                       device=device)
+            fold_ms = _time_folds(daemon)
+            summary = daemon.run_once()
+            fold_launches = gram.INT8_GRAM.launches - boot_launches
+            reload_swap = dict(app.swapper.last or {})
+            health = _wait_swaps(app, url, 1)
+            os.kill(os.getpid(), signal.SIGHUP)
+            health = _wait_swaps(app, url, 2)
+            hup_swap = dict(app.swapper.last or {})
+            time.sleep(0.5)
+            stop.set()
+            for t in clients:
+                t.join(timeout=120)
+            burst_wall = time.perf_counter() - t_burst
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            gram.int8_gram = raw_int8_gram
+        launches = _counts()
+        # ---- checks and the replays (their launches do not count) ------
+        check(not any(t.is_alive() for t in clients), "refit: a client never returned")
+        check(summary["chunks_folded"] == REFIT_CHUNKS and summary["version"] == 1,
+              f"refit: run_once {summary}")
+        check(health["model_swaps"] == 2 and health["model_version"] == "1",
+              f"refit: /healthz after the reload and SIGHUP {health}")
+        check(not errors, f"refit: {len(errors)} client errors across the swaps: {errors[:3]}")
+        n_boot_chunks = -(-nb // _DEFAULT_FIT_CHUNK)
+        print(f"K1 launches on the refit path: bootstrap {boot_launches} for {n_boot_chunks} "
+              f"fit chunks, folds {fold_launches} for {REFIT_CHUNKS} chunks of {nc}")
+        check(boot_launches == n_boot_chunks and fold_launches == REFIT_CHUNKS,
+              f"refit: K1 launched {boot_launches} + {fold_launches} times")
+        check(launches["int8_gram"] == boot_launches + fold_launches and not any(
+            v for k, v in launches.items() if k != "int8_gram"), f"refit: launches {launches}")
+        res["k1_first_chunk"] = k1_at_chunk(first_q[0], "refit bootstrap")
+        res["launches"] = {"bootstrap": boot_launches, "folds": fold_launches}
+
+        served = np.asarray(_http(url + "/predict", {"rows": probe_rows.tolist()})[1]
+                            ["predictions"], np.float32)
+        folded = load_fitted(current, device=device)
+        local = folded(torch.from_numpy(probe_rows).to(device)).cpu().numpy()
+        scale = float(np.abs(local).max())
+        vs_folded = float(np.abs(served - local).max()) / scale
+        vs_boot = float(np.abs(served - boot_scores.cpu().numpy()).max()) / scale
+        print(f"served scores after the fold: {vs_folded:.2e} of max|score| from the folded "
+              f"model eager, {vs_boot:.2e} from the bootstrap model")
+        check(vs_folded <= REFIT_SERVE_TOL and vs_boot > 10 * max(vs_folded, REFIT_SERVE_TOL),
+              "refit: the served predictions do not come from the folded state")
+
+        plan_b = plan_fit(chain, torch.from_numpy(x[:nb]), torch.from_numpy(y[:nb]), device=device)
+        fresh = fit_stream(plan_b, torch.from_numpy(x[:nb]), torch.from_numpy(y[:nb]))
+        plan_f = plan_fit(ChainedLabelEstimator(prefix=Pipeline(nodes=(bank,)), est=est), x[:1],
+                          np.zeros((1, m.NUM_CLASSES), np.float32), device=device,
+                          chunk_size=_DEFAULT_FIT_CHUNK, gram="int8")
+        for a, b in chunks:
+            fresh = fit_stream(plan_f, a, b, init_state=fresh)
+        on_disk = load_fit_state(state_path, device=device).state
+        fields = ("ata", "atb", "mean_a", "mean_b", "n")
+        same = all(torch.equal(getattr(daemon.state, f), getattr(fresh, f)) and
+                   torch.equal(getattr(on_disk, f), getattr(fresh, f)) for f in fields)
+        print(f"folded int8 state (and its file) bit for bit a fresh fit_stream of the same "
+              f"chunks: {same}")
+        check(same, "refit: the folded int8 state is not a fresh fit_stream of the same chunks")
+
+        # ---- shadow: a negated-labels candidate refused, a clean one promoted
+        s = daemon.state
+        neg = NormalEqState(ata=s.ata, atb=-s.atb, mean_a=s.mean_a, mean_b=-s.mean_b, n=s.n)
+        neg_path, clean_path = os.path.join(tmp, "negated.kst"), os.path.join(tmp, "clean.kst")
+        save_fitted(Pipeline.of(bank, est.fit_stats_finalize(neg, widths=plan_f.fit.widths)),
+                    neg_path, version="negated", sample=x[:1])
+        save_fitted(folded, clean_path, version="clean", sample=x[:1])
+        shadow: dict = {}
+        for name, path in (("negated", neg_path), ("clean", clean_path)):
+            _http(url + "/admin/shadow", {"path": path, "sample_every": 1,
+                                          "min_samples": SHADOW_MIN_SAMPLES})
+            for i in range(SHADOW_REQUESTS):
+                _http(url + "/predict", {"rows": test.data[8 * i: 8 * i + 8].tolist()})
+            try:
+                status, verdict, _ = _http(url + "/admin/promote", {})
+            except Exception as e:  # noqa: BLE001 — a refusal answers 409
+                status, verdict = getattr(e, "code", None), json.loads(e.read())
+            shadow[name] = {"status": status, **{k: verdict.get(k) for k in (
+                "samples", "mean_divergence", "promote", "promoted")}}
+        print(f"shadow: negated {shadow['negated']}, clean {shadow['clean']}")
+        check(shadow["negated"]["status"] == 409 and shadow["clean"]["status"] == 200,
+              f"refit: shadow promote answered {shadow}")
+        health = _http(url + "/healthz")[1]
+        check(health["model_swaps"] == 3 and health["model_version"] == "clean",
+              f"refit: /healthz after the promotion {health}")
+        httpd.shutdown()
+        httpd.server_close()
+        app.shutdown()
+        signal.signal(signal.SIGHUP, prev_hup)
+
+        # ---- the fp32 leg: the published weights against a union fit ---
+        os.environ["KEYSTONE_GRAM_OP"] = "fp32"
+        before = gram.INT8_GRAM.launches
+        state32, out32 = os.path.join(tmp, "state32.ksts"), os.path.join(tmp, "models32")
+        refit.bootstrap_state(chain, torch.from_numpy(x[:nb]), torch.from_numpy(y[:nb]),
+                              state32, device=device)
+        d32 = refit.RefitDaemon(state32, watch, out_dir=out32, device=device)
+        fold32_ms = _time_folds(d32)
+        s32 = d32.run_once()
+        w_fold = torch.cat(list(load_fitted(s32["model"], device=device).nodes[-1].xs)).double()
+        n_union = nb + REFIT_CHUNKS * nc
+        xu, yu = torch.from_numpy(x[:n_union]), torch.from_numpy(y[:n_union])
+        w_union = {}
+        for ch in REFIT_UNION_CHUNKS:
+            plan_u = plan_fit(chain, xu, yu, device=device, chunk_size=ch)
+            w_union[ch] = torch.cat(list(est.fit_stats_finalize(
+                fit_stream(plan_u, xu, yu), widths=plan_u.fit.widths).xs)).double()
+        w64 = _f64_union_fit(bank, est, xu, yu, plan_u.fit.widths, device)
+        scale = float(w64.abs().max())
+        fp32_err = float((w_fold - w_union[REFIT_UNION_CHUNKS[0]]).abs().max()
+                         / w_union[REFIT_UNION_CHUNKS[0]].abs().max())
+        fold_exact = float((w_fold - w64).abs().max()) / scale
+        union_exact = {ch: float((w - w64).abs().max()) / scale for ch, w in w_union.items()}
+        print(f"fp32 leg: folded-then-published weights within {fp32_err:.2e} of max|W| of one "
+              f"fit over the union ({n_union} rows, chunks of {REFIT_UNION_CHUNKS[0]}); from the "
+              f"f64 fit of the union: the fold {fold_exact:.2e}, fp32 union fits by chunk size "
+              f"{union_exact}")
+        check(gram.INT8_GRAM.launches == before, "refit: K1 launched in the fp32 leg")
+        # 1e-5 of max|W| is under f32's floor at this width and λ: the fp32
+        # union fits lie 2.9e-4 to 7.9e-4 of max|W| from the f64 fit by row
+        # grouping alone (this phase's H100 run), so the fold is held to the
+        # fp32 union fits' own distance from the f64 fit
+        floor = max(REFIT_FP32_TOL, max(union_exact.values()))
+        check(fold_exact <= floor, f"refit: the fp32 fold is {fold_exact:.2e} from the f64 "
+                                   f"union fit, the fp32 union fits {union_exact}")
+    if prev_gram is None:
+        os.environ.pop("KEYSTONE_GRAM_OP", None)
+    else:
+        os.environ["KEYSTONE_GRAM_OP"] = prev_gram
+
+    lat = _latency(answers, burst_wall)
+    pub = daemon.last_publish
+    res.update(
+        fold_ms=fold_ms, fold_ms_fp32_no_http_load=fold32_ms, publish=pub,
+        state_bytes=pub["state_bytes"],
+        swaps={"reload": reload_swap, "sighup": hup_swap}, burst=lat,
+        client_errors=len(errors), model_swaps=3, peak_memory_gib=peak / 2**30,
+        memory_before_gib=mem_before / 2**30, served_vs_folded=vs_folded,
+        served_vs_bootstrap=vs_boot, folded_state_bit_for_bit=same, fp32_vs_union=fp32_err,
+        fp32_vs_f64_union={"fold": fold_exact, "union_by_chunk": union_exact},
+        shadow=shadow,
+    )
+    print(f"refit: fold ms a chunk {[round(t, 1) for t in fold_ms]} under the HTTP burst (the "
+          f"fp32 leg's, with no clients: {[round(t, 1) for t in fold32_ms]}); publish "
+          f"{pub['wall_s']:.3f} s (finalize {pub['finalize_s']:.3f}, model write "
+          f"{pub['model_write_s']:.3f}, state write {pub['state_write_s']:.3f}); state "
+          f"{pub['state_bytes']} bytes; swaps: reload {reload_swap}, SIGHUP {hup_swap}; "
+          f"{lat['requests']} requests, {lat['requests_per_s']:.1f}/s, p99 "
+          f"{lat['p99_ms']:.1f} ms, 0 errors; peak {peak / 2**30:.2f} GiB "
+          f"(before the swaps {mem_before / 2**30:.2f})")
+    return res
+
+
+def _f64_union_fit(bank, est, x, y, widths, device):
+    """The union's weights from f64 statistics of the same features (each
+    fit chunk featurized in f32 as the fit does, then widened), the same
+    Gram-form finalize in f64: the reference an fp32 fit is measured
+    against."""
+    from keystone_tpu_torch.ops.linear import NormalEqState
+
+    n, d = x.shape[0], sum(widths)
+    f64 = dict(dtype=torch.float64, device=device)
+    sa, sb = torch.zeros(d, **f64), torch.zeros(y.shape[1], **f64)
+    gaa, gab = torch.zeros(d, d, **f64), torch.zeros(d, y.shape[1], **f64)
+    for a in range(0, n, 8192):
+        f = torch.cat(bank(x[a:a + 8192].to(device)), -1).double()
+        b = y[a:a + 8192].to(device).double()
+        sa += f.sum(0)
+        sb += b.sum(0)
+        gaa += f.T @ f
+        gab += f.T @ b
+        del f
+    mu_a, mu_b = sa / n, sb / n
+    state = NormalEqState(ata=gaa - n * torch.outer(mu_a, mu_a),
+                          atb=gab - n * torch.outer(mu_a, mu_b), mean_a=mu_a, mean_b=mu_b,
+                          n=torch.tensor(float(n), **f64))
+    return torch.cat(list(est.fit_stats_finalize(state, widths=widths).xs))
+
+
+def _resume_model(device):
+    """The flagship train model as ``lm_transformer.main`` builds it from
+    ``TRAIN_ARGV`` (seed 0)."""
+    from keystone_tpu_torch.models.lm.model import TransformerLM
+
+    return TransformerLM.create(
+        vocab=TRAIN_CONF["vocab"], max_seq=TRAIN_SEQ, dim=TRAIN_CONF["dim"],
+        depth=TRAIN_CONF["depth"], num_heads=TRAIN_CONF["num_heads"],
+        compute_dtype="bfloat16", device=device,
+        generator=torch.Generator(device=device).manual_seed(0),
+    )
+
+
+def _leaves_diff(a_dir: str, b_dir: str) -> float:
+    from keystone_tpu_torch.core.checkpoint import read_step
+
+    a, sa = read_step(a_dir)
+    b, sb = read_step(b_dir)
+    check(sa == sb == RESUME_STEPS, f"resume: final steps {sa}, {sb}")
+    return max(float((x.double() - y.double()).abs().max()) if x.numel() else 0.0
+               for x, y in zip(a, b))
+
+
+def phase_resume(device) -> dict:
+    """Phase 36: checkpoint and resume. (a) LM training at the flagship
+    width (seq 2,048, batch 8, bf16, AdamW 3e-4), 8 steps with a checkpoint
+    every 4: uninterrupted; preempted by ``train.preempt`` after step 5 and
+    resumed; stopped by a real SIGTERM (``train.sigterm``) in a
+    ``lm_transformer`` subprocess and resumed here — losses and the final
+    checkpoint's leaves against the uninterrupted run's. (b) TIMIT's
+    classic fit at phase 22's configuration with ``--checkpoint-dir
+    --checkpoint-every 1``: a 2-epoch run, then the 5-epoch run on its
+    directory, against an uninterrupted 5-epoch run."""
+    import tempfile
+
+    from keystone_tpu_torch.core.checkpoint import read_step
+    from keystone_tpu_torch.core.kernels import BUILD_DIR
+    from keystone_tpu_torch.models import timit_pipeline
+    from keystone_tpu_torch.models.lm.train import synthetic_corpus, train
+    from keystone_tpu_torch.observe import metrics
+    from keystone_tpu_torch.resilience import faults
+
+    reg = metrics.get_registry()
+    corpus = synthetic_corpus(200_000, TRAIN_CONF["vocab"], seed=0)
+    kw = dict(steps=RESUME_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR, seed=0,
+              checkpoint_every=RESUME_EVERY)
+    res: dict = {}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        dirs = {k: os.path.join(tmp, k) for k in ("whole", "preempt", "sigterm", "whole2")}
+        saves_before = (reg.snapshot().get("ckpt_save_seconds") or {}).get("count", 0)
+        t0 = time.perf_counter()
+        _, whole = train(_resume_model(device), corpus, checkpoint_dir=dirs["whole"], **kw)
+        torch.cuda.synchronize()
+        res["uninterrupted_s"] = time.perf_counter() - t0
+        faults.configure(f"train.preempt:@{RESUME_PREEMPT_AT}:0")
+        try:
+            train(_resume_model(device), corpus, checkpoint_dir=dirs["preempt"], **kw)
+            check(False, "resume: train.preempt did not fire")
+        except faults.SimulatedPreemption:
+            pass
+        finally:
+            faults.reset()
+        done_p = read_step(dirs["preempt"])[1]
+        t0 = time.perf_counter()
+        _, tail_p = train(_resume_model(device), corpus, checkpoint_dir=dirs["preempt"], **kw)
+        res["resume_s"] = time.perf_counter() - t0
+        argv = [a for a in TRAIN_ARGV]
+        argv[argv.index("--steps") + 1] = str(RESUME_STEPS)
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = {**os.environ, "KEYSTONE_FAULTS": f"train.sigterm:@{RESUME_SIGTERM_AT}:0",
+               "PYTHONPATH": os.pathsep.join(filter(None, [here, os.environ.get("PYTHONPATH")]))}
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "keystone_tpu_torch.models.lm_transformer", *argv,
+             "--checkpoint-dir", dirs["sigterm"], "--checkpoint-every", str(RESUME_EVERY)],
+            env=env, capture_output=True, text=True, timeout=600, cwd=here,
+        )
+        res["sigterm_subprocess_s"] = time.perf_counter() - t0
+        check(proc.returncode == 0, f"resume: the SIGTERM subprocess exited {proc.returncode}:\n"
+                                    f"{proc.stderr[-3000:]}")
+        done_s = read_step(dirs["sigterm"])[1]
+        _, tail_s = train(_resume_model(device), corpus, checkpoint_dir=dirs["sigterm"], **kw)
+        snap = reg.snapshot()
+        saves = snap.get("ckpt_save_seconds") or {}
+        res["checkpoint"] = {"saves": saves.get("count", 0) - saves_before,
+                             "save_mean_s": saves.get("mean_s"),
+                             "save_p50_s": saves.get("p50_s"),
+                             "bytes": snap.get("ckpt_save_bytes")}
+        print(f"resume: preempted after step {done_p}, SIGTERM stopped after step {done_s}; "
+              f"losses {whole}; resumed tails {tail_p}, {tail_s}; checkpoint "
+              f"{res['checkpoint']}")
+        check(done_p == RESUME_PREEMPT_AT + 1 and done_s == RESUME_SIGTERM_AT + 1,
+              f"resume: checkpoints at {done_p}, {done_s}")
+        diffs = {"preempt": _leaves_diff(dirs["whole"], dirs["preempt"]),
+                 "sigterm": _leaves_diff(dirs["whole"], dirs["sigterm"])}
+        loss_diffs = {"preempt": max(abs(a - b) for a, b in zip(tail_p, whole[done_p:])),
+                      "sigterm": max(abs(a - b) for a, b in zip(tail_s, whole[done_s:]))}
+        exact = all(v == 0 for v in diffs.values()) and all(v == 0 for v in loss_diffs.values())
+        res.update(losses=whole, resumed_losses={"preempt": tail_p, "sigterm": tail_s},
+                   leaf_max_abs_diff=diffs, loss_max_abs_diff=loss_diffs, bit_for_bit=exact)
+        if not exact:
+            # measure what two uninterrupted runs differ by, and hold the
+            # resumed runs to it
+            _, whole2 = train(_resume_model(device), corpus, checkpoint_dir=dirs["whole2"], **kw)
+            rr = _leaves_diff(dirs["whole"], dirs["whole2"])
+            rr_loss = max(abs(a - b) for a, b in zip(whole, whole2))
+            res["run_to_run"] = {"leaf_max_abs_diff": rr, "loss_max_abs_diff": rr_loss}
+            print(f"resume: not bit for bit ({diffs}, losses {loss_diffs}); two uninterrupted "
+                  f"runs differ by {rr:.3e} (losses {rr_loss:.3e})")
+            check(max(diffs.values()) <= rr and max(loss_diffs.values()) <= rr_loss,
+                  "resume: the resumed runs differ by more than two uninterrupted runs")
+        else:
+            print("resume: the preempted and the SIGTERM runs resumed bit for bit "
+                  "(losses and every parameter and optimizer leaf)")
+        torch.cuda.empty_cache()
+
+        # ---- (b) TIMIT's classic fit, interrupted after 2 of 5 epochs ----
+        t_dirs = {k: os.path.join(tmp, f"timit_{k}") for k in ("whole", "crash")}
+        timed = {}
+        t0 = time.perf_counter()
+        r_whole = timit_pipeline.main(TIMIT_CKPT_ARGV + ["--checkpoint-dir", t_dirs["whole"]],
+                                      device=device)
+        timed["uninterrupted_s"] = time.perf_counter() - t0
+        crash = [a for a in TIMIT_CKPT_ARGV]
+        crash[crash.index("--num-epochs") + 1] = str(TIMIT_CKPT_CRASH_EPOCHS)
+        t0 = time.perf_counter()
+        timit_pipeline.main(crash + ["--checkpoint-dir", t_dirs["crash"]], device=device)
+        timed["two_epochs_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r_resumed = timit_pipeline.main(TIMIT_CKPT_ARGV + ["--checkpoint-dir", t_dirs["crash"]],
+                                        device=device)
+        timed["resumed_s"] = time.perf_counter() - t0
+        a, sa = read_step(t_dirs["whole"])
+        b, sb = read_step(t_dirs["crash"])
+        t_diff = max(float((x.double() - y.double()).abs().max()) for x, y in zip(a, b))
+        same_preds = bool((r_whole["test_predictions"] == r_resumed["test_predictions"]).all())
+        print(f"TIMIT resume: steps {sa}, {sb}; max|resumed-uninterrupted| {t_diff:.3e}; test "
+              f"predictions equal {same_preds}; test error {r_resumed['test_error']:.4%}; {timed}")
+        check(sa == sb == 5 and t_diff == 0 and same_preds,
+              "resume: TIMIT's resumed fit is not the uninterrupted one bit for bit")
+        check(r_resumed["test_error"] <= TIMIT_MAX_TEST_ERROR,
+              f"resume: TIMIT test error {r_resumed['test_error']}")
+        res["timit"] = {**timed, "max_abs_diff": t_diff, "test_error": r_resumed["test_error"],
+                        "fit_s": r_resumed["fit_s"]}
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available")
@@ -3695,6 +4341,14 @@ def main() -> None:
     imagenet = phase_imagenet(device)
     imagenet["weighted_solver"] = phase_weighted(device)
     print(json.dumps({"imagenet_path": {"card": smi, **imagenet}}))
+    native_path = phase_native(device)
+    print(json.dumps({"native_path": {"card": smi, **native_path}}))
+    refit_path = phase_refit(device)
+    k1["launches_refit"] = refit_path["launches"]
+    k1["refit_first_chunk"] = refit_path.pop("k1_first_chunk")
+    print(json.dumps({"refit_path": {"card": smi, **refit_path}}))
+    resume_path = phase_resume(device)
+    print(json.dumps({"resume_path": {"card": smi, **resume_path}}))
 
     summary = {
         "card": smi,

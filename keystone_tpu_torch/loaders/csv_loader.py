@@ -1,6 +1,8 @@
 """CSV loading: rows of comma-separated numbers → one matrix; optional
-first-column labels. The port's numpy-only copy of
-``keystone_tpu/loaders/csv_loader.py`` (parsed with ``np.loadtxt``)."""
+first-column labels. Port of ``keystone_tpu/loaders/csv_loader.py``: the
+native mmap/OpenMP parser (:func:`keystone_tpu_torch.native.
+native_load_csv`) when the host library can be had, else ``np.loadtxt``
+(logged)."""
 
 from __future__ import annotations
 
@@ -29,9 +31,13 @@ def _paths(path: str) -> list[str]:
 
 def load_csv(path: str, dtype=np.float32) -> np.ndarray:
     """All rows from file/dir/glob ``path`` as an (N, d) array."""
+    from keystone_tpu_torch.native import native_load_csv
+
     parts = []
     for p in _paths(path):
-        mat = np.loadtxt(p, delimiter=",", dtype=np.float32, ndmin=2)
+        mat = native_load_csv(p)
+        if mat is None:
+            mat = np.loadtxt(p, delimiter=",", dtype=np.float32, ndmin=2)
         parts.append(mat.astype(dtype, copy=False))
     return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
 

@@ -103,13 +103,6 @@ class ImageNetConfig:
     stream_batch: int = arg(default=256, help="host images per stream batch")
 
 
-def _refuse_checkpoint(conf: ImageNetConfig) -> None:
-    if conf.checkpoint_dir:
-        raise NotImplementedError(
-            "--checkpoint-dir waits for the checkpoint store (ROADMAP A7)"
-        )
-
-
 def _load(conf: ImageNetConfig, which: str) -> tuple[LabeledImages, int]:
     """The split's images and class count: ``synthetic`` train images (a
     quarter as many test images) drawn in the JAX package's numpy order,
@@ -208,7 +201,6 @@ def run_streaming(
     )
     from keystone_tpu_torch.observe import metrics
 
-    _refuse_checkpoint(conf)
     device = resolve_device(data_sharding(mesh) if mesh is not None else device)
     if train_source is None:
         train_source = synthetic_source(conf, "train") if conf.synthetic else tar_source(conf, "train")
@@ -278,7 +270,7 @@ def run_streaming(
     indicators = ClassLabelIndicators(num_classes=num_classes)(y_pad).to(f_train.device)
     est = _estimator(conf, num_classes)
     fit_decisions: list[dict] = []
-    if planned:
+    if planned and not conf.checkpoint_dir:
         # the weighted fit streams chunks through the per-class
         # statistics; the planner prices the (C, D, D) state against the
         # card's budget and falls back to the materialized fit, with a
@@ -293,7 +285,10 @@ def run_streaming(
             if d["action"] in ("fit_fallback", "fit_operator", "fuse_fit")
         ]
     else:
-        model = checkpointed_fit(est, f_train, indicators, n_valid=n_train)
+        model = checkpointed_fit(
+            est, f_train, indicators, checkpoint_dir=conf.checkpoint_dir,
+            every=conf.checkpoint_every, n_valid=n_train,
+        )
     t_fit, fit_s = _clock(device, t_feat)
 
     train_top1, train_top5, _ = _top_errors(model, f_train, y_train, num_classes)
@@ -334,7 +329,6 @@ def run(conf: ImageNetConfig, device=None, mesh=None) -> dict:
     """Fit and evaluate on ``device`` (the card unless the caller asks for
     the CPU; with a ``mesh``, its data device), every descriptor resident
     on the device as in the reference's design."""
-    _refuse_checkpoint(conf)
     device = resolve_device(data_sharding(mesh) if mesh is not None else device)
     t0 = time.perf_counter()
     train, num_classes = _load(conf, "train")
@@ -365,7 +359,10 @@ def run(conf: ImageNetConfig, device=None, mesh=None) -> dict:
     y = np.zeros(f_train.shape[0], np.int32)
     y[:n_train] = train.labels
     indicators = ClassLabelIndicators(num_classes=num_classes)(y).to(device)
-    model = checkpointed_fit(_estimator(conf, num_classes), f_train, indicators, n_valid=n_train)
+    model = checkpointed_fit(
+        _estimator(conf, num_classes), f_train, indicators, checkpoint_dir=conf.checkpoint_dir,
+        every=conf.checkpoint_every, n_valid=n_train,
+    )
     t_fit, fit_s = _clock(device, t_feat)
 
     train_top1, train_top5, _ = _top_errors(model, f_train, train.labels, num_classes)

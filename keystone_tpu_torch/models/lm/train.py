@@ -11,16 +11,25 @@ optimizer, the train step, the loop and the synthetic corpus.
   loss stays a device scalar.
 - :func:`train` draws each step's windows from ``(seed, step)`` alone.
 
-The JAX package's checkpoint and resume hooks, its loss guard and step
-watchdog, data-parallel batch sharding over a mesh and the
-pipeline-parallel steps are not ported yet; asking for one raises.
+- with a ``checkpoint_dir``, :func:`train` checkpoints the parameters and
+  the optimizer state every ``checkpoint_every`` steps (and on the way out
+  of a preemption, a signal or a crash) through
+  :class:`keystone_tpu_torch.core.checkpoint.TrainCheckpointer`, and a
+  rerun resumes from the newest intact step on the same trajectory.
+
+The JAX package's loss guard and step watchdog, data-parallel batch
+sharding over a mesh and the pipeline-parallel steps are not ported yet;
+asking for one raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 import os
+import signal
+import threading
 from typing import Callable
 
 import numpy as np
@@ -196,13 +205,9 @@ def _step_batch(corpus, seed: int, i: int, batch: int, seq: int):
     return np.stack([corpus[s : s + seq + 1] for s in starts])
 
 
-def _refuse_unported(*, model, batch, mesh, checkpoint_dir, guard, step_timeout_s) -> None:
+def _refuse_unported(*, model, batch, mesh, guard, step_timeout_s) -> None:
     """Raise for each of ``train``'s options whose machinery the port does
     not have yet, naming the ROADMAP step that brings it."""
-    if checkpoint_dir:
-        raise NotImplementedError(
-            "train(checkpoint_dir=...): checkpoint and resume come with ROADMAP A7"
-        )
     env_guard = os.environ.get("KEYSTONE_GUARD", "")
     if (guard not in (None, "", "off")) or env_guard not in ("", "off"):
         raise NotImplementedError(
@@ -226,6 +231,71 @@ def _refuse_unported(*, model, batch, mesh, checkpoint_dir, guard, step_timeout_
         )
 
 
+def _run_identity(model: TransformerLM, corpus, *, batch, seq, lr, seed, schedule,
+                  grad_clip, logit_chunk) -> dict:
+    """Everything that shapes a run's trajectory, for the checkpoint's
+    identity check; ``steps`` is left out on purpose (resuming with a
+    longer schedule is the point; the over-trained guard covers a shorter
+    one)."""
+    corpus_head = np.asarray(corpus[:64], np.int64)
+    return {
+        "kind": "lm_transformer",
+        "batch": batch,
+        "seq": seq,
+        "lr": lr,
+        "seed": seed,
+        "schedule": schedule,
+        "grad_clip": grad_clip,
+        "logit_chunk": logit_chunk,
+        # the port has no guarded step (ROADMAP A8): always the plain one
+        "guarded": False,
+        "num_heads": model.num_heads,
+        "num_kv_heads": model.kv_heads,
+        "seq_mode": model.seq_mode,
+        "compute_dtype": model.compute_dtype,
+        "pos_encoding": model.pos_encoding,
+        "remat": model.remat,
+        "remat_policy": model.remat_policy,
+        "moe_aux_weight": model.moe_aux_weight,
+        "moe_experts": [None if m is None else m.num_experts for m in model.moe_layers],
+        "moe_capacity": [None if m is None else m.capacity_factor for m in model.moe_layers],
+        "corpus_len": int(len(corpus)),
+        "corpus_head_sha": hashlib.sha256(corpus_head.tobytes()).hexdigest()[:16],
+        "param_shapes": [list(map(int, leaf.shape)) for leaf in model.leaves()],
+    }
+
+
+def _legacy_defaults(model: TransformerLM) -> dict:
+    """Values for identity keys that older checkpoints lack: what the
+    code used before the key existed."""
+    return {
+        "pos_encoding": "learned",
+        "schedule": "constant",
+        "grad_clip": 0.0,
+        "logit_chunk": 0,
+        "guarded": False,
+        "remat_policy": "full",
+        "num_kv_heads": model.num_heads,
+    }
+
+
+def _train_state(model: TransformerLM, opt_state: AdamWState) -> dict:
+    """The checkpointed state: every parameter, both moments and the
+    update count (a host int, saved as a tensor)."""
+    return {
+        "params": model.leaves(),
+        "mu": opt_state.mu,
+        "nu": opt_state.nu,
+        "count": torch.tensor(opt_state.count, dtype=torch.int64),
+    }
+
+
+def _emit_resilience(action: str, **fields) -> None:
+    from keystone_tpu_torch.resilience.emit import decision
+
+    decision(action, **fields)
+
+
 def train(
     model: TransformerLM,
     corpus: np.ndarray,
@@ -246,16 +316,26 @@ def train(
     step_timeout_s: float = 0.0,
 ):
     """Train on random windows of ``corpus`` (1-D int array). Returns
-    (model, losses), the model updated in place. A sequence-parallel model
-    takes its mesh from the model; the batch is not sharded. Batches
-    derive from ``(seed, step)``. ``logit_chunk`` chunks the CE.
+    (model, losses), the model updated in place; ``losses`` are this
+    call's steps'. A sequence-parallel model takes its mesh from the
+    model; the batch is not sharded. Batches derive from ``(seed, step)``.
+    ``logit_chunk`` chunks the CE.
 
-    Not ported yet, and raising ``NotImplementedError``: a non-empty
-    ``checkpoint_dir`` (ROADMAP A7; ``checkpoint_every`` is read only with
-    it), a ``guard`` or ``KEYSTONE_GUARD``, ``step_timeout_s`` or
-    ``KEYSTONE_STEP_TIMEOUT_S`` (A8), and a ``mesh`` whose data axis would
-    shard a local model's batch (A6)."""
-    del checkpoint_every
+    ``checkpoint_dir`` checkpoints every ``checkpoint_every`` steps (0:
+    ``steps // 10``, about ten a run) and at the last step; a rerun on the
+    directory resumes from its newest intact step. SIGTERM and SIGINT
+    stop the loop after the step in flight, and the ``finally`` path
+    checkpoints the last completed step, so a preemption loses at most
+    the step in flight. The ``train.preempt`` and ``train.sigterm`` fault
+    sites, keyed by the step, drill both paths.
+
+    Not ported yet, and raising ``NotImplementedError``: a ``guard`` or
+    ``KEYSTONE_GUARD``, ``step_timeout_s`` or ``KEYSTONE_STEP_TIMEOUT_S``
+    (A8), and a ``mesh`` whose data axis would shard a local model's batch
+    (A6)."""
+    from keystone_tpu_torch.resilience import faults as _faults
+    from keystone_tpu_torch.resilience.retry import RetryExhausted
+
     if len(corpus) < seq + 2:
         raise ValueError(
             f"corpus of {len(corpus)} tokens is too short for seq={seq} "
@@ -268,20 +348,117 @@ def train(
             "inference-only) — gradients through the rounding would be "
             "silently zero; train the float model and re-quantize"
         )
-    _refuse_unported(model=model, batch=batch, mesh=mesh, checkpoint_dir=checkpoint_dir,
-                     guard=guard, step_timeout_s=step_timeout_s)
+    _refuse_unported(model=model, batch=batch, mesh=mesh, guard=guard,
+                     step_timeout_s=step_timeout_s)
     optimizer = make_optimizer(lr, steps=steps, schedule=schedule, grad_clip=grad_clip)
     opt_state = optimizer.init(model.leaves())
     step = make_train_step(optimizer, logit_chunk=logit_chunk)
     losses = []
-    for i in range(steps):
-        toks = torch.from_numpy(_step_batch(corpus, seed, i, batch, seq)).to(model.device)
-        model, opt_state, loss = step(model, opt_state, toks)
-        # the loss stays on the device: a float() here would wait for the
-        # step in every iteration
-        losses.append(loss)
-        if log_every and (i + 1) % log_every == 0:
-            logger.info("step %d loss %.4f", i + 1, float(loss))
+
+    ckpt = None
+    every = 0
+    if checkpoint_dir:
+        from keystone_tpu_torch.core.checkpoint import TrainCheckpointer
+
+        every = checkpoint_every or max(steps // 10, 1)
+        ckpt = TrainCheckpointer(
+            checkpoint_dir,
+            _run_identity(model, corpus, batch=batch, seq=seq, lr=lr, seed=seed,
+                          schedule=schedule, grad_clip=grad_clip, logit_chunk=logit_chunk),
+            legacy_defaults=_legacy_defaults(model),
+            cluster_info={
+                "num_processes": 1,
+                "mesh": None if mesh is None else {k: int(v) for k, v in mesh.shape.items()},
+            },
+        )
+
+    # first signal → flag only: the loop stops after the step in flight and
+    # the finally path checkpoints. A second signal means the loop is not
+    # getting back to its check: the previous handlers are restored and the
+    # signal re-delivered, so a repeated Ctrl-C or SIGTERM escalates.
+    stop_signal: dict = {"sig": None}
+    prev_handlers: dict = {}
+    if ckpt is not None and threading.current_thread() is threading.main_thread():
+
+        def _on_signal(signum, frame):
+            if stop_signal["sig"] is not None:
+                for s, h in prev_handlers.items():
+                    signal.signal(s, h)
+                prev = prev_handlers.get(signum)
+                if callable(prev):
+                    prev(signum, frame)
+                else:
+                    signal.raise_signal(signum)
+                return
+            stop_signal["sig"] = signum
+
+        for s in (signal.SIGTERM, signal.SIGINT):
+            prev_handlers[s] = signal.signal(s, _on_signal)
+
+    start = completed = last_saved = 0
+    try:
+        if ckpt is not None:
+            state, start = ckpt.restore(_train_state(model, opt_state))
+            opt_state.count = int(state["count"])
+            if start > steps:
+                raise ValueError(
+                    f"{checkpoint_dir} holds a step-{start} checkpoint but this run is "
+                    f"only {steps} steps — refusing to return an over-trained model; "
+                    "point at a fresh directory"
+                )
+        completed = last_saved = start
+        for i in range(start, steps):
+            toks = torch.from_numpy(_step_batch(corpus, seed, i, batch, seq)).to(model.device)
+            model, opt_state, loss = step(model, opt_state, toks)
+            # the loss stays on the device: a float() here would wait for
+            # the step in every iteration
+            losses.append(loss)
+            completed = i + 1
+            if log_every and (i + 1) % log_every == 0:
+                logger.info("step %d loss %.4f", i + 1, float(loss))
+            if ckpt is not None and ((i + 1) % every == 0 or (i + 1) == steps):
+                try:
+                    ckpt.save(_train_state(model, opt_state), i + 1)
+                    last_saved = i + 1
+                except (OSError, RetryExhausted) as e:
+                    # a full disk at a PERIODIC save must not end the run:
+                    # the previous checkpoint is intact (atomic), so go on
+                    # loudly and try again at the next interval
+                    logger.warning(
+                        "periodic checkpoint save at step %d failed (%r); continuing on "
+                        "the step-%d checkpoint", i + 1, e, last_saved,
+                    )
+                    _emit_resilience("ckpt_save_failed", counter="ckpt_save_failures",
+                                     step=i + 1, last_saved=last_saved, error=repr(e))
+            if _faults.fire("train.sigterm", key=i):
+                if prev_handlers:
+                    # a real signal to this process: the handler path end to end
+                    signal.raise_signal(signal.SIGTERM)
+                else:
+                    logger.warning(
+                        "train.sigterm fault fired at step %d but no handler is "
+                        "installed; ignoring", i,
+                    )
+            if stop_signal["sig"] is not None:
+                logger.warning(
+                    "signal %d at step %d: writing the final checkpoint and stopping early",
+                    stop_signal["sig"], i + 1,
+                )
+                _emit_resilience("signal_stop", signum=stop_signal["sig"], step=i + 1)
+                break
+            _faults.maybe_preempt(key=i)
+    finally:
+        try:
+            if ckpt is not None and completed > last_saved:
+                # preemption, signal or crash: the periodic save did not
+                # cover the last completed step — write it now
+                ckpt.save(_train_state(model, opt_state), completed)
+                _emit_resilience("final_checkpoint", step=completed)
+        except Exception:  # noqa: BLE001 — must not mask the original exception
+            logger.exception("final checkpoint save at step %d failed", completed)
+        finally:
+            for s, h in prev_handlers.items():
+                signal.signal(s, h)
     return model, [float(x) for x in losses]
 
 

@@ -75,7 +75,7 @@ class LMConfig:
     )
     checkpoint_dir: str = arg(
         default="",
-        help="checkpoint/resume directory (not ported yet: raises)",
+        help="checkpoint/resume directory (preemption-safe training)",
     )
     checkpoint_every: int = arg(
         default=0,

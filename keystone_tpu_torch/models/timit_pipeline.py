@@ -77,8 +77,7 @@ class TimitConfig:
     num_epochs: int = arg(default=5)
     checkpoint_dir: str = arg(
         default="",
-        help="checkpoint the solver between BCD epochs (waits for the "
-        "checkpoint store: raises if set)",
+        help="checkpoint the solver between BCD epochs and resume from this directory",
     )
     checkpoint_every: int = arg(default=1, help="BCD epochs per checkpoint chunk")
     seed: int = arg(default=123)

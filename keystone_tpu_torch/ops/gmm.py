@@ -28,13 +28,6 @@ from keystone_tpu_torch.ops.linear import _matmul_precision
 VAR_FLOOR = 1e-5
 
 
-def _native_not_ported(node: str):
-    return NotImplementedError(
-        f"{node}(backend='native'): the host C++ kernel is not ported "
-        "(ROADMAP A5 native code); use backend='device'"
-    )
-
-
 def _with_squares(x: torch.Tensor) -> torch.Tensor:
     """(N, d) points → (N, 2d): each point beside its squares."""
     return torch.cat([x, x * x], dim=1)
@@ -147,8 +140,9 @@ def gmm_em(x: torch.Tensor, mu0, var0, w0, max_iter: int, var_floor: float = VAR
 @dataclasses.dataclass(eq=False)
 class GaussianMixtureModelEstimator(Estimator):
     """Fit a diagonal GMM with EM from :func:`gmm_init`'s start, on the
-    samples' device. ``backend``: ``device`` (the only one ported);
-    ``native`` raises."""
+    samples' device. ``backend``: ``device``, or ``native``: the host C++
+    EM (:mod:`keystone_tpu_torch.native.enceval`) on a host copy of the
+    samples from the same start, the model placed on their device."""
 
     k: int = 16
     max_iter: int = 100
@@ -157,12 +151,16 @@ class GaussianMixtureModelEstimator(Estimator):
     backend: str = "device"
 
     def fit(self, samples) -> GaussianMixtureModel:
-        if self.backend == "native":
-            raise _native_not_ported("GaussianMixtureModelEstimator")
-        if self.backend != "device":
+        if self.backend not in ("device", "native"):
             raise ValueError(
                 f"GaussianMixtureModelEstimator backend={self.backend!r}; expected device|native")
         x = torch.as_tensor(samples).to(torch.float32)
+        if self.backend == "native":
+            from keystone_tpu_torch.native import enceval
+
+            out = enceval.gmm_em(x.cpu(), self.k, self.max_iter, self.seed, self.var_floor)
+            means, variances, weights = (torch.from_numpy(a).to(x.device) for a in out)
+            return GaussianMixtureModel(means=means, variances=variances, weights=weights)
         init = gmm_init(x, self.k, self.seed, self.var_floor)
         means, variances, weights = gmm_em(x, *init, self.max_iter, self.var_floor)
         return GaussianMixtureModel(means=means, variances=variances, weights=weights)
@@ -176,14 +174,20 @@ class FisherVector(Transformer):
 
     Input: (N, d, m) feature-major descriptor matrices. Output: (N, d, 2k),
     columns 0..k-1 the mean gradients, k..2k-1 the variance gradients.
-    ``backend``: ``device`` (the only one ported); ``native`` raises."""
+    ``backend``: ``device``, or ``native``: the host C++ encoder on host
+    copies, the result placed on the batch's device."""
 
     gmm: GaussianMixtureModel
     backend: str = "device"
 
     def __call__(self, batch):
         if self.backend == "native":
-            raise _native_not_ported("FisherVector")
+            from keystone_tpu_torch.native import enceval
+
+            batch = torch.as_tensor(batch)
+            g = self.gmm
+            out = enceval.fisher_vectors(batch, g.means, g.variances, g.weights)
+            return torch.from_numpy(out).to(batch.device)
         if self.backend != "device":
             raise ValueError(f"FisherVector backend={self.backend!r}; expected device|native")
         return fisher_vectors(batch, self.gmm)

@@ -474,11 +474,18 @@ class BlockLeastSquaresEstimator(LabelEstimator):
     lam: float = 0.0
     precision: str | None = None
 
-    def fit(self, data, labels, n_valid: int | None = None) -> BlockLinearMapper:
+    def fit(
+        self, data, labels, n_valid: int | None = None, init: BlockLinearMapper | None = None
+    ) -> BlockLinearMapper:
+        """``init`` warm-starts BCD from a fitted model's blocks: the fixed
+        point is the same, and k passes from a model checkpointed after j
+        passes continue the (j+k)-pass fit (see
+        :func:`keystone_tpu_torch.core.checkpoint.resumable_fit`)."""
         blocks = _split_blocks(data, self.block_size)
+        init_xs = None if init is None else tuple(init.xs)
         with _matmul_precision(self.precision):
             xs, means, intercept = _bcd_fit(
-                tuple(blocks), labels, n_valid, self.num_iter, self.lam
+                tuple(blocks), labels, n_valid, self.num_iter, self.lam, init_xs
             )
         return BlockLinearMapper(
             xs=xs, b=intercept, means=means, block_size=self.block_size
@@ -583,14 +590,22 @@ def _block_stats(blocks: tuple, labels, n_valid):
     return mask, b_mean, means, centered, grams
 
 
-def _bcd_fit(blocks: tuple, labels, n_valid, num_iter: int, lam: float):
+def _bcd_fit(blocks: tuple, labels, n_valid, num_iter: int, lam: float, init_xs=None):
     """Data-form BCD: per-block Grams and factors computed once, the
-    residual carried across blocks and passes."""
+    residual carried across blocks and passes. ``init_xs`` warm-starts
+    the blocks; the residual is then recomputed from them."""
     dtype = blocks[0].dtype
     mask, b_mean, means, centered, grams = _block_stats(blocks, labels, n_valid)
     k = labels.shape[-1]
-    xs = [torch.zeros((blk.shape[-1], k), dtype=dtype, device=blk.device) for blk in blocks]
+    if init_xs is None:
+        xs = [torch.zeros((blk.shape[-1], k), dtype=dtype, device=blk.device) for blk in blocks]
+    else:
+        xs = [x.to(dtype=dtype, device=blk.device) for x, blk in zip(init_xs, blocks)]
     resid = (labels - b_mean) * mask
+    if init_xs is not None:
+        # the residual consistent with the warm start: R = b_c − Σ A_i x_i
+        for a_c, x in zip(centered, xs):
+            resid = resid - a_c @ x
     factors = [ridge_factor(g, lam) for g in grams]
     for _ in range(num_iter):
         for i, a_c in enumerate(centered):

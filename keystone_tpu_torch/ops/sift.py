@@ -180,8 +180,10 @@ class SIFTExtractor(Transformer):
 
     Input: (N, H, W) or (N, H, W, 1) grayscale in [0, 1], float32, on any
     device. Output: (N, 128, M) quantized descriptors on that device,
-    scales concatenated in order. ``backend``: ``device`` (the only one
-    ported); ``native`` raises: the host C++ kernel is not ported."""
+    scales concatenated in order. ``backend``: ``device``, or ``native``:
+    the host C++ kernel (``native/dsift.cpp``, the same algorithm and
+    layout) on a host copy of the batch, its result placed back on the
+    batch's device; a library that cannot be built raises."""
 
     step: int = 3
     bin_size: int = 4
@@ -190,16 +192,22 @@ class SIFTExtractor(Transformer):
     backend: str = "device"
 
     def __call__(self, batch):
-        if self.backend == "native":
-            raise NotImplementedError(
-                "SIFTExtractor(backend='native'): the host C++ kernel is not ported "
-                "(ROADMAP A5 native code); use backend='device'"
-            )
-        if self.backend != "device":
+        if self.backend not in ("device", "native"):
             raise ValueError(f"SIFTExtractor backend={self.backend!r}; expected device|native")
         batch = torch.as_tensor(batch)
         if batch.ndim == 4:
             batch = batch[..., 0]
+        if self.backend == "native":
+            from keystone_tpu_torch.native import native_dsift
+
+            out = native_dsift(
+                batch.detach().cpu().numpy(),
+                step=self.step,
+                bin_size=self.bin_size,
+                num_scales=self.num_scales,
+                scale_step=self.scale_step,
+            )
+            return torch.from_numpy(out).to(batch.device)
         return _sift_multiscale(
             batch.to(torch.float32), self.step, self.bin_size, self.num_scales, self.scale_step
         )

@@ -12,9 +12,10 @@ pass (:func:`run_plan`) and fused streaming fit (:func:`fit_stream`).
 - :func:`shared_prefix_nodes` and :func:`apply_shared`: the per-chunk
   form of prefix sharing, one prefix apply feeding several branches.
 
-The metrics counters, spans and telemetry rows of the JAX executor's
-apply and fit passes are not wired yet; ``plan.decisions`` keep the
-record. :func:`serve_stream` records the reference's.
+The spans and telemetry rows of the JAX executor's apply and fit passes
+are not wired yet; ``plan.decisions`` keep the record. :func:`fit_stream`
+counts the reference's ``plan_fused_fit*`` counters, :func:`serve_stream`
+records the reference's.
 """
 
 from __future__ import annotations
@@ -138,13 +139,19 @@ def apply_shared(
     return [torch.cat([chunk[j] for chunk in per_chunk], dim=0) for j in range(len(branch_fns))]
 
 
-def fit_stream(plan: Plan, data: Any, labels: Any, *, n_valid=None):
+def fit_stream(plan: Plan, data: Any, labels: Any, *, n_valid=None, init_state=None):
     """Execute a fused streaming-fit plan: staged (data, labels) chunks go
     through the sink's ``featurize → fit_stats_update`` step on the
     staging engine (chunk k+1's transfer overlaps chunk k's accumulate);
     returns the accumulated state for ``fit_stats_finalize``. Pad rows
     (the ragged tail) are masked out of the statistics via each chunk's
-    ``n_valid``."""
+    ``n_valid``.
+
+    ``init_state`` seeds the fold with previously accumulated statistics
+    instead of a zero state — the online-learning verb
+    (:mod:`keystone_tpu_torch.learn`): a refit folds only the new chunks,
+    so rows already inside the state are never featurized again (the
+    ``plan_fused_fit_rows`` counter advances by exactly the new rows)."""
     from keystone_tpu_torch.ops.linear import _matmul_precision
     from keystone_tpu_torch.plan.fused_fit import StreamingFitSink
 
@@ -179,14 +186,17 @@ def fit_stream(plan: Plan, data: Any, labels: Any, *, n_valid=None):
         feats = prefix_pipe(a) if prefix_pipe.nodes else a
         return est.fit_stats_update(state, feats, b, n_valid=valid, gram_fn=gram_fn)
 
+    if init_state is None:
+        init_state = est.fit_stats_init(sink.d, sink.k, plan.device)
     with _matmul_precision(getattr(est, "precision", None)):
-        return fold_staged(
-            chunks(),
-            update,
-            est.fit_stats_init(sink.d, sink.k, plan.device),
-            plan.device,
-            stage_depth=plan.stage_depth,
+        state = fold_staged(
+            chunks(), update, init_state, plan.device, stage_depth=plan.stage_depth
         )
+    reg = _metrics.get_registry()
+    reg.counter("plan_fused_fits").inc()
+    reg.counter("plan_fused_fit_chunks").inc(-(-n // chunk) if n else 0)
+    reg.counter("plan_fused_fit_rows").inc(n_ok)
+    return state
 
 
 def serve_stream(

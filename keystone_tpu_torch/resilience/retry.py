@@ -204,3 +204,9 @@ def retrying(policy: RetryPolicy, label: str = ""):
 #: more chances over ~0.3 s, a corrupt file fails fast to the caller's
 #: skip path.
 IO_POLICY = RetryPolicy(max_attempts=3, base_delay_s=0.05, deadline_s=10.0)
+
+#: Checkpoint save/restore: the write is the run's survival, so be
+#: patient — five attempts over up to a minute.
+CHECKPOINT_POLICY = RetryPolicy(
+    max_attempts=5, base_delay_s=0.5, max_delay_s=15.0, deadline_s=60.0
+)

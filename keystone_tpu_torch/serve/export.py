@@ -14,9 +14,28 @@ The exported form fixes both:
   every request size maps to an existing graph. On the CPU the apply
   runs eagerly.
 
-``export_pipeline`` takes a fitted pipeline object; serving a
-``save_fitted`` checkpoint path waits for the port of
-``core/serialization``.
+A capture may run while the server serves: a hot swap captures the
+candidate's buckets while the batcher's thread replays the incumbent's
+graphs and copies results to the host, and the shadow scores on a thread
+of its own. In CUDA's default ``global`` capture mode a synchronizing or
+allocating call from any other thread during the capture fails the
+capture ("operation not permitted when stream is capturing") or the
+other thread's call. So each bucket is captured in ``thread_local`` mode,
+which forbids those calls only to the capturing thread, into a memory
+pool of the candidate's own: the incumbent keeps serving, unstalled,
+until the commit. Other threads must not touch the capturing stream, so
+the capture runs on a stream from PyTorch's high-priority stream pool:
+the serving path takes its side streams (the staging engine's copy
+stream, a warm-up's stream) from the default-priority pool, and a
+round-robin pool stream shared with a capture turns another thread's
+copies and events into the capture's ("operation not permitted on an
+event last recorded in a capturing stream"). A retired model's graphs
+are dropped by :meth:`ExportedApply.release` on the swapper's thread
+once its batcher has drained, so two models' graphs are resident only
+across a swap.
+
+``export_pipeline`` takes a fitted pipeline object or a ``save_fitted``
+/ ``save_pipeline`` checkpoint path.
 """
 
 from __future__ import annotations
@@ -129,10 +148,20 @@ class ExportedApply:
         static = torch.zeros((b, *self.row_shape), dtype=dtype, device=self.device)
         side_stream_warmup(lambda: self.pipe(static), self.device)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool):
+        capture_stream = torch.cuda.Stream(self.device, priority=-1)
+        with torch.cuda.graph(graph, pool=self._pool, stream=capture_stream,
+                              capture_error_mode="thread_local"):
             out = self.pipe(static)
         self._pool = graph.pool()
         return graph, static, out
+
+    def release(self) -> None:
+        """Drop the bucket graphs, their outputs and their memory pool now,
+        on the calling thread: a model retired by a swap, once its batcher
+        has drained (not whenever the garbage collector reaches it)."""
+        with self._replay_lock:
+            self._graphs.clear()
+            self._pool = None
 
     # ------------------------------------------------------------- apply
 
@@ -205,13 +234,13 @@ def export_pipeline(
     optimize: bool = True,
     device: torch.device | str | None = None,
 ) -> ExportedApply:
-    """Export a fitted pipeline object as a serving apply on ``device``
+    """Export a fitted pipeline (an object, or a ``save_fitted`` /
+    ``save_pipeline`` checkpoint path) as a serving apply on ``device``
     (the card unless the caller asks for the CPU)."""
     if isinstance(pipe_or_path, str):
-        raise NotImplementedError(
-            "serving a checkpoint path needs core/serialization, which is "
-            "not ported yet (ROADMAP A7); pass a fitted pipeline"
-        )
+        from keystone_tpu_torch.core.serialization import load_pipeline
+
+        pipe_or_path = load_pipeline(pipe_or_path, device=resolve_device(device))
     if not isinstance(pipe_or_path, Transformer):
         pipe_or_path = Pipeline.of(pipe_or_path)
     return ExportedApply(

@@ -4,6 +4,7 @@ port of ``keystone_tpu/serve/server.py``.
 ``python -m keystone_tpu_torch.serve.server <model> [--port N]`` where
 ``<model>`` is:
 
+- a ``save_fitted`` checkpoint path (what the refit daemon publishes),
 - ``mnist`` — fit the synthetic MNIST random-FFT pipeline in process and
   serve it (``POST /predict``; no data files needed),
 - ``lm`` — a transformer LM with random weights served through the
@@ -16,13 +17,16 @@ Endpoints::
 
     POST /predict  {"rows": [[...], ...]}        -> {"predictions": [...]}
     POST /generate {"prompt": [...], "max_new"}  -> {"tokens": [...]}
-    GET  /healthz                                -> status + latency summary
+    GET  /healthz                                -> status, model version, swaps
     GET  /metrics                                -> metrics registry snapshot
+    POST /admin/reload {"path"?}                 -> hot swap (learn/swap.py)
+    POST /admin/shadow {"path", ...}             -> start shadow scoring
+    GET  /admin/shadow                           -> the shadow's verdict
+    POST /admin/promote {"force"?}               -> gated promotion (409 refused)
+    POST /admin/shadow/stop                      -> drop the candidate
 
-The JAX package's online-learning surface — serving a ``save_fitted``
-checkpoint path, ``/admin/*`` (hot reload, shadow scoring, promote) and
-SIGHUP reload — waits for the port of ``core/serialization`` and
-``learn/``; ``/admin/*`` answers 501 saying so.
+SIGHUP reloads from the checkpoint the server was started on (the refit
+daemon republishes it).
 
 Wiring:
 
@@ -68,12 +72,6 @@ logger = get_logger("keystone_tpu_torch.serve.server")
 
 ENV_SLOW_MS = "KEYSTONE_SERVE_SLOW_MS"
 ENV_TIMEOUT_S = "KEYSTONE_SERVE_TIMEOUT_S"
-
-_NOT_PORTED = (
-    "the online-learning surface (reload, shadow, promote) is not ported "
-    "yet: ROADMAP A7"
-)
-
 
 def _request_timeout_s() -> float:
     try:
@@ -122,11 +120,21 @@ class ServeApp:
                 )
         self.exported = exported
         self.loop = decode_loop
-        self.model_version = model_version
         self._rid = itertools.count()
         self._inflight = 0
         self._lock = threading.Lock()
         self._stop = threading.Event()
+        # the online-learning surface: the served model's version, the
+        # hot swaps this process has taken, the swapper that performs them
+        # (attached by build_app for reloadable models) and an optional
+        # shadow scorer. _model_lock serializes batcher SUBMITS against
+        # batcher REPLACEMENT: a request never reaches a closing batcher
+        self.model_version = model_version
+        self.swap_count = 0
+        self._model_lock = threading.Lock()
+        self._deadline_ms = deadline_ms
+        self.swapper = None
+        self.shadow = None
         self.batcher = None
         if exported is not None:
             from keystone_tpu_torch.serve.queue import MicroBatcher
@@ -220,7 +228,11 @@ class ServeApp:
             with self._bracket(), _spans.span(
                 "serve.request", rid=rid, kind="predict", **span_kw
             ):
-                fut = self.batcher.submit(rows, rid=rid)
+                # submit under the model lock: a hot swap replaces the
+                # batcher under the same lock, so this request lands on a
+                # batcher that will be drained, never one mid-close
+                with self._model_lock:
+                    fut = self.batcher.submit(rows, rid=rid)
                 out = _host(fut.result(timeout=_request_timeout_s()))
         finally:
             # finally, not on success only: a timed-out request is by
@@ -228,6 +240,11 @@ class ServeApp:
             _health.get_monitor().note_request(
                 time.perf_counter() - t0, rid=rid
             )
+        shadow = self.shadow
+        if shadow is not None:
+            # after the primary result resolved: the shadow only queues
+            # references (never blocks)
+            shadow.observe(rows, out, rid=rid)
         return out
 
     def generate(
@@ -256,6 +273,35 @@ class ServeApp:
             )
         return out
 
+    # ------------------------------------------------------------- swap
+
+    def swap_exported(self, exported, version: str | None = None) -> None:
+        """Atomically replace the served pipeline: a NEW micro-batcher on
+        the candidate goes live under the model lock (no submit can
+        interleave), then the OLD batcher drains — every request already
+        queued finishes on the model it was admitted under; then the old
+        model's graphs are released here, on the swapper's thread, where no
+        capture runs. The caller (:class:`keystone_tpu_torch.learn.swap.
+        ModelSwapper`) owns the load, spec check and probe in front of
+        this, under its lock."""
+        from keystone_tpu_torch.serve.queue import MicroBatcher
+
+        if exported.device.type != self.device.type:
+            raise ValueError(f"the candidate is on {exported.device}, the app on {self.device}")
+        new_batcher = MicroBatcher(
+            exported, buckets=exported.buckets, deadline_ms=self._deadline_ms
+        )
+        with self._model_lock:
+            old_batcher, old_exported = self.batcher, self.exported
+            self.batcher = new_batcher
+            self.exported = exported
+            self.model_version = version
+            self.swap_count += 1
+        if old_batcher is not None:
+            old_batcher.close(drain=True)
+        if old_exported is not None and old_exported is not exported:
+            old_exported.release()
+
     def health(self) -> dict:
         reg = _metrics.get_registry()
         snap = reg.snapshot()
@@ -276,21 +322,104 @@ class ServeApp:
             "slots_active": snap.get("serve_slots_active", 0.0),
         }
         if self.exported is not None:
+            # which model version answers /predict now, and how many hot
+            # swaps got it there
             out["model_version"] = self.model_version
+            out["model_swaps"] = self.swap_count
         # where this process's run streams live, so a collector that
         # reached /healthz can tail the advertised dir
         log = _events.active()
         if log is not None and log.run_dir:
             out["run_dir"] = log.run_dir
+        # local capture: a concurrent promote or stop can clear the attr
+        shadow = self.shadow
+        if shadow is not None:
+            out["shadow"] = shadow.verdict()
         for name, summ in (("queue", t), ("http", th)):
             if summ.get("count"):
                 out[f"{name}_p50_ms"] = round(summ.get("p50_s", 0.0) * 1e3, 3)
                 out[f"{name}_p95_ms"] = round(summ.get("p95_s", 0.0) * 1e3, 3)
         return out
 
+    # ----------------------------------------------------------- shadow
+
+    def start_shadow(self, path: str, state_path: str | None = None, **kw) -> dict:
+        """Load a candidate checkpoint (spec-checked), export it over the
+        incumbent's buckets (on the card: capture its graphs) and start
+        scoring sampled requests in shadow. ``kw`` goes to
+        :class:`keystone_tpu_torch.learn.shadow.ShadowRunner`
+        (sample_every, divergence_threshold, min_samples, feature_stats).
+        ``state_path`` names the refit daemon's state: its means and
+        variances arm the drift half of the gate when they are in input
+        space."""
+        if self.swapper is None:
+            raise ValueError("no model swapper on this server")
+        from keystone_tpu_torch.core.serialization import load_fitted
+        from keystone_tpu_torch.learn.shadow import ShadowRunner, input_feature_stats
+        from keystone_tpu_torch.learn.swap import version_of
+
+        if state_path and "feature_stats" not in kw:
+            from keystone_tpu_torch.learn.merge import load_fit_state
+
+            kw["feature_stats"] = input_feature_stats(
+                load_fit_state(state_path, device=self.device)
+            )
+        pipe, meta = load_fitted(path, with_meta=True, device=self.device)
+        exported = self.swapper.export_candidate(pipe, meta)
+        version = version_of(path, meta)
+        old, self.shadow = self.shadow, ShadowRunner(exported, version, **kw)
+        if old is not None:
+            old.close()
+            self.swapper.retire(old.exported)
+        self.swapper._observe("shadow_start", candidate_version=version, path=path)
+        return {"candidate_version": version, "shadowing": True}
+
+    def promote_shadow(self, force: bool = False) -> dict:
+        """Apply the gate to the shadow candidate: a promoted candidate is
+        swapped in (its graphs are captured already); a refused one is
+        DISCARDED and the last good primary keeps serving, loudly."""
+        shadow = self.shadow
+        if shadow is None:
+            raise ValueError("no shadow candidate running")
+        shadow.drain()
+        verdict = shadow.verdict()
+        if not verdict["promote"] and not force:
+            self.shadow = None
+            shadow.close()
+            self.swapper.retire(shadow.exported)
+            self.swapper._observe(
+                "rollback",
+                old_version=self.model_version,
+                new_version=shadow.version,
+                reason="shadow_gate",
+                **{k: verdict[k] for k in ("samples", "mean_divergence", "drift_alerts")},
+            )
+            logger.warning(
+                "shadow candidate %r rejected (divergence %.4f, %d drift alert(s)); still "
+                "serving %r", shadow.version, verdict["mean_divergence"],
+                verdict["drift_alerts"], self.model_version,
+            )
+            return {"promoted": False, **verdict}
+        res = self.swapper.promote(shadow.exported, shadow.version)
+        self.shadow = None
+        shadow.close()
+        return {"promoted": True, **verdict, **res}
+
+    def stop_shadow(self) -> dict:
+        shadow, self.shadow = self.shadow, None
+        if shadow is None:
+            return {"shadowing": False}
+        verdict = shadow.verdict()
+        shadow.close()
+        self.swapper.retire(shadow.exported)
+        self.swapper._observe("shadow_stop", candidate_version=shadow.version)
+        return {"shadowing": False, **verdict}
+
     def shutdown(self) -> None:
         """Drain: no new work, finish queued work, stop the threads."""
         self._stop.set()
+        if self.shadow is not None:
+            self.shadow.close()
         if self.batcher is not None:
             self.batcher.close(drain=True)
         if self._decode_thread is not None:
@@ -363,15 +492,21 @@ def _handler_for(app: ServeApp):
         def do_GET(self):  # noqa: N802 — stdlib API
             if self.path == "/healthz":
                 return self._send(200, app.health())
+            if self.path == "/admin/shadow":
+                shadow = app.shadow  # local capture vs a concurrent stop
+                if shadow is None:
+                    return self._send(404, {"shadowing": False})
+                return self._send(200, shadow.verdict())
             if self.path == "/metrics":
                 return write_metrics_response(self)
-            if self.path.startswith("/admin/"):
-                return self._send(501, {"error": _NOT_PORTED})
             return self._send(
                 404,
                 {
                     "error": f"unknown path {self.path}",
-                    "paths": ["/predict", "/generate", "/healthz", "/metrics"],
+                    "paths": [
+                        "/predict", "/generate", "/healthz", "/metrics",
+                        "/admin/reload", "/admin/shadow", "/admin/promote",
+                    ],
                 },
             )
 
@@ -383,7 +518,7 @@ def _handler_for(app: ServeApp):
             except ValueError:
                 return self._send(400, {"error": "invalid JSON body"})
             if self.path.startswith("/admin/"):
-                return self._send(501, {"error": _NOT_PORTED})
+                return self._admin(body)
             # adopt an upstream trace: "X-Keystone-Trace: <trace>:<span>"
             # parents the request's serve.request span
             parent = None
@@ -422,6 +557,42 @@ def _handler_for(app: ServeApp):
             _metrics.get_registry().timer("serve_http_seconds").observe(wall)
             payload["ms"] = round(wall * 1e3, 3)
             self._send(200, payload)
+
+        def _admin(self, body: dict) -> None:
+            """The online-learning control surface: reload (hot swap),
+            shadow start, gated promote, shadow stop. Failures answer JSON
+            with the still-serving version: a failed swap rolled back by
+            construction."""
+            from keystone_tpu_torch.learn.swap import SwapError
+
+            try:
+                if self.path == "/admin/reload":
+                    if app.swapper is None:
+                        return self._send(409, {"error": "no model swapper on this server"})
+                    return self._send(200, app.swapper.swap_to_path(body.get("path")))
+                if self.path == "/admin/shadow":
+                    kw = {
+                        k: body[k]
+                        for k in ("state_path", "sample_every", "divergence_threshold",
+                                  "min_samples")
+                        if k in body
+                    }
+                    return self._send(200, app.start_shadow(body["path"], **kw))
+                if self.path == "/admin/promote":
+                    res = app.promote_shadow(force=bool(body.get("force")))
+                    return self._send(200 if res.get("promoted") else 409, res)
+                if self.path == "/admin/shadow/stop":
+                    return self._send(200, app.stop_shadow())
+                return self._send(404, {"error": f"unknown admin path {self.path}"})
+            except SwapError as e:
+                return self._send(
+                    500, {"error": str(e), "rolled_back": True, "version": app.model_version}
+                )
+            except (KeyError, ValueError, TypeError) as e:
+                return self._send(400, {"error": repr(e)})
+            except Exception as e:  # noqa: BLE001 — the server must answer
+                logger.warning("admin request failed: %r", e)
+                return self._send(500, {"error": repr(e)})
 
     return Handler
 
@@ -489,7 +660,7 @@ def _build_lm(args: dict, device=None):
 
 
 USAGE = """usage: python -m keystone_tpu_torch.serve.server <model> [options]
-<model>: mnist | lm (a save_fitted checkpoint path waits for ROADMAP A7)
+<model>: a save_fitted checkpoint path | mnist | lm
 options:
   --port N          listen port (default 8100; 0 = OS-assigned, printed)
   --host H          bind address (default 127.0.0.1)
@@ -504,6 +675,7 @@ options:
   --int8-kv         lm int8 KV cache
   --dim/--depth/--heads/--vocab/--seed  lm demo model shape
   --input-dim D     row width when serving a checkpoint with no sample meta
+  --device D        where to serve (default: the card; cpu for tests)
 """
 
 
@@ -519,6 +691,7 @@ def _parse(argv: list[str]) -> tuple[str, dict]:
         "--slots": "slots", "--max-new": "max_new", "--s-max": "s_max",
         "--dim": "dim", "--depth": "depth", "--heads": "heads",
         "--vocab": "vocab", "--seed": "seed", "--input-dim": "input_dim",
+        "--device": "device",
     }
     while i < len(argv):
         a = argv[i]
@@ -538,6 +711,7 @@ def _parse(argv: list[str]) -> tuple[str, dict]:
 def build_app(target: str, args: dict, device: torch.device | str | None = None) -> ServeApp:
     """The app for ``target`` on ``device`` (default: the card). Its
     programs are captured here, before any serving thread starts."""
+    from keystone_tpu_torch.learn.swap import ModelSwapper, version_of
     from keystone_tpu_torch.serve.export import export_lm, export_pipeline
 
     device = resolve_device(device)
@@ -556,12 +730,16 @@ def build_app(target: str, args: dict, device: torch.device | str | None = None)
             device=device,
         )
         exported = export_pipeline(pipe, sample, buckets=buckets, device=device)
-        return ServeApp(
+        app = ServeApp(
             exported=exported,
             deadline_ms=deadline,
             model_version="mnist-demo",
             device=device,
         )
+        # reloadable with an explicit path (POST /admin/reload {"path"});
+        # no default source: the demo fit has no file
+        app.swapper = ModelSwapper(app)
+        return app
     if target == "lm":
         model = _build_lm(args, device)
         loop = export_lm(
@@ -574,18 +752,59 @@ def build_app(target: str, args: dict, device: torch.device | str | None = None)
         )
         return ServeApp(decode_loop=loop, deadline_ms=deadline, device=device)
     if os.path.exists(target):
-        raise NotImplementedError(
-            f"serving the checkpoint {target!r} needs core/serialization, "
-            "which is not ported yet (ROADMAP A7)"
+        from keystone_tpu_torch.core.serialization import load_fitted
+
+        pipe, meta = load_fitted(target, with_meta=True, device=device)
+        sample = meta.get("sample")
+        if sample is None:
+            if "input_dim" not in args:
+                raise SystemExit(f"{target} carries no sample meta; pass --input-dim D")
+            sample = np.zeros((1, int(args["input_dim"])), np.float32)
+        exported = export_pipeline(pipe, np.asarray(sample), buckets=buckets, device=device)
+        app = ServeApp(
+            exported=exported,
+            deadline_ms=deadline,
+            model_version=version_of(target, meta),
+            device=device,
         )
-    raise SystemExit(f"unknown model {target!r}: not 'mnist' or 'lm'")
+        # the reload source: POST /admin/reload without a path and SIGHUP
+        # both read this file again — the refit daemon republishes it
+        app.swapper = ModelSwapper(app, source_path=target)
+        return app
+    raise SystemExit(
+        f"unknown model {target!r}: not a checkpoint path, 'mnist' or 'lm'"
+    )
+
+
+def install_reload_signal(app: ServeApp):
+    """SIGHUP hot-reloads ``app`` from its swapper's source path (the
+    refit daemon republishes it), off the signal frame, on a thread of its
+    own; a failed swap keeps the prior version. Returns the previous
+    handler. Call from the main thread."""
+
+    def _hup(signum, frame):
+        if app.swapper is None or not app.swapper.source_path:
+            logger.warning("SIGHUP: no reloadable model path; ignored")
+            return
+
+        def reload():
+            from keystone_tpu_torch.learn.swap import SwapError
+
+            try:
+                logger.info("SIGHUP reload: %s", app.swapper.swap_to_path())
+            except SwapError as e:
+                logger.warning("SIGHUP reload failed: %s", e)
+
+        threading.Thread(target=reload, name="serve-sighup-reload", daemon=True).start()
+
+    return signal.signal(signal.SIGHUP, _hup)
 
 
 def main(argv: list[str] | None = None, device=None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
     target, args = _parse(argv)
     t0 = time.perf_counter()
-    app = build_app(target, args, device=device)
+    app = build_app(target, args, device=device if device is not None else args.get("device"))
     cold = time.perf_counter() - t0
     host = str(args.get("host", "127.0.0.1"))
     port = int(args.get("port", 8100))
@@ -615,6 +834,7 @@ def main(argv: list[str] | None = None, device=None) -> None:
 
     signal.signal(signal.SIGTERM, _term)
     signal.signal(signal.SIGINT, _term)
+    install_reload_signal(app)
     print(
         f"serving {target!r} on http://{host}:{port} "
         f"(cold start {cold:.2f}s)",

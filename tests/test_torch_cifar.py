@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 import keystone_tpu.native  # noqa: E402
+import keystone_tpu_torch.native  # noqa: E402
 from keystone_tpu.loaders import cifar as j_cifar  # noqa: E402
 from keystone_tpu.models import cifar_linear_pixels as j_lp  # noqa: E402
 from keystone_tpu.ops import images as j_images  # noqa: E402
@@ -40,6 +41,7 @@ def test_loader_matches_jax(tmp_path, monkeypatch, numpy_branch):
     built."""
     if numpy_branch:
         monkeypatch.setattr(keystone_tpu.native, "native_load_cifar", lambda f: None)
+        monkeypatch.setattr(keystone_tpu_torch.native, "native_load_cifar", lambda f: None)
     a = _write_records(os.path.join(tmp_path, "data_batch_1.bin"), 7, 0)
     _write_records(os.path.join(tmp_path, "data_batch_2.bin"), 5, 1)
     for path in (os.path.join(tmp_path, "data_batch_1.bin"), str(tmp_path),

@@ -1453,3 +1453,103 @@ def test_pca_of_a_tall_sample_on_card_matches_cpu(card):
     got = linalg.compute_pca(x.to(card), 8).double().cpu()
     p_got, p_want = got @ got.T, want @ want.T
     assert float((p_got - p_want).abs().max()) <= 1e-4 * float(p_want.abs().max())
+
+
+# --------------------------------------------------------------- state, online learning
+
+
+def test_native_backends_take_cuda_tensors(card):
+    """The host C++ backends copy CUDA inputs to the host and return on the
+    caller's device, with the same values as from host inputs."""
+    from keystone_tpu_torch.ops import gmm, sift
+
+    rng = np.random.default_rng(0)
+    imgs = torch.from_numpy(rng.random((2, 48, 40)).astype(np.float32))
+    ext = sift.SIFTExtractor(num_scales=2, backend="native")
+    got = ext(imgs.to(card))
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), ext(imgs))
+    x = torch.from_numpy(rng.normal(size=(300, 8)).astype(np.float32))
+    est = gmm.GaussianMixtureModelEstimator(k=3, max_iter=5, backend="native")
+    m_card, m_host = est.fit(x.to(card)), est.fit(x)
+    assert m_card.means.device.type == "cuda"
+    assert torch.equal(m_card.means.cpu(), m_host.means)
+    batch = torch.from_numpy(rng.normal(size=(2, 8, 20)).astype(np.float32))
+    fv = gmm.FisherVector(gmm=m_card, backend="native")
+    assert torch.equal(fv(batch.to(card)).cpu(), fv(batch))
+
+
+def test_cuda_fit_state_round_trip(card, tmp_path):
+    """A NormalEqState on the card saves from one host copy and loads back
+    onto the card bit for bit; the refit daemon folds onto it there."""
+    from keystone_tpu_torch.learn.merge import load_fit_state, save_fit_state
+    from keystone_tpu_torch.ops.linear import LinearMapEstimator
+
+    rng = np.random.default_rng(1)
+    a = torch.from_numpy(rng.normal(size=(500, 64)).astype(np.float32)).to(card)
+    b = torch.from_numpy(rng.normal(size=(500, 3)).astype(np.float32)).to(card)
+    est = LinearMapEstimator(lam=0.1)
+    state = est.fit_stats_update(est.fit_stats_init(64, 3, card), a, b)
+    path = str(tmp_path / "s.ksts")
+    save_fit_state(state, path, est=est, rows=500)
+    fs = load_fit_state(path)
+    assert fs.state.ata.device.type == "cuda"
+    for f in ("ata", "atb", "mean_a", "mean_b", "n"):
+        assert torch.equal(getattr(fs.state, f), getattr(state, f)), f
+
+
+def test_hot_swap_captures_while_serving(card, tmp_path):
+    """A swap captures the candidate's bucket graphs on the card while six
+    threads replay the incumbent's: no request fails, and the served
+    answers come from the candidate once the swap returns."""
+    import threading
+
+    from keystone_tpu_torch.core.pipeline import Pipeline
+    from keystone_tpu_torch.core.serialization import save_fitted
+    from keystone_tpu_torch.learn.swap import ModelSwapper
+    from keystone_tpu_torch.ops.linear import LinearMapEstimator
+    from keystone_tpu_torch.ops.util import MaxClassifier
+    from keystone_tpu_torch.serve.export import ExportedApply
+    from keystone_tpu_torch.serve.server import ServeApp
+
+    rng = np.random.default_rng(2)
+    a = rng.normal(size=(400, 32)).astype(np.float32)
+    paths = []
+    for v in range(3):
+        b = (a @ rng.normal(size=(32, 5)).astype(np.float32)).astype(np.float32)
+        model = LinearMapEstimator(lam=0.1).fit(torch.from_numpy(a).to(card),
+                                                torch.from_numpy(b).to(card))
+        paths.append(str(tmp_path / f"v{v}.kst"))
+        save_fitted(Pipeline.of(model, MaxClassifier()), paths[-1], version=f"v{v}",
+                    sample=a[:1])
+    from keystone_tpu_torch.core.serialization import load_fitted
+
+    first = load_fitted(paths[0], device=card)
+    app = ServeApp(exported=ExportedApply(first, a[:1], buckets=(1, 8, 32), device=card),
+                   deadline_ms=1.0, model_version="v0", device=card)
+    app.swapper = ModelSwapper(app, source_path=paths[0])
+    errors, stop = [], threading.Event()
+
+    def hammer(seed):
+        r = np.random.default_rng(seed)
+        while not stop.is_set():
+            n = int(r.integers(1, 40))
+            try:
+                assert app.predict(a[:n]).shape == (n,)
+            except Exception as e:  # noqa: BLE001 — collected for the assertion
+                errors.append(repr(e))
+
+    threads = [threading.Thread(target=hammer, args=(s,)) for s in range(6)]
+    for t in threads:
+        t.start()
+    try:
+        for p in paths[1:]:
+            res = app.swapper.swap_to_path(p)
+            assert res["capture_s"] > 0
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        app.shutdown()
+    assert errors == [] and app.swap_count == 2 and app.model_version == "v2"
+    want = load_fitted(paths[2], device=card)(torch.from_numpy(a[:8]).to(card))
+    assert torch.equal(app.exported(a[:8]).cpu(), want.cpu())

@@ -153,12 +153,19 @@ def test_soft_assignment():
     np.testing.assert_allclose(gamma[2], [0.5, 0.5], atol=1e-5)
 
 
-def test_native_backends_raise():
+def test_native_backends_raise(monkeypatch):
+    """The native backends raise when the host library cannot be built
+    (they never fall back to the device path), and an unknown backend
+    raises; the working native path is held in ``test_torch_native.py``."""
+    from keystone_tpu_torch.native import HostLibrary, enceval
+
     x = torch.zeros((10, 2))
     ours = convert.gmm(np.zeros((2, 2)), np.ones((2, 2)), np.array([0.5, 0.5]), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5 native code"):
+    broken = HostLibrary("missing", ["/nonexistent/enceval_host.cpp"], lambda lib: None)
+    monkeypatch.setattr(enceval, "ENCEVAL_LIB", broken)
+    with pytest.raises(RuntimeError, match="unavailable"):
         gmm.GaussianMixtureModelEstimator(k=2, backend="native").fit(x)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5 native code"):
+    with pytest.raises(RuntimeError, match="unavailable"):
         gmm.FisherVector(gmm=ours, backend="native")(torch.zeros((1, 2, 4)))
     with pytest.raises(ValueError, match="expected device\\|native"):
         gmm.GaussianMixtureModelEstimator(k=2, backend="ffi").fit(x)

@@ -119,6 +119,10 @@ from keystone_tpu_torch.serve.export import export_lm, export_pipeline
 app = server.build_app("mnist", {"synthetic": "200", "num_ffts": "1", "buckets": "2,4"}, device="cpu")
 assert app.predict(np.zeros((5, 784), np.float32)).shape == (5,)
 app.shutdown()
+from keystone_tpu_torch import learn, native
+from keystone_tpu_torch.core import serialization
+from keystone_tpu_torch.learn import refit, shadow, swap
+from keystone_tpu_torch.native import enceval
 app = server.build_app("lm", {"slots": "1", "s_max": "16", "max_new": "2", "vocab": "32",
                               "dim": "16", "heads": "2", "quantize": True}, device="cpu")
 assert len(app.generate([1, 2])) == 2
@@ -297,3 +301,26 @@ def test_constructor_without_device_raises_without_cuda(name):
         pytest.skip("a CUDA device is present: the constructor would use it")
     with pytest.raises(RuntimeError, match="CUDA"):
         _constructors()[name]()
+
+
+def test_state_entry_points_without_device_raise_without_cuda(tmp_path):
+    """Loading a fitted pipeline or a fit state, and starting the refit
+    daemon, place tensors on the card unless the caller asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry points would run on it")
+    from keystone_tpu_torch.core.serialization import load_fitted, save_fitted
+    from keystone_tpu_torch.learn.merge import load_fit_state, save_fit_state
+    from keystone_tpu_torch.learn.refit import RefitDaemon
+    from keystone_tpu_torch.ops.linear import LinearMapEstimator
+
+    path = str(tmp_path / "m.kst")
+    save_fitted({"w": torch.ones(2)}, path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_fitted(path)
+    est = LinearMapEstimator()
+    state = est.fit_stats_init(3, 2, "cpu")
+    save_fit_state(state, str(tmp_path / "s.ksts"), est=est)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_fit_state(str(tmp_path / "s.ksts"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RefitDaemon(str(tmp_path / "s.ksts"), str(tmp_path))

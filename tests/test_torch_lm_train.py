@@ -340,13 +340,16 @@ def test_step_batch_and_flops_match_jax():
         assert lm.train_step_flops(port_of(jm), 8, 128) == j_flops(jm, 8, 128)
 
 
-def test_unported_train_options_raise(monkeypatch):
-    """None of train's options outside this slice is ignored: each raises
-    and names the ROADMAP step that brings it."""
+def test_unported_train_options_raise(monkeypatch, tmp_path):
+    """None of train's options outside the port is ignored: each raises
+    and names the ROADMAP step that brings it. ``checkpoint_dir`` is
+    ported (tests/test_torch_lm_resume.py holds the resume)."""
     pm = port_of(_tiny())
     corpus = lm.synthetic_corpus(500, VOCAB)
     kw = dict(steps=1, batch=4, seq=SEQ)
-    for extra, step in ((dict(checkpoint_dir="ck"), "A7"), (dict(guard="skip"), "A8"),
+    _, ran = train(pm, corpus, **kw, checkpoint_dir=str(tmp_path / "ck"))
+    assert len(ran) == 1 and (tmp_path / "ck" / "step_1").is_dir()
+    for extra, step in ((dict(guard="skip"), "A8"),
                         (dict(step_timeout_s=5.0), "A8"),
                         (dict(mesh=create_mesh(data=2, devices=["cpu"] * 2)), "A6")):
         with pytest.raises(NotImplementedError, match=step):

@@ -135,9 +135,16 @@ def test_sift_matches_direct_golden(name):
     assert (np.abs(out[0].T - golden) <= 1.0).mean() >= 0.995
 
 
-def test_native_backend_raises_and_never_falls_back():
+def test_native_backend_raises_and_never_falls_back(monkeypatch):
+    """A native backend whose host library cannot be built raises; it
+    never falls back to the device path. The working native path is held
+    in ``test_torch_native.py``."""
+    import keystone_tpu_torch.native as native
+
     x = torch.zeros((1, 32, 32))
-    with pytest.raises(NotImplementedError, match="ROADMAP A5 native code"):
+    broken = native.HostLibrary("missing", ["/nonexistent/dsift.cpp"], lambda lib: None)
+    monkeypatch.setattr(native, "IO_LIB", broken)
+    with pytest.raises(RuntimeError, match="unavailable"):
         sift.SIFTExtractor(backend="native")(x)
     with pytest.raises(ValueError, match="expected device\\|native"):
         sift.SIFTExtractor(backend="host")(x)

@@ -232,13 +232,14 @@ def test_run_on_a_cpu_mesh_pads_the_rows(carried, monkeypatch):
     assert (meshed["test_predictions"] == plain["test_predictions"]).mean() >= 0.99
 
 
-def test_main_on_cpu(monkeypatch):
+def test_main_on_cpu(monkeypatch, tmp_path):
     monkeypatch.setenv("KEYSTONE_PLAN", "1")
     res = tt.main(["--synthetic", "400", "--num-cosines", "2", "--cosine-features", "128"], device="cpu")
     assert res["device"] == "cpu" and res["n_test"] == 80 and res["test_error"] <= 0.05
     assert res["fit_chunk_size"] is None
     with pytest.raises(SystemExit):
         tt.main([], device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        tt.main(["--synthetic", "50", "--num-cosines", "1", "--cosine-features", "16",
-                 "--checkpoint-dir", "ck"], device="cpu")
+    # --checkpoint-dir takes the classic fit through the resumable fit
+    ck = tt.main(["--synthetic", "50", "--num-cosines", "1", "--cosine-features", "16",
+                  "--checkpoint-dir", str(tmp_path / "ck")], device="cpu")
+    assert "fit_chunk_size" not in ck and (tmp_path / "ck" / "fit_meta.json").exists()
