@@ -285,8 +285,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    int8 forced), K1 once a fit and a fold chunk, its first launch bit for
    bit; every invariant PASS.
 
+40. the planner's self-tuning at the main path's width (``MAIN_ARGV``,
+   ``KEYSTONE_GRAM_OP=int8``): a fit under ``KEYSTONE_TUNE=1`` and a fresh
+   ``KEYSTONE_PLAN_STORE`` (the tuner's windows and knobs printed, its
+   flush persisting the record), then a second fit whose planned passes
+   take ``source="store"`` decisions from it; K1 once a fit chunk in each,
+   its first launch bit for bit; ``plan.fit_shared`` over two block
+   solvers on one featurizer bank (the bank applied once, both counters
+   ticked, weights within 1e-5 of max|W| of the naive fits); a K1 node's
+   cost profile on the card against the CPU's (the same FLOPs, allocator
+   bytes on the card only); ``plan.cli mnist-random-fft --fit`` and
+   ``--learned`` naming the card;
+41. the observability tools: ``lm_transformer.main`` at the flagship
+   train width, 4 steps under ``KEYSTONE_OBSERVE_DIR`` with a
+   ``KEYSTONE_PROFILE_STEPS`` window of two steps: its trace file, whole
+   past the session's primer, K2 8 a step by kernel name in it (and its
+   device ms), the device monitor's peak within 1 % of
+   ``torch.cuda.max_memory_allocated``, then the report, ``top --once``
+   and the dashboard over the run;
+42. the launcher in subprocesses on the card: ``python -m
+   keystone_tpu_torch --observe DIR mnist-random-fft --synthetic 10000``
+   (planned, int8) beside ``plan mnist-random-fft``, then ``observe DIR``
+   with the card's cost profiles.
+
 Phase 7 also holds K2 with its lse against its plain version at the train
 steps' shapes, (8, 16, 2,048, 64) and (1, 8, 16,384, 64), bf16 causal.
+
+``python3 chip_smoke.py --trace-windows N`` runs phase 41's train run ``N``
+times in one process and prints each window's record: its K2 launches in
+the trace, and the device records the primer took and any lost past it.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits non-zero
@@ -4967,6 +4994,434 @@ def phase_game_days(device) -> dict:
     return res
 
 
+# --- the planner's self-tuning and the observability tools (phases 40-42) ---
+TUNE_WINDOW_S = "0.02"  # the autotuner's window: the fit's stream lasts about 0.15 s
+SHARED_LAMS = (0.01, 0.1)  # fit_shared's two block solvers on one featurizer bank
+SHARED_TOL = 1e-5  # of max|W|, shared fits against the naive fits
+PROFILE_ROWS, PROFILE_COLS = 2048, 512  # the K1 node profiled on the card and the CPU
+OBS_STEPS, OBS_WINDOW = 4, "1:2"  # train steps and the profiler window (start:steps)
+OBS_PEAK_TOL = 0.01  # the monitor's peak against torch.cuda.max_memory_allocated
+CLI_MNIST_ARGV = ["--synthetic", "10000", "--num-ffts", "8", "--block-size", "2048"]
+
+
+def _env(**values):
+    """Set environment variables (None unsets); returns the old values."""
+    old = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    return old
+
+
+def _k1_first_launch(leg: str, q: torch.Tensor) -> bool:
+    """K1 on a fit's first chunk against its plain version, bit for bit."""
+    from keystone_tpu_torch.ops import gram
+
+    out, ref = gram.int8_gram(q), gram.int8_gram_plain(q)
+    torch.cuda.synchronize()
+    exact = bool(torch.equal(out, ref))
+    print(f"K1 first launch of the {leg} fit ({q.shape[0]}x{q.shape[1]}): bit for bit {exact}")
+    check(exact, f"self-tuning: K1's first launch of the {leg} fit is not its plain version")
+    return exact
+
+
+def phase_self_tuning(device) -> dict:
+    """Phase 40: the main path's MNIST fit (``MAIN_ARGV``, int8 forced) under
+    ``KEYSTONE_TUNE=1`` and a fresh ``KEYSTONE_PLAN_STORE``; the tuner's
+    flush at the run's end persists the record; a second fit's planned
+    passes take ``source="store"`` from it. K1 once a fit chunk in each,
+    its first launch bit for bit; ``fit_shared`` over two solvers on one
+    featurizer bank (prefix once, weights the naive fits'); a K1 node's
+    cost profile on the card against the CPU; ``plan.cli`` for the card."""
+    import contextlib
+    import io
+    import tempfile
+
+    from keystone_tpu_torch import plan as plan_mod
+    from keystone_tpu_torch.core.config import parse_config
+    from keystone_tpu_torch.core.kernels import BUILD_DIR
+    from keystone_tpu_torch.core.pipeline import ChainedLabelEstimator, Pipeline, transformer
+    from keystone_tpu_torch.models import mnist_random_fft as m
+    from keystone_tpu_torch.observe import cost, metrics
+    from keystone_tpu_torch.ops import gram
+    from keystone_tpu_torch.ops.linear import BlockLeastSquaresEstimator
+    from keystone_tpu_torch.ops.util import ClassLabelIndicators
+    from keystone_tpu_torch.plan import cli as plan_cli
+    from keystone_tpu_torch.plan import store as plan_store
+    from keystone_tpu_torch.plan import tune
+
+    t_phase = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    res: dict = {"legs": {}}
+    raw_int8_gram = gram.int8_gram
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as store_dir:
+        old = _env(KEYSTONE_PLAN="1", KEYSTONE_GRAM_OP="int8", KEYSTONE_TUNE="1",
+                   KEYSTONE_PLAN_STORE=store_dir, KEYSTONE_TUNE_WINDOW_S=TUNE_WINDOW_S)
+        try:
+            for leg in ("tuned", "stored"):
+                tune.reset()
+                first: list = []
+
+                def spy(q, first=first):
+                    if not first:
+                        first.append(q.clone())
+                    return raw_int8_gram(q)
+
+                gram.int8_gram = spy
+                _zero_counts()
+                t0 = time.perf_counter()
+                try:
+                    run = m.main(list(MAIN_ARGV))
+                    torch.cuda.synchronize()
+                finally:
+                    gram.int8_gram = raw_int8_gram
+                wall = time.perf_counter() - t0
+                counts = _counts()
+                chunks = -(-run["n_train"] // (run["fit_chunk_size"] or run["n_train"]))
+                tuner = tune.active()
+                history = list(tuner.history)
+                knobs = {k: tuner.value(k) for k in sorted(tuner.knobs)}
+                if leg == "tuned":
+                    tuner.flush()  # the run's teardown: persist the converged knobs
+                decisions = run["apply_decisions"]["train"]
+                seeded = [d for d in decisions if d.get("source") == "store"]
+                print(f"self-tuning [{leg}]: {wall:.2f} s, test error {run['test_error']:.4%}, "
+                      f"K1 {counts['int8_gram']} launches for {chunks} fit chunks; tuner "
+                      f"windows {[(h.get('eval'), h.get('action'), h.get('knob')) for h in history]}"
+                      f", knobs {knobs}; the train pass's store-seeded decisions {seeded}")
+                check(counts["int8_gram"] == chunks and not any(
+                    v for k, v in counts.items() if k != "int8_gram"),
+                    f"self-tuning [{leg}]: launches {counts} for {chunks} chunks")
+                check(run["test_error"] <= MAX_TEST_ERROR,
+                      f"self-tuning [{leg}]: test error {run['test_error']}")
+                check(history, f"self-tuning [{leg}]: the tuner judged no window")
+                exact = _k1_first_launch(leg, first[0])
+                leg_res = {"wall_s": wall, "test_error": run["test_error"],
+                           "fit_chunk_size": run["fit_chunk_size"], "k1_launches": counts[
+                               "int8_gram"], "fit_chunks": chunks, "k1_first_launch_bit_for_bit":
+                           exact, "tuner_history": history, "knobs": knobs,
+                           "apply_decisions": run["apply_decisions"]}
+                if leg == "tuned":
+                    q = first[0]
+                    leg_res["k1_ms"] = time_ms(lambda: gram.int8_gram(q))
+                    print(f"K1 at the tuned fit's chunk: {leg_res['k1_ms']:.3f} ms")
+                    records = plan_store.entries(store_dir)
+                    check(len(records) == 1 and records[0]["device_kind"] == kind,
+                          f"self-tuning: the store holds {records}")
+                    res["store_record"] = records[0]
+                    print("store record: " + " | ".join(plan_store.describe(records[0])))
+                else:
+                    check(seeded and any(d["action"] == "learned" for d in decisions),
+                          f"self-tuning: the second fit took nothing from the store {decisions}")
+                del first
+                res["legs"][leg] = leg_res
+            tune.reset()
+            # plan.cli for the card: the fit plan and the stored record
+            outs = {}
+            for flags in (["--fit"], ["--learned"]):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    plan_cli.main(["mnist-random-fft", *flags])
+                outs[flags[0]] = buf.getvalue()
+            check(f"device: {kind}" in outs["--fit"] and "gram=" in outs["--fit"],
+                  f"plan cli --fit: {outs['--fit'][:400]}")
+            check(f"device={kind}" in outs["--learned"] and "learned plan" in outs["--learned"],
+                  f"plan cli --learned: {outs['--learned'][:400]}")
+            print("plan cli --learned:\n" + outs["--learned"].rstrip())
+            res["plan_cli"] = outs
+        finally:
+            tune.reset()
+            _env(**old)
+
+    # fit_shared: the featurizer bank paid once for two block solvers
+    conf = parse_config(m.MnistRandomFFTConfig, list(MAIN_ARGV))
+    train = m._load(conf, "train")
+    x = torch.from_numpy(train.data)
+    y = ClassLabelIndicators(num_classes=10)(train.labels)
+    bank = m.FeaturizerBank.create(conf.num_ffts, conf.block_size, conf.seed, device=device)
+    chains = [ChainedLabelEstimator(prefix=bank, est=BlockLeastSquaresEstimator(
+        block_size=conf.block_size, num_iter=1, lam=lam)) for lam in SHARED_LAMS]
+    reg = metrics.get_registry()
+    before = {k: reg.snapshot().get(k, 0) for k in ("plan_prefix_shared",
+                                                     "plan_featurize_passes_saved")}
+    calls = []
+    featurize = m.FeaturizerBank.__call__
+
+    def counted(self, data):
+        calls.append(int(data.shape[0]))
+        return featurize(self, data)
+
+    m.FeaturizerBank.__call__ = counted
+    _zero_counts()
+    t0 = time.perf_counter()
+    try:
+        shared = plan_mod.fit_shared(chains, x, y, device=device)
+        torch.cuda.synchronize()
+        shared_s = time.perf_counter() - t0
+    finally:
+        m.FeaturizerBank.__call__ = featurize
+    shared_counts = _counts()
+    ticks = {k: reg.snapshot().get(k, 0) - v for k, v in before.items()}
+    t0 = time.perf_counter()
+    naive = [c.fit(x.to(device), y.to(device)) for c in chains]
+    torch.cuda.synchronize()
+    naive_s = time.perf_counter() - t0
+    gaps = []
+    for got, want in zip(shared, naive):
+        gw = torch.cat([b.reshape(-1) for b in got.nodes[-1].xs])
+        ww = torch.cat([b.reshape(-1) for b in want.nodes[-1].xs])
+        gaps.append(float((gw - ww).abs().max() / ww.abs().max()))
+    print(f"fit_shared: {shared_s:.2f} s for two solvers (the naive fits {naive_s:.2f} s), "
+          f"the bank applied {calls} (rows), counters {ticks}, weights against the naive "
+          f"fits {gaps} of max|W|; launches {shared_counts}")
+    check(calls == [len(train)], f"fit_shared: the shared prefix ran {calls}")
+    check(ticks == {"plan_prefix_shared": 1, "plan_featurize_passes_saved": 1},
+          f"fit_shared: counters {ticks}")
+    check(max(gaps) <= SHARED_TOL, f"fit_shared: weights {gaps} of max|W| from the naive fits")
+    res["fit_shared"] = {"s": shared_s, "naive_s": naive_s, "prefix_calls": calls,
+                         "counters": ticks, "max_rel_gap": gaps, "launches": shared_counts}
+    del shared, naive
+
+    # a K1 node's cost profile on the card and on the CPU, the same rows
+    probe = bank(x[:PROFILE_ROWS].to(device))[0][:, :PROFILE_COLS].contiguous()
+    node = Pipeline.of(transformer(gram.ata_int8, name="int8_gram"))
+    on_card = cost.record_pipeline_profile(node, probe)["00:int8_gram"]
+    on_cpu = cost.record_pipeline_profile(node, probe.cpu())["00:int8_gram"]
+    want = float(PROFILE_ROWS) * PROFILE_COLS * (PROFILE_COLS + 1)
+    print(f"cost profile of a K1 node ({PROFILE_ROWS}x{PROFILE_COLS}): card {on_card}, "
+          f"CPU flops {on_cpu['flops']:.6g}")
+    check(on_card["flops"] == on_cpu["flops"] == want,
+          f"cost: the K1 node reads {on_card['flops']} on the card, {on_cpu['flops']} on the CPU")
+    check(on_card["peak_bytes"] is not None and on_cpu["peak_bytes"] is None,
+          "cost: allocator bytes should be measured on the card only")
+    res["k1_node_profile"] = {"card": on_card, "cpu_flops": on_cpu["flops"]}
+    del bank, x, probe
+    torch.cuda.empty_cache()
+    res["s"] = time.perf_counter() - t_phase
+    print(f"phase 40: {res['s']:.1f} s")
+    return res
+
+
+def _trace_kernels(path: str, names) -> tuple:
+    """Kernel events in a Chrome trace whose name holds one of ``names``:
+    their count and summed device ms."""
+    with open(path) as f:
+        trace = json.load(f)
+    hits = [e for e in trace.get("traceEvents", [])
+            if e.get("cat") == "kernel" and any(n in e.get("name", "") for n in names)]
+    return len(hits), sum(float(e.get("dur", 0)) for e in hits) / 1e3
+
+
+def _observed_train(base: str) -> tuple:
+    """One ``lm_transformer.main`` at the flagship train width for
+    ``OBS_STEPS`` steps under ``KEYSTONE_OBSERVE_DIR=base`` with the
+    ``OBS_WINDOW`` profiler window: the run's result, its wall, the
+    wrapper counts, ``max_memory_allocated``, the run directory and the
+    tracer's record of its window."""
+    from keystone_tpu_torch.models import lm_transformer
+    from keystone_tpu_torch.observe import events, tracing
+
+    argv = list(TRAIN_ARGV)
+    argv[argv.index("--steps") + 1] = str(OBS_STEPS)
+    tracers: list = []
+    real_close = tracing.StepTracer.close
+
+    def keep(self):
+        real_close(self)
+        tracers.append(self)
+
+    old = _env(KEYSTONE_OBSERVE_DIR=base, KEYSTONE_PROFILE_STEPS=OBS_WINDOW,
+               KEYSTONE_DEVMEM_INTERVAL_S="0", KEYSTONE_TRACE_DIR=None)
+    tracing.StepTracer.close = keep
+    try:
+        events.reset()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        run = lm_transformer.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        peak = torch.cuda.max_memory_allocated()
+        run_dir = events.active().run_dir
+    finally:
+        tracing.StepTracer.close = real_close
+        _env(**old)
+        events.reset()  # closes the run's log
+    (window,) = tracers[0].windows
+    return run, wall, counts, peak, run_dir, window
+
+
+def trace_window_census(runs: int) -> list:
+    """``--trace-windows N``: phase 41's observed train run ``N`` times in
+    one process, and for each window the tracer's record with its K2
+    launches counted by kernel name in the trace: how many device records
+    the primer took, and whether any record past it was lost."""
+    import tempfile
+
+    from keystone_tpu_torch.core.kernels import BUILD_DIR
+
+    phase_build(_kernels())
+    out = []
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    for i in range(runs):
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            _, wall, counts, _, _, window = _observed_train(os.path.join(tmp, "obs"))
+            k2 = _trace_kernels(window["path"], TRACE_NAMES["flash_attention"])[0]
+        row = {"run": i, "status": window["status"], "k2_traced": k2,
+               "k2_want": TRAIN_CONF["depth"] * window["steps"],
+               "k2_launched": counts["flash_attention"], "device_events": window["device_events"],
+               "lost": window["lost_device_events"], "primer_lost": window["primer_lost_events"],
+               "wall_s": wall}
+        print(json.dumps(row), flush=True)
+        out.append(row)
+    return out
+
+
+def phase_observe_tools(device) -> dict:
+    """Phase 41: ``lm_transformer.main`` at the flagship train width for
+    ``OBS_STEPS`` steps under ``KEYSTONE_OBSERVE_DIR`` with a
+    ``KEYSTONE_PROFILE_STEPS`` window of two steps: the window's trace,
+    K2 counted by kernel name in it, the device monitor's peak against
+    the allocator's, then the report, ``top --once`` and the dashboard
+    over the run. The run is taken again, up to ``TRACE_ATTEMPTS`` runs,
+    when the tracer records its window as empty or incomplete (a trace
+    that lacks the device record of a launch past the session's primer);
+    the K2 count is read from a window that the tracer found whole."""
+    import contextlib
+    import io
+    import tempfile
+    import threading
+    import urllib.request
+
+    from keystone_tpu_torch.core.kernels import BUILD_DIR
+    from keystone_tpu_torch.observe import collector, dashboard, events, report, top
+    from keystone_tpu_torch.observe.telemetry import STEPS_FILE
+
+    t_phase = time.perf_counter()
+    depth = TRAIN_CONF["depth"]
+    start, steps = (int(v) for v in OBS_WINDOW.split(":"))
+    res: dict = {}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        base = os.path.join(tmp, "obs")
+        for attempt in range(TRACE_ATTEMPTS):
+            run, wall, counts, peak, run_dir, window = _observed_train(base)
+            print(f"observe: window {attempt + 1} of {TRACE_ATTEMPTS}: {window['status']}, "
+                  f"{window['device_events']} device events, "
+                  f"{window['lost_device_events']} lost past the primer, "
+                  f"{window['primer_lost_events']} of the primer's lost")
+            if window["status"] == "ok":
+                break
+        check(window["status"] == "ok" and os.path.isfile(window["path"]),
+              f"observe: the profile window {window}")
+        k2_traced, k2_ms = _trace_kernels(window["path"], TRACE_NAMES["flash_attention"])
+        recs = events.read_jsonl(os.path.join(run_dir, STEPS_FILE))
+        monitored = recs[-1].get("hbm_peak_bytes")
+        print(f"observe: {OBS_STEPS} flagship steps in {wall:.2f} s ({run['tokens_per_s']:.0f} "
+              f"tokens/s), launches {counts}; window {window}; K2 in the trace "
+              f"{k2_traced} ({k2_ms / max(k2_traced, 1):.4f} device ms each); monitor peak "
+              f"{monitored} against max_memory_allocated {peak}")
+        check(counts["flash_attention"] == depth * OBS_STEPS,
+              f"observe: K2 launched {counts['flash_attention']} times")
+        check(k2_traced == depth * steps,
+              f"observe: the window's trace holds {k2_traced} K2 launches, want {depth * steps}")
+        check(monitored is not None and abs(monitored - peak) <= OBS_PEAK_TOL * peak,
+              f"observe: monitor peak {monitored} against {peak}")
+        check(len(recs) == OBS_STEPS and all(r.get("source") == "train" for r in recs),
+              f"observe: steps.jsonl holds {len(recs)} records")
+
+        # the tools over the run: report, top --once, the dashboard
+        text = report.render(run_dir)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            top.main([run_dir, "--once"])
+            collector.main([os.path.join(tmp, "collector"), "--watch", base, "--once"])
+        screen = buf.getvalue()
+        httpd = dashboard.serve(os.path.join(tmp, "collector"), port=0)
+        server = threading.Thread(target=httpd.serve_forever, kwargs={"poll_interval": 0.05})
+        server.start()
+        try:
+            url = f"http://127.0.0.1:{httpd.server_address[1]}"
+            with urllib.request.urlopen(url + "/api/summary", timeout=30) as r:
+                summary = json.loads(r.read())
+            with urllib.request.urlopen(url + "/", timeout=30) as r:
+                page = r.read().decode()
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            server.join(10)
+        print("observe report (head):\n" + "\n".join(text.splitlines()[:12]))
+        check("trace_window" in text or "telemetry" in text.lower() or "steps" in text,
+              "observe: the report shows no run telemetry")
+        check("loss" in screen.lower(), "observe: top --once shows no loss")
+        check(summary.get("series") and "keystone fleet" in page,
+              f"observe: the dashboard answered {summary}")
+    res.update({"wall_s": wall, "tokens_per_s": run["tokens_per_s"], "launches": counts,
+                "window": window, "window_attempts": attempt + 1, "k2_traced": k2_traced,
+                "k2_device_ms": k2_ms / max(k2_traced, 1), "monitor_peak_bytes": monitored,
+                "max_memory_allocated": peak, "dashboard_series": len(summary["series"]),
+                "s": time.perf_counter() - t_phase})
+    print(f"phase 41: {res['s']:.1f} s")
+    return res
+
+
+def phase_cli(device) -> dict:
+    """Phase 42: ``python -m keystone_tpu_torch`` in subprocesses on the
+    card: ``mnist-random-fft --synthetic …`` under ``--observe`` with the
+    planner (K1 by ``KEYSTONE_GRAM_OP=int8``) beside ``plan
+    mnist-random-fft``, then ``observe`` over the run, whose cost profiles
+    carry the card's allocator bytes."""
+    import tempfile
+
+    from keystone_tpu_torch.core.kernels import BUILD_DIR
+
+    t_phase = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("KEYSTONE_")}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        obs = os.path.join(tmp, "obs")
+
+        def start(args, extra=None):
+            return subprocess.Popen([sys.executable, "-m", "keystone_tpu_torch", *args],
+                                    cwd=root, env=dict(env, **(extra or {})), text=True,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+        t0 = time.perf_counter()
+        procs = {
+            "mnist": start(["--observe", obs, "mnist-random-fft", *CLI_MNIST_ARGV],
+                           {"KEYSTONE_PLAN": "1", "KEYSTONE_GRAM_OP": "int8"}),
+            "plan": start(["plan", "mnist-random-fft"]),
+        }
+        outs = {name: (*p.communicate(timeout=300), p.returncode) for name, p in procs.items()}
+        both_s = time.perf_counter() - t0
+        for name, (out, err, rc) in outs.items():
+            check(rc == 0, f"cli {name}: exit {rc}\n{err[-2000:]}")
+        check("MnistRandomFFT: train err" in outs["mnist"][1], "cli mnist: no result line")
+        check(f"device: {kind}" in outs["plan"][0], f"cli plan: {outs['plan'][0][:400]}")
+        t0 = time.perf_counter()
+        report = subprocess.run([sys.executable, "-m", "keystone_tpu_torch", "observe", obs],
+                                cwd=root, env=env, capture_output=True, text=True, timeout=120)
+        report_s = time.perf_counter() - t0
+        check(report.returncode == 0, f"cli observe: exit {report.returncode}\n"
+              f"{report.stderr[-2000:]}")
+        rows = [line for line in report.stdout.splitlines() if line.startswith("00:FeaturizerBank")]
+        print("cli observe:\n" + "\n".join(report.stdout.splitlines()[:8]))
+        check(f"device={kind}" in report.stdout and rows and "MB_acc not measured" not in
+              report.stdout, "cli observe: the report lacks the card's profiles")
+    res = {"mnist_and_plan_s": both_s, "observe_s": report_s,
+           "mnist_result": outs["mnist"][1].strip().splitlines()[-1],
+           "plan_head": outs["plan"][0].splitlines()[:3], "observe_row": rows[0],
+           "s": time.perf_counter() - t_phase}
+    print(f"phase 42: {res['s']:.1f} s")
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available")
@@ -4976,6 +5431,13 @@ def main() -> None:
     device = resolve_device("cuda:0")
     if sys.argv[1:] == ["--breakdown"]:
         print(json.dumps(fit_breakdown(device)))
+        return
+    if sys.argv[1:2] == ["--trace-windows"]:
+        rows = trace_window_census(int(sys.argv[2]))
+        print(json.dumps({"windows": len(rows),
+                          "whole": sum(r["status"] == "ok" and r["k2_traced"] == r["k2_want"]
+                                       for r in rows),
+                          "primer_lost_max": max(r["primer_lost"] or 0 for r in rows)}))
         return
     smi = phase_card()
     build = phase_build(_kernels())
@@ -5114,6 +5576,19 @@ def main() -> None:
     k2["launches_train_game_day"] = game_days["train"]["launches_last_incarnation"][
         "flash_attention"]
     print(json.dumps({"game_day_path": {"card": smi, **game_days}}))
+    tuning = phase_self_tuning(device)
+    k1["launches_self_tuning"] = {leg: tuning["legs"][leg]["k1_launches"]
+                                  for leg in ("tuned", "stored")}
+    k1["launches_fit_shared"] = tuning["fit_shared"]["launches"]["int8_gram"]
+    k1["self_tuning_chunk_ms"] = tuning["legs"]["tuned"]["k1_ms"]
+    print(json.dumps({"self_tuning_path": {"card": smi, **tuning}}))
+    observe_path = phase_observe_tools(device)
+    k2["launches_traced_window"] = {"traced": observe_path["k2_traced"],
+                                    "main": observe_path["launches"]["flash_attention"],
+                                    "device_ms": observe_path["k2_device_ms"]}
+    print(json.dumps({"observe_path": {"card": smi, **observe_path}}))
+    cli_path = phase_cli(device)
+    print(json.dumps({"cli_path": {"card": smi, **cli_path}}))
 
     summary = {
         "card": smi,

@@ -15,6 +15,7 @@ time of several kernels is the slowest one's, not their sum.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -187,3 +188,67 @@ def check_launch(kernel: Kernel, code: int) -> None:
         lib.keystone_cuda_error_string.argtypes = [ctypes.c_int]
         msg = lib.keystone_cuda_error_string(code).decode()
         raise RuntimeError(f"{kernel.name} launch failed: {msg} ({code})")
+
+
+# Operation counts for the cost profiles (observe/cost.py). A hand kernel
+# is a ctypes launch that torch's FLOP counter never sees, and its plain
+# version is torch ops that it would count differently, so each wrapper
+# reports its kernel's own count through :func:`note_ops`, on either
+# device, and runs its plain version outside the counter.
+_counting = threading.local()
+
+
+@contextlib.contextmanager
+def count_ops():
+    """Collect the operation counts the kernel wrappers report inside the
+    scope (this thread); yields a one-element list holding the sum."""
+    stack = getattr(_counting, "stack", None)
+    if stack is None:
+        stack = _counting.stack = []
+    total = [0.0]
+    stack.append(total)
+    try:
+        yield total
+    finally:
+        stack.pop()
+
+
+def counting() -> bool:
+    """True inside :func:`count_ops` on this thread: a wrapper computes
+    its count only then."""
+    return bool(getattr(_counting, "stack", None))
+
+
+def note_ops(ops: float) -> None:
+    """A wrapper's report of its kernel's operations for this call; a
+    no-op outside :func:`count_ops`."""
+    stack = getattr(_counting, "stack", None)
+    if stack:
+        stack[-1][0] += float(ops)
+
+
+def attention_ops(b: int, h: int, s_q: int, s_k: int, d: int, *, causal: bool,
+                  q_offset: int = 0, k_offset: int = 0) -> float:
+    """Operations of one attention pass: 4·D (the two products) for each
+    (query, key) pair it scores, the begin-aligned causal mask's visible
+    pairs only."""
+    if causal:
+        import numpy as np
+
+        seen = np.clip(np.arange(s_q) + (q_offset - k_offset + 1), 0, s_k)
+        pairs = float(seen.sum())
+    else:
+        pairs = float(s_q) * s_k
+    return 4.0 * b * h * d * pairs
+
+
+def uncounted():
+    """The scope a wrapper runs its plain version in: outside any torch
+    dispatch mode (the FLOP counter) while :func:`count_ops` is open, so
+    the kernel's reported count is the node's only count; a null context
+    otherwise."""
+    if not counting():
+        return contextlib.nullcontext()
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    return _disable_current_modes()

@@ -23,6 +23,7 @@ reused while queued work still reads it.
 from __future__ import annotations
 
 import os
+import time
 from collections import deque
 from typing import Any, Callable, Iterable, Iterator
 
@@ -49,21 +50,20 @@ ENV_TUNE = "KEYSTONE_TUNE"
 
 
 def tune_active():
-    """The active autotuner, or None: the one gate the tuner-fed paths
-    share (the ingest frontier reads it). ``None`` unless
-    ``KEYSTONE_TUNE`` is set or a tuner module was loaded. The port has no
-    tuner yet, so ``KEYSTONE_TUNE`` raises rather than run untuned."""
+    """The active autotuner (:mod:`keystone_tpu_torch.plan.tune`), or None —
+    without importing the plan package on untuned processes: the import
+    only happens when ``KEYSTONE_TUNE`` is set or a tuner was installed
+    programmatically (the module is in ``sys.modules``). The one gate
+    every tuner-fed path shares (staging, the ingest frontier, the LM
+    train loop)."""
     import sys
 
     mod = sys.modules.get("keystone_tpu_torch.plan.tune")
-    if mod is not None:
-        return mod.active()
-    if os.environ.get(ENV_TUNE, "").strip():
-        raise NotImplementedError(
-            f"{ENV_TUNE} asks for the autotuner, which waits for plan/tune.py "
-            "(ROADMAP A8)"
-        )
-    return None
+    if mod is None:
+        if not os.environ.get(ENV_TUNE, "").strip():
+            return None
+        from keystone_tpu_torch.plan import tune as mod
+    return mod.active()
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:
@@ -97,9 +97,16 @@ def stage_chunks(
     default 2) up to ``depth`` chunks are in flight on the copy stream.
     """
     depth = default_stage_depth() if depth is None else max(int(depth), 0)
+    tuner = tune_active()  # once per stream
     if device.type != "cuda" or depth == 0:
         for chunk, valid in chunks:
-            yield to_device(chunk, device), valid
+            t0 = time.perf_counter()
+            staged = to_device(chunk, device)
+            if tuner is not None:
+                # the placement's host wall feeds the wait_host
+                # attribution the autotuner acts on
+                tuner.observe(bucket="wait_host", wall_s=time.perf_counter() - t0)
+            yield staged, valid
         return
 
     copy_stream = torch.cuda.Stream(device)
@@ -123,7 +130,11 @@ def stage_chunks(
             chunk, valid = next(source)
         except StopIteration:
             return False
+        t0 = time.perf_counter()
         staged = tree_map(place, chunk)
+        if tuner is not None:
+            # the host side of the transfer: pinning and issuing the copy
+            tuner.observe(bucket="wait_host", wall_s=time.perf_counter() - t0)
         done = torch.cuda.Event()
         done.record(copy_stream)
         in_flight.append((staged, valid, done))
@@ -148,9 +159,19 @@ def run_staged(
     stage_depth: int | None = None,
 ) -> Iterator[Any]:
     """Run ``fn`` over a staged chunk stream; yield each output (every
-    leaf row-indexed) with its pad rows sliced off."""
+    leaf row-indexed) with its pad rows sliced off.
+
+    Under the autotuner each output is waited for, and the wait and the
+    chunk's rows feed its wait_device attribution and goodput (the
+    untuned stream never waits)."""
+    tuner = tune_active()
     for staged, valid in stage_chunks(chunks, device, depth=stage_depth):
-        yield tree_map(lambda a: a[:valid], fn(staged))
+        out = tree_map(lambda a: a[:valid], fn(staged))
+        if tuner is not None:
+            t0 = time.perf_counter()
+            _wait(device)
+            tuner.observe(bucket="wait_device", wall_s=time.perf_counter() - t0, rows=valid)
+        yield out
 
 
 def fold_staged(
@@ -162,8 +183,23 @@ def fold_staged(
     stage_depth: int | None = None,
 ) -> Any:
     """Fold a staged chunk stream through a carried state:
-    ``state = fn(state, staged_chunk, valid_rows)`` per chunk."""
+    ``state = fn(state, staged_chunk, valid_rows)`` per chunk. Under the
+    autotuner each chunk's rows feed its goodput, and the wait for the
+    final state its wait_device attribution."""
+    tuner = tune_active()
     state = init
     for staged, valid in stage_chunks(chunks, device, depth=stage_depth):
         state = fn(state, staged, valid)
+        if tuner is not None:
+            tuner.observe(rows=valid)
+    if tuner is not None:
+        t0 = time.perf_counter()
+        _wait(device)
+        tuner.observe(bucket="wait_device", wall_s=time.perf_counter() - t0)
     return state
+
+
+def _wait(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (the CPU has none)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

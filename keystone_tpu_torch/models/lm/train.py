@@ -38,6 +38,7 @@ import math
 import os
 import signal
 import threading
+import time
 from typing import Callable
 
 import numpy as np
@@ -549,6 +550,26 @@ def train(
         dog = Watchdog(step_timeout_s, label="lm_train",
                        escalate_after=escalate if escalate > 0 else None)
 
+    # live telemetry: per-step loss / tokens-per-s / MFU into steps.jsonl
+    # whenever an observe sink is active, the card's memory watermark, and
+    # profiler windows (KEYSTONE_PROFILE_STEPS / SIGUSR2). With no sink,
+    # no tuner and no windows a step pays two global reads.
+    from keystone_tpu_torch.core.staging import tune_active
+    from keystone_tpu_torch.models.lm.model import train_step_flops
+    from keystone_tpu_torch.observe import devices as _devices
+    from keystone_tpu_torch.observe import telemetry as _telemetry
+    from keystone_tpu_torch.observe import tracing as _tracing
+
+    step_flops = train_step_flops(model, batch, seq)
+    devmon = _devices.DeviceMemoryMonitor()
+    # the autotuner (KEYSTONE_TUNE=1): per-step host-vs-compute walls and
+    # token goodput feed its attribution window
+    tuner = tune_active()
+    tracer = _tracing.StepTracer.from_env(
+        install_signal=threading.current_thread() is threading.main_thread(),
+        label="lm_train",
+    )
+
     start = completed = last_saved = 0
     halted = cluster_lost = False
     try:
@@ -564,7 +585,11 @@ def train(
                 )
         completed = last_saved = start
         for i in range(start, steps):
+            if tracer is not None:
+                tracer.step(i)
+            t_step0 = time.perf_counter()
             toks = torch.from_numpy(_step_batch(corpus, seed, i, batch, seq)).to(model.device)
+            t_host = time.perf_counter() - t_step0
             if guarded:
                 model, opt_state, loss = step(model, opt_state, toks,
                                               _faults.fire("train.nan", key=i))
@@ -575,6 +600,20 @@ def train(
             losses.append(loss)
             completed = i + 1
             _cluster.note_step(completed)
+            steplog = _telemetry.active_step_log()
+            if steplog is not None or tuner is not None:
+                # the one host read per step the live stream (and honest
+                # tuner walls) pays: the wall is taken after it
+                loss_f = float(loss)
+                wall = time.perf_counter() - t_step0
+                if tuner is not None:
+                    tuner.observe(
+                        rows=batch * seq,
+                        buckets={"wait_host": t_host, "compute": max(wall - t_host, 0.0)},
+                    )
+                if steplog is not None:
+                    steplog.step(step=i + 1, loss=loss_f, tokens=batch * seq, wall_s=wall,
+                                 flops=step_flops, hbm_peak_bytes=devmon.maybe_sample())
             # one host read per check interval, not per step
             loss_guard.note(i, loss)
             if dog is not None:
@@ -658,6 +697,8 @@ def train(
         finally:
             if dog is not None:
                 dog.stop()
+            if tracer is not None:
+                tracer.close()
             for s, h in prev_handlers.items():
                 signal.signal(s, h)
     if loss_guard.skipped:

@@ -38,6 +38,7 @@ from keystone_tpu_torch.core.pipeline import (
 )
 from keystone_tpu_torch.core.runtime import resolve_device, synchronize
 from keystone_tpu_torch.evaluation import MulticlassClassifierEvaluator
+from keystone_tpu_torch.observe import events as observe_events
 from keystone_tpu_torch.loaders.csv_loader import load_labeled_csv
 from keystone_tpu_torch.loaders.labeled import LabeledData
 from keystone_tpu_torch.ops.linear import BlockLeastSquaresEstimator
@@ -217,7 +218,7 @@ def _load_mnist_csv(path: str) -> LabeledData:
 def run(conf: MnistRandomFFTConfig, device=None) -> dict:
     """Fit and evaluate on ``device`` (default: the card). The result
     holds the errors, phase times, test predictions and, for the streamed
-    fit, the planner's decisions."""
+    fit, the planner's decisions: the fit's and each planned pass's."""
     device = resolve_device(device)
     t0 = time.perf_counter()
 
@@ -272,6 +273,7 @@ def run(conf: MnistRandomFFTConfig, device=None) -> dict:
     classify = MaxClassifier()
     errors: dict[str, float] = {}
     preds: dict[str, torch.Tensor] = {}
+    apply_decisions: dict[str, list] = {}
 
     def streaming_eval(name: str, labels: np.ndarray, n_valid: int):
         def cb(partial_pred):
@@ -286,7 +288,10 @@ def run(conf: MnistRandomFFTConfig, device=None) -> dict:
         # planned executor (featurizer bank → block model → argmax)
         apply = Pipeline.of(bank, model, MaxClassifier())
         for name, x, split in (("train", train_x, train), ("test", test_x, test)):
-            preds[name] = plan_mod.execute(apply, x, device=device)
+            apply_plan = plan_mod.plan_pipeline(apply, sample=x, device=device,
+                                                n_rows=int(x.shape[0]))
+            apply_decisions[name] = apply_plan.decisions
+            preds[name] = plan_mod.run_plan(apply_plan, x)
             errors[name] = evaluator(preds[name], split.labels, n_valid=len(split)).error
             logger.info("%s error (planned): %.2f%%", name, 100 * errors[name])
     else:
@@ -296,6 +301,21 @@ def run(conf: MnistRandomFFTConfig, device=None) -> dict:
         model.apply_and_evaluate(test_blocks, streaming_eval("test", test.labels, n_test))
     synchronize(device)
     t_end = time.perf_counter()
+
+    ev = observe_events.active()
+    if ev is not None:
+        for phase, wall in (
+            ("load", t_load - t0),
+            ("featurize", t_feat - t_load),
+            ("fit", t_fit - t_feat),
+            ("eval", t_end - t_fit),
+        ):
+            ev.emit("phase", phase=phase, wall_s=wall)
+        try:
+            _record_observability(ev, bank, model, test_x, device)
+        except Exception as e:  # noqa: BLE001 — observability must not
+            # fail a pipeline run that already trained and evaluated
+            logger.warning("observability recording failed: %r", e)
 
     result = {
         "train_error": errors["train"],
@@ -313,6 +333,7 @@ def run(conf: MnistRandomFFTConfig, device=None) -> dict:
     if fit_plan is not None:
         result["fit_decisions"] = fit_plan.decisions
         result["fit_chunk_size"] = fit_plan.chunk_size
+        result["apply_decisions"] = apply_decisions
     logger.info(
         "MnistRandomFFT: train err %.2f%%, test err %.2f%%, "
         "featurize+fit %.1f samples/s",
@@ -321,6 +342,18 @@ def run(conf: MnistRandomFFTConfig, device=None) -> dict:
         result["train_samples_per_s"],
     )
     return result
+
+
+def _record_observability(ev, bank, model, test_x, device) -> None:
+    """Per-node wall-time events and cost profiles for the fitted apply
+    pipeline (featurizer bank → block model → argmax), recorded on a
+    bounded probe so observability costs a small constant: the
+    KeystoneML operator-profile sample for this pipeline."""
+    from keystone_tpu_torch.observe.cost import record_pipeline_profile
+
+    pipe = Pipeline.of(bank, model, MaxClassifier())
+    probe = test_x[: min(2048, test_x.shape[0])].to(device)
+    record_pipeline_profile(pipe, probe, save_dir=ev.run_dir)
 
 
 def main(argv=None, device=None) -> dict:

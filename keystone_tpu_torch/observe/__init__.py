@@ -1,4 +1,4 @@
-"""Observability core — port of ``keystone_tpu/observe``'s stdlib modules.
+"""Observability — port of ``keystone_tpu/observe``.
 
 - :mod:`.metrics` — process-wide labeled counters/gauges/timers
 - :mod:`.events` — JSONL run-event log, env-gated via
@@ -11,11 +11,16 @@
   point store, the SLO burn-rate engine and the collector that tails
   run dirs into them (the fleet's availability objective, the chaos
   invariants' alerts)
+- :mod:`.cost`, :mod:`.devices`, :mod:`.tracing`, :mod:`.instrument` —
+  per-node cost profiles (``torch.utils.flop_counter`` plus the hand
+  kernels' own counts, the card's allocator bytes), the device-memory
+  monitor, ``torch.profiler`` step windows and explicit per-node
+  instrumentation
+- :mod:`.report`, :mod:`.top`, :mod:`.dashboard` — the run report,
+  the live terminal panel and the fleet dashboard
 
 ``events`` and ``metrics`` are imported eagerly, as in the JAX package;
-the others load on first import. The JAX package's device, cost,
-tracing, instrumentation, report, top and dashboard modules are not
-ported yet (ROADMAP A8 part 2).
+the others load on first import.
 """
 
 from __future__ import annotations

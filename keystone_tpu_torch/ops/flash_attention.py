@@ -33,7 +33,15 @@ import os
 import torch
 from torch.autograd.function import once_differentiable
 
-from keystone_tpu_torch.core.kernels import Kernel, check_launch, launch_on
+from keystone_tpu_torch.core.kernels import (
+    Kernel,
+    attention_ops,
+    check_launch,
+    counting,
+    launch_on,
+    note_ops,
+    uncounted,
+)
 
 FLASH_ATTENTION = Kernel("flash_attention", "flash_attention.cu")
 FLASH_ATTENTION_STEP = Kernel("flash_attention_step", "flash_attention_step.cu")
@@ -199,11 +207,16 @@ def flash_attention(
     out_dtype = q.dtype
     if mxu_dtype is not None:
         q, k, v = (x.to(mxu_dtype) for x in (q, k, v))
+    if counting():
+        b, h, s_q, d = q.shape
+        note_ops(attention_ops(b, h, s_q, k.shape[2], d, causal=causal,
+                               q_offset=q_offset, k_offset=k_offset))
     if q.device.type == "cpu":
-        return flash_attention_plain(
-            q, k, v, causal=causal, q_offset=q_offset, k_offset=k_offset,
-            return_lse=return_lse, out_dtype=out_dtype,
-        )
+        with uncounted():
+            return flash_attention_plain(
+                q, k, v, causal=causal, q_offset=q_offset, k_offset=k_offset,
+                return_lse=return_lse, out_dtype=out_dtype,
+            )
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return _launch(
@@ -335,8 +348,12 @@ def flash_attention_step(
     counterpart."""
     del block_q, block_k
     kw = dict(q_offset=q_offset, k_offset=k_offset, causal=causal)
+    if counting():
+        b, h, s_q, d = q.shape
+        note_ops(attention_ops(b, h, s_q, k_blk.shape[2], d, **kw))
     if q.device.type == "cpu":
-        return flash_attention_step_plain(q, k_blk, v_blk, m, l, acc, **kw)
+        with uncounted():
+            return flash_attention_step_plain(q, k_blk, v_blk, m, l, acc, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_step: unsupported device {q.device}")
     return _launch_step(q, k_blk, v_blk, m, l, acc, **kw)

@@ -22,7 +22,7 @@ import os
 import numpy as np
 import torch
 
-from keystone_tpu_torch.core.kernels import Kernel, check_launch, launch_on
+from keystone_tpu_torch.core.kernels import Kernel, check_launch, counting, launch_on, note_ops, uncounted
 from keystone_tpu_torch.ops.quantization import symmetric_int8
 
 ENV_GRAM_OP = "KEYSTONE_GRAM_OP"
@@ -122,8 +122,11 @@ def int8_gram(q: torch.Tensor) -> torch.Tensor:
     tensor, the plain version on a CPU tensor."""
     if not isinstance(q, torch.Tensor) or q.dtype != torch.int8 or q.ndim != 2:
         raise TypeError("int8_gram takes a 2-D int8 tensor")
+    if counting():  # the cost profile's count: N·D·(D+1)
+        note_ops(float(q.shape[0]) * q.shape[1] * (q.shape[1] + 1))
     if q.device.type == "cpu":
-        return int8_gram_plain(q)
+        with uncounted():
+            return int8_gram_plain(q)
     if q.device.type != "cuda":
         raise ValueError(f"int8_gram: unsupported device {q.device}")
     if not q.is_contiguous():

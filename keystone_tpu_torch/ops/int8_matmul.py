@@ -19,7 +19,14 @@ from typing import NamedTuple
 
 import torch
 
-from keystone_tpu_torch.core.kernels import Kernel, check_launch, launch_on
+from keystone_tpu_torch.core.kernels import (
+    Kernel,
+    check_launch,
+    counting,
+    launch_on,
+    note_ops,
+    uncounted,
+)
 from keystone_tpu_torch.ops.quantization import QTensor, mm
 
 INT8_MATMUL = Kernel("int8_matmul", "int8_matmul.cu")
@@ -149,8 +156,11 @@ def mm_fused(y: torch.Tensor, w: QTensor) -> torch.Tensor:
     m = math.prod(lead)
     if m > _MAX_M:
         return mm(y, w, y.dtype)
+    if counting():
+        note_ops(2.0 * m * k * n)
     if y.device.type == "cpu":
-        return mm_fused_plain(y, w)
+        with uncounted():
+            return mm_fused_plain(y, w)
     if y.device.type != "cuda":
         raise ValueError(f"mm_fused: unsupported device {y.device}")
     if y.dtype not in _DTYPES:

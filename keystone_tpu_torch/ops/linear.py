@@ -178,17 +178,38 @@ def _matmul_precision(precision: str | None):
     name = precision or os.environ.get(ENV_MATMUL_PRECISION, "").strip() or "highest"
     if name.lower() not in _PRECISIONS:
         raise ValueError(f"unknown matmul precision {name!r}")
-    plan = _fp32_flag_plan(_PRECISIONS[name.lower()])
+    level = _PRECISIONS[name.lower()]
+    plan = _fp32_flag_plan(level)
     get, put = torch._C._get_fp32_precision_getter, torch._C._set_fp32_precision_setter
+    # torch's ``ieee`` leaves oneDNN's own default math mode in place,
+    # which its env variable can lower to bf16 for the whole process: a
+    # full-f32 scope then keeps oneDNN out (the CPU convolution falls
+    # back to im2col on the f32 BLAS)
+    no_onednn = level == "highest" and _onednn_default_lowered()
     with _FP32_FLAGS_LOCK:
         saved = [(flag, get(*flag)) for flag, _ in plan]
+        mkldnn_was = torch._C._get_mkldnn_enabled()
         try:
             for flag, value in plan:
                 put(*flag, value)
+            if no_onednn:
+                torch._C._set_mkldnn_enabled(False)
             yield
         finally:
+            torch._C._set_mkldnn_enabled(mkldnn_was)
             for flag, value in saved:
                 put(*flag, value)
+
+
+def _onednn_default_lowered() -> bool:
+    """True when oneDNN's process-wide default float32 math mode is set
+    below IEEE (``ONEDNN_DEFAULT_FPMATH_MODE`` / ``DNNL_…``, read by
+    oneDNN at its first primitive)."""
+    for var in ("ONEDNN_DEFAULT_FPMATH_MODE", "DNNL_DEFAULT_FPMATH_MODE"):
+        mode = os.environ.get(var, "").strip().upper()
+        if mode and mode != "STRICT":
+            return True
+    return False
 
 
 def stabilized_cho_solve(mat: torch.Tensor, jitter: float = 1e-6):

@@ -1,36 +1,51 @@
 """Cost-based pipeline planner — port of ``keystone_tpu/plan``.
 
-- :mod:`.ir` — plan IR: node chain with per-node costs and decisions;
-- :mod:`.costs` — sampled per-node costs and the device peak table;
-- :mod:`.passes` — rewrite rules, chunk-size and staging selection;
+- :mod:`.ir` — plan IR: node chain + branches with per-node costs and
+  decisions;
+- :mod:`.costs` — cost attachment from the observe cost-profile registry
+  or a sampled pass, and the device peak table;
+- :mod:`.passes` — rewrite rules, automatic materialization under the
+  budget, chunk-size and staging selection;
 - :mod:`.fused_fit` — the fused streaming normal-equations fit;
-- :mod:`.executor` — chunked planned apply, the streamed fit and the
-  shared-prefix apply.
+- :mod:`.executor` — segmented chunked apply, shared-prefix fits, the
+  streamed fit and the shared-prefix apply;
+- :mod:`.store`, :mod:`.tune` — the learned-plan store and the online
+  autotuner; :mod:`.cli` — ``python -m keystone_tpu_torch plan <model>``.
 
 Entry points::
 
     plan = plan_pipeline(fitted_pipe, sample=probe, device=dev)
+    out  = plan.execute(batch)
     out  = execute(fitted_pipe, batch, device=dev)
+    fitted = fit_shared([chainA, chainB], data, y, device=dev)
     fitted = fit_streaming(chained_est, x, y, device=dev)
 
 Env knobs: ``KEYSTONE_PLAN=1`` opts model entry points into planned
 execution; ``KEYSTONE_PLAN_BUDGET_MB`` caps the memory budget;
 ``KEYSTONE_STAGE_DEPTH`` overrides the host→device staging depth;
 ``KEYSTONE_GRAM_OP`` / ``KEYSTONE_GRAM_INT8_MAX_ERR`` steer the fused
-fit's Gram operator.
+fit's Gram operator; ``KEYSTONE_PLAN_STORE`` names the learned-plan
+store and ``KEYSTONE_TUNE=1`` turns the autotuner on.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any
+from typing import Any, Sequence
 
 import torch
 
-from keystone_tpu_torch.core.pipeline import Transformer
+from keystone_tpu_torch.core.pipeline import Transformer, node_label
 from keystone_tpu_torch.plan import costs as _costs
+from keystone_tpu_torch.plan import executor as _executor
 from keystone_tpu_torch.plan import passes as _passes
-from keystone_tpu_torch.plan.executor import apply_shared, fit_stream, run_plan, shared_prefix_nodes
+from keystone_tpu_torch.plan.executor import (
+    apply_shared,
+    fit_shared,
+    fit_stream,
+    run_plan,
+    shared_prefix_nodes,
+)
 from keystone_tpu_torch.plan.fused_fit import fit_streaming, plan_fit
 from keystone_tpu_torch.plan.ir import NodeCost, Plan, PlanNode, chain_from
 
@@ -46,6 +61,7 @@ __all__ = [
     "plan_fit",
     "execute",
     "fit_stream",
+    "fit_shared",
     "apply_shared",
     "shared_prefix_nodes",
     "fit_streaming",
@@ -91,21 +107,68 @@ def plan_pipeline(
     n_rows: int | None = None,
     stage_depth: int | None = None,
 ) -> Plan:
-    """Build and optimize a plan for a fitted (apply) pipeline: costs
-    sampled on a bounded slice of ``sample``, then rewrite rules, chunk
-    size (forced by ``chunk_size`` or chosen for ``n_rows`` rows) and
-    staging depth."""
+    """Build and optimize a plan for a fitted (apply) pipeline on
+    ``device``: costs from recorded profiles, else sampled on a bounded
+    slice of ``sample``; then rewrite rules, materialization, chunk size
+    (forced by ``chunk_size`` or chosen for ``n_rows`` rows) and staging
+    depth.
+
+    Self-tuning (both env-gated, off by default): with a plan store
+    (``KEYSTONE_PLAN_STORE``, :mod:`.store`) the learned record for this
+    (pipeline fingerprint, device kind) seeds chunk size and stage depth;
+    with the autotuner active (``KEYSTONE_TUNE=1``, :mod:`.tune`) its
+    live ``chunk_rows`` knob takes precedence over the store, the chosen
+    chunk becomes the knob's seed, and the tuner is bound to the store
+    identity so committed improvements persist. Priority: explicit
+    argument > live autotuner > stored record > cost model, each seeding
+    recorded as a plan decision (``source=``)."""
+    from keystone_tpu_torch.plan import store as _plan_store
+    from keystone_tpu_torch.plan import tune as _tune
+
     chain = chain_from(pipe)
+    fp = _plan_store.fingerprint([pn.label for pn in chain])
+    device_kind = _costs.device_kind(device)
+    learned = None
+    if _plan_store.store_dir():
+        try:
+            learned = _plan_store.load(fp, device_kind=device_kind)
+        except _plan_store.PlanStoreError as e:
+            # refusal is loud but not fatal: plan untuned
+            from keystone_tpu_torch.core.logging import get_logger
+
+            get_logger("keystone_tpu_torch.plan").warning("%s", e)
+    tuner = _tune.active()
+    chunk_req, chunk_source = chunk_size, "requested"
+    if chunk_req is None and tuner is not None:
+        # fingerprint-scoped: only the pipeline that bound the chunk knob
+        # reads it back
+        live = tuner.chunk_value_for(fp)
+        if live:
+            chunk_req, chunk_source = int(live), "autotuner"
+    if chunk_req is None and learned is not None:
+        stored = (learned.get("plan") or {}).get("chunk_size")
+        if stored:
+            chunk_req, chunk_source = int(stored), "store"
+    depth_req, depth_source = stage_depth, "requested"
+    if (
+        depth_req is None
+        and not os.environ.get("KEYSTONE_STAGE_DEPTH", "").strip()
+        and learned is not None
+    ):
+        stored = (learned.get("knobs") or {}).get("stage_depth")
+        if stored is None:
+            stored = (learned.get("plan") or {}).get("stage_depth")
+        if stored is not None:
+            depth_req, depth_source = int(stored), "store"
     probe = _costs.slice_probe(sample) if sample is not None else None
-    if probe is not None:
-        _costs.sample_chain(chain, probe, device)
+    _costs.attach(chain, probe, device)
     plan = Plan(
         prefix=chain,
         device=device,
         budget_bytes=(
             default_budget_bytes(device) if budget_bytes is None else budget_bytes
         ),
-        device_kind=_costs.device_kind(device),
+        device_kind=device_kind,
         rows=_costs._rows(probe) if probe is not None else 0,
     )
     if probe is not None:
@@ -113,9 +176,38 @@ def plan_pipeline(
         if unprobed:
             plan.decide("cost_default", reason="unprobeable", nodes=unprobed)
     _passes.select_operators(plan)
-    if chunk_size is not None or n_rows is not None:
-        _passes.choose_chunk_size(plan, n_rows or 0, requested=chunk_size)
-    _passes.choose_staging(plan, n_rows or 0, requested_depth=stage_depth)
+    # budget decisions are priced at the real execution size
+    _passes.choose_materialization(plan, rows=n_rows)
+    if chunk_req is not None or n_rows is not None:
+        _passes.choose_chunk_size(
+            plan, n_rows or 0, requested=chunk_req, source=chunk_source
+        )
+    _passes.choose_staging(
+        plan, n_rows or 0, requested_depth=depth_req, depth_source=depth_source
+    )
+    if learned is not None:
+        plan.decide(
+            "learned",
+            fingerprint=fp,
+            run=(learned.get("provenance") or {}).get("run"),
+            saved_ts=learned.get("saved_ts"),
+        )
+    if tuner is not None:
+        if plan.chunk_size:
+            tuner.bind_chunk(plan.chunk_size, fingerprint=fp)
+        tuner.bind_store(
+            fp,
+            device_kind,
+            {
+                "chunk_size": plan.chunk_size,
+                "stage_depth": plan.stage_depth,
+                "nodes": [pn.label for pn in plan.prefix],
+            },
+            # the store was consulted above: pass the payload through so
+            # the hit/mismatch counters count real loads
+            record=learned,
+        )
+    _passes.emit_plan(plan)
     return plan
 
 
@@ -142,3 +234,45 @@ def execute(
         stage_depth=stage_depth,
     )
     return run_plan(plan, data)
+
+
+def _assemble_fit_plan(
+    chains: Sequence[Any],
+    *,
+    device: torch.device,
+    sample: Any | None = None,
+    budget_bytes: int | None = None,
+    n_rows: int | None = None,
+) -> tuple[Plan, list[Any]]:
+    """Plan a multi-branch fit: the shared-prefix nodes (reuse = number of
+    chains on the tail) plus one branch per chain holding its remaining
+    prefix nodes. The materialization pass then decides whether the
+    shared intermediate earns residency."""
+    shared = _executor.shared_prefix_nodes(chains)
+    prefix = [PlanNode(label=node_label(node, i), op=node) for i, node in enumerate(shared)]
+    if prefix:
+        prefix[-1].reuse = len(chains)
+    branches = []
+    for chain in chains:
+        rest = _executor._prefix_nodes(chain)[len(shared) :]
+        branches.append(
+            [PlanNode(label=node_label(node, len(shared) + i), op=node) for i, node in enumerate(rest)]
+        )
+    probe = _costs.slice_probe(sample) if sample is not None else None
+    if probe is not None and prefix:
+        out = _costs.sample_chain(prefix, probe, device)
+        for branch in branches:
+            _costs.sample_chain(branch, out, device)
+    plan = Plan(
+        prefix=prefix,
+        branches=branches,
+        device=device,
+        budget_bytes=(
+            default_budget_bytes(device) if budget_bytes is None else budget_bytes
+        ),
+        device_kind=_costs.device_kind(device),
+        rows=_costs._rows(probe) if probe is not None else 0,
+    )
+    _passes.choose_materialization(plan, rows=n_rows)
+    _passes.emit_plan(plan)
+    return plan, shared

@@ -1,10 +1,18 @@
 """Cost attachment — port of ``keystone_tpu/plan/costs.py``.
 
-A sampled profiling pass: apply each node to a small probe slice and
-measure its wall time (synchronized on the card). All figures are
-normalized per input row so a plan sampled on 256 rows prices a
-60,000-row execution. The observe layer's cost-profile registry waits for
-the observe slice.
+Two sources, in preference order:
+
+1. The observe cost-profile registry
+   (:mod:`keystone_tpu_torch.observe.cost`) — profiles recorded on request
+   by an earlier instrumented run of the same pipeline, keyed by the
+   shared node label (FLOPs from ``torch.utils.flop_counter`` plus the
+   hand kernels' own operation counts, bytes from the card's allocator).
+2. A sampled profiling pass: apply each node to a small probe slice and
+   measure its wall time (synchronized on the card). The pass counts no
+   FLOPs: a FLOP counter on the probe path cost most of a first fit.
+
+All figures are normalized per input row so a plan sampled on 256 rows
+prices a 60,000-row execution.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ import torch
 
 from keystone_tpu_torch.core.runtime import synchronize
 from keystone_tpu_torch.core.staging import as_tensor, tree_map
+from keystone_tpu_torch.observe import cost as _cost
 from keystone_tpu_torch.plan.ir import NodeCost, PlanNode
 
 # Peaks per device kind: (bf16 dense tensor FLOP/s, device-memory bytes/s,
@@ -55,6 +64,18 @@ def device_peaks(device_kind: str | None) -> tuple[float, float, float, float]:
     return _lookup(DEVICE_PEAKS, device_kind, DEVICE_PEAKS["cpu"])
 
 
+def peak_flops_for(device_kind: str | None) -> float | None:
+    """bf16 dense peak FLOP/s for a known card's name, or None (the CPU,
+    unknown devices) — the report's roofline basis."""
+    if not device_kind:
+        return None
+    kind = device_kind.lower()
+    for key, peaks in DEVICE_PEAKS.items():
+        if key != "cpu" and key in kind:
+            return peaks[0]
+    return None
+
+
 def int8_gram_speedup(device_kind: str | None) -> float:
     """int8-vs-bf16 rate for a device name; unknown names report 1.0."""
     return _lookup(INT8_GRAM_SPEEDUP, device_kind, 1.0)
@@ -89,6 +110,59 @@ def _nbytes(tree: Any) -> float:
         elif isinstance(leaf, np.ndarray):
             total += leaf.nbytes
     return total
+
+
+def cost_from_profile(profile: dict, rows: int) -> NodeCost:
+    """A :class:`NodeCost` from one observe cost-registry profile entry
+    (``cost_profiles.json`` schema), normalized per row."""
+    rows = max(rows, 1)
+    if not profile or "error" in profile:
+        return NodeCost()
+    return NodeCost(
+        flops=float(profile.get("flops", 0.0)) / rows,
+        bytes_accessed=float(profile.get("bytes_accessed") or 0.0) / rows,
+        output_bytes=float(profile.get("output_bytes", 0.0)) / rows,
+        peak_bytes=float(profile.get("peak_bytes") or 0.0) / rows,
+        input_bytes=float(profile.get("input_bytes", 0.0)) / rows,
+        collective_bytes=float(profile.get("collective_bytes", 0.0)) / rows,
+        source="profile",
+    )
+
+
+def _profile_rows(profile: dict) -> int | None:
+    """Rows the profile was recorded on, parsed from its input shapes
+    (``"torch.float32[2048, 784]"``) so normalization uses the profile's
+    own batch size, not the planner's probe size."""
+    shapes = profile.get("input_shapes") or []
+    for s in shapes:
+        lb = s.find("[")
+        if lb < 0:
+            continue
+        head = s[lb + 1 :].split(",")[0].rstrip("]").strip()
+        if head.isdigit():
+            return int(head)
+    return None
+
+
+def from_registry(chain: list[PlanNode], rows: int) -> int:
+    """Fill chain costs from the process cost registry where labels
+    match; returns how many nodes were costed."""
+    registry = _cost.get_cost_registry()
+    hit = 0
+    for pn in chain:
+        profile = registry.get(pn.label)
+        if profile and "error" not in profile:
+            pn.cost = cost_from_profile(profile, _profile_rows(profile) or rows)
+            hit += 1
+    return hit
+
+
+def attach(chain: list[PlanNode], sample: Any | None, device: torch.device) -> None:
+    """Cost a chain: registry profiles first, the sampled pass for the
+    rest."""
+    from_registry(chain, _rows(sample) if sample is not None else 1)
+    if sample is not None and any(pn.cost.source == "default" for pn in chain):
+        sample_chain(chain, sample, device)
 
 
 def sample_chain(chain: list[PlanNode], probe: Any, device: torch.device) -> Any:

@@ -1,9 +1,17 @@
-"""Plan-aware executor — port of ``keystone_tpu/plan/executor.py``'s apply
-pass (:func:`run_plan`) and fused streaming fit (:func:`fit_stream`).
+"""Plan-aware executor — port of ``keystone_tpu/plan/executor.py``.
 
-- :func:`run_plan` runs the planned chain on the plan's device, in chunks
-  through the staging engine when the plan chose a chunk size and the
-  chain maps rows to rows;
+- :func:`run_plan` runs a plan on its device: the chain is cut into
+  segments at materialization points (planner-chosen cache points and
+  explicit ``Cacher`` nodes); a segment runs in chunks through the
+  staging engine when the plan chose a chunk size and the segment maps
+  rows to rows (checked once per segment on a 1-row probe, memoized on
+  the plan node); at each cache point the intermediate is waited for,
+  and the previous segment's dead intermediate is released at once. A
+  multi-branch plan runs the shared prefix once and fans its output out
+  to every branch, or recomputes it per branch when the budget refused
+  the cache;
+- :func:`fit_shared` — several chained estimators riding one
+  featurization prefix pay for the prefix once;
 - :func:`fit_stream` drives staged (data, labels) chunks through the fused
   sink's ``featurize → fit_stats_update`` step, with the int8 Gram (K1)
   when the planner chose it, and returns the accumulated state;
@@ -12,14 +20,16 @@ pass (:func:`run_plan`) and fused streaming fit (:func:`fit_stream`).
 - :func:`shared_prefix_nodes` and :func:`apply_shared`: the per-chunk
   form of prefix sharing, one prefix apply feeding several branches.
 
-The spans and telemetry rows of the JAX executor's apply and fit passes
-are not wired yet; ``plan.decisions`` keep the record. :func:`fit_stream`
+Segments record ``plan.segment`` spans and chunked segments a
+``source="plan"`` telemetry row when a sink is active; :func:`fit_stream`
 counts the reference's ``plan_fused_fit*`` counters, :func:`serve_stream`
 records the reference's.
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import time
 from typing import Any, Callable, Sequence
 
@@ -28,15 +38,26 @@ import torch
 
 from keystone_tpu_torch.core.batching import apply_in_chunks, pad_to_chunk
 from keystone_tpu_torch.core.pipeline import (
+    Cacher,
+    ChainedEstimator,
+    ChainedLabelEstimator,
     FnTransformer,
     FunctionNode,
     Pipeline,
+    _fit_entry,
+    _guard_feats,
+    node_label,
 )
 from keystone_tpu_torch.core.staging import fold_staged, to_device
+from keystone_tpu_torch.observe import events as _events
 from keystone_tpu_torch.observe import metrics as _metrics
 from keystone_tpu_torch.observe import spans as _spans
 from keystone_tpu_torch.observe import telemetry as _telemetry
-from keystone_tpu_torch.plan.ir import Plan
+from keystone_tpu_torch.plan.ir import Plan, PlanNode
+
+# monotone id for chunk-stream telemetry records (steps.jsonl rows with
+# source="plan": a planned pass has no train-step index to ride on)
+_stream_seq = itertools.count(1)
 
 
 def _chunkable_node(node: Any) -> bool:
@@ -55,22 +76,214 @@ def _row_indexed_output(pipe: Pipeline, data: Any, device: torch.device) -> bool
     return isinstance(out, torch.Tensor) and out.ndim >= 1 and out.shape[0] == 1
 
 
+def _segments(chain: list[PlanNode]) -> list[list[PlanNode]]:
+    """Cut a chain at materialization points (after the flagged node)."""
+    segs: list[list[PlanNode]] = [[]]
+    for pn in chain:
+        segs[-1].append(pn)
+        if pn.materialize or isinstance(pn.op, Cacher):
+            segs.append([])
+    return [s for s in segs if s]
+
+
+def _leaves(tree: Any) -> list:
+    if isinstance(tree, (list, tuple)):
+        return [leaf for t in tree for leaf in _leaves(t)]
+    return [tree]
+
+
+def _free(tree: Any, keep: Any) -> None:
+    """Release a dead planner-made intermediate's device memory now: each
+    tensor's storage is emptied unless a ``keep`` tensor shares it (a
+    pass-through segment can hand the same storage on)."""
+    kept = {t.untyped_storage().data_ptr() for t in _leaves(keep) if isinstance(t, torch.Tensor)}
+    for t in _leaves(tree):
+        if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+            storage = t.untyped_storage()
+            if storage.data_ptr() not in kept:
+                storage.resize_(0)
+
+
+def _wait(tree: Any) -> Any:
+    """The ``Cacher`` semantic: wait for the devices holding ``tree``."""
+    for device in {t.device for t in _leaves(tree) if isinstance(t, torch.Tensor)}:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    return tree
+
+
+def _run_chain(chain: list[PlanNode], data: Any, plan: Plan, *, own_input: bool = False) -> Any:
+    """Execute one chain segment by segment, chunked where the plan chose
+    a chunk size. ``own_input`` marks ``data`` as a planner-made
+    intermediate that may be released once consumed."""
+    reg = _metrics.get_registry()
+    span_log = _spans.active_span_log()
+    out = data
+    owned = own_input
+    for seg in _segments(chain):
+        seg_pipe = Pipeline(nodes=tuple(pn.op for pn in seg))
+        prev = out
+        chunk_ok = False
+        if (
+            plan.chunk_size is not None
+            and isinstance(out, (np.ndarray, torch.Tensor))
+            and all(_chunkable_node(pn.op) for pn in seg)
+        ):
+            # a plan is static: the 1-row probe runs once per segment head
+            chunk_ok = getattr(seg[0], "_chunk_probe_ok", None)
+            if chunk_ok is None:
+                chunk_ok = _row_indexed_output(seg_pipe, out, plan.device)
+                seg[0]._chunk_probe_ok = chunk_ok
+        with _spans.span(
+            "plan.segment",
+            log=span_log,
+            bucket=None if chunk_ok else "compute",
+            nodes=len(seg),
+            chunked=bool(chunk_ok),
+            head=seg[0].label,
+        ):
+            out = _exec_segment(seg, seg_pipe, out, plan, chunk_ok, reg)
+        if seg[-1].materialize or isinstance(seg[-1].op, Cacher):
+            with _spans.span("plan.materialize", log=span_log, bucket="wait_device"):
+                out = _wait(out)
+        reg.counter("plan_segments_executed").inc()
+        if owned:
+            _free(prev, keep=out)
+        owned = True
+    return out
+
+
+def _exec_segment(seg, seg_pipe: Pipeline, data: Any, plan: Plan, chunk_ok: bool, reg) -> Any:
+    """Execute one segment body, chunked or whole."""
+    if not chunk_ok:
+        return seg_pipe(to_device(data, plan.device))
+    steplog = _telemetry.active_step_log()
+    t0 = time.perf_counter()
+    out = apply_in_chunks(
+        seg_pipe, data, plan.chunk_size, plan.device, stage_depth=plan.stage_depth
+    )
+    reg.counter("plan_chunked_executions").inc()
+    if steplog is not None:
+        reg.gauge("plan_stage_depth").set(float(plan.stage_depth))
+        wall = time.perf_counter() - t0
+        rows = int(data.shape[0])
+        flops = sum(pn.cost.flops for pn in seg) * rows
+        steplog.step(
+            step=next(_stream_seq),
+            source="plan",
+            wall_s=wall,
+            flops=flops or None,
+            rows=rows,
+            rows_per_s=round(rows / wall, 3) if wall else None,
+            chunks=-(-rows // plan.chunk_size) if rows else 0,
+            chunk_size=plan.chunk_size,
+            stage_depth=plan.stage_depth,
+        )
+    return out
+
+
 def run_plan(plan: Plan, data: Any) -> Any:
     """Execute a plan on ``data`` (host or device rows) on the plan's
-    device, chunked when the plan chose a chunk size."""
-    pipe = plan.pipeline()
-    ops = pipe.nodes
-    chunked = (
-        plan.chunk_size is not None
-        and isinstance(data, (np.ndarray, torch.Tensor))
-        and all(_chunkable_node(op) for op in ops)
-        and _row_indexed_output(pipe, data, plan.device)
+    device. A single-chain plan returns the chain's output; a
+    multi-branch plan returns one output per branch."""
+    if not plan.branches:
+        return _run_chain(plan.prefix, data, plan)
+    if plan.share_prefix and plan.prefix:
+        feats = _wait(_run_chain(plan.prefix, data, plan))
+        # the unit is one planned apply that shared its prefix; the
+        # corpus-level passes-saved count belongs to the caller
+        _metrics.get_registry().counter("plan_shared_prefix_applies").inc()
+        outs = [_run_chain(b, feats, plan) for b in plan.branches]
+        _free(feats, keep=outs)
+        return outs
+    return [_run_chain(plan.prefix + branch, data, plan) for branch in plan.branches]
+
+
+def fit_shared(
+    chains: Sequence[ChainedEstimator | ChainedLabelEstimator],
+    data: Any,
+    labels: Any = None,
+    *,
+    device: torch.device,
+    budget_bytes: int | None = None,
+    sample: Any | None = None,
+    **kw: Any,
+) -> list[Pipeline]:
+    """Fit several chained estimators that share a featurization prefix,
+    paying for the shared prefix ONCE (e.g. one featurizer bank feeding
+    two solvers). Returns one fitted ``Pipeline`` per chain, in order,
+    each what ``chain.fit(...)`` would have produced.
+
+    The shared prefix is the longest common run of node objects across
+    the chains' prefixes (object identity — share nodes to share work).
+    Whether the shared intermediate is materialized is a budget decision
+    (:func:`keystone_tpu_torch.plan.passes.choose_materialization`, priced
+    at the fit's rows); when the budget refuses it, every chain fits the
+    naive way. ``data`` and ``labels`` go to ``device`` (the card unless
+    the caller asks for the CPU)."""
+    from keystone_tpu_torch.plan import _assemble_fit_plan
+
+    chains = list(chains)
+    if not chains:
+        return []
+    data = to_device(data, device)
+    if isinstance(labels, (np.ndarray, torch.Tensor)):
+        labels = to_device(labels, device)
+    plan, shared_nodes = _assemble_fit_plan(
+        chains,
+        device=device,
+        sample=sample,
+        budget_bytes=budget_bytes,
+        # residency is priced at the real fit size: the shared
+        # intermediate lives for the whole multi-branch fit
+        n_rows=_exec_rows(data),
     )
-    if not chunked:
-        return pipe(to_device(data, plan.device))
-    return apply_in_chunks(
-        pipe, data, plan.chunk_size, plan.device, stage_depth=plan.stage_depth
-    )
+    if not shared_nodes or not plan.share_prefix:
+        return [_fit_one(c, data, labels, **kw) for c in chains]
+
+    reg = _metrics.get_registry()
+    data = _fit_entry(data)
+    shared_pipe = Pipeline(nodes=tuple(shared_nodes))
+    with _node_span(node_label(shared_pipe), "apply"):
+        feats = _wait(_run_chain(plan.prefix, data, plan))
+    _guard_feats(node_label(shared_pipe), feats)
+    reg.counter("plan_prefix_shared").inc()
+    reg.counter("plan_featurize_passes_saved").inc(len(chains) - 1)
+
+    fitted: list[Pipeline] = []
+    for chain in chains:
+        rest = _prefix_nodes(chain)[len(shared_nodes) :]
+        branch_feats = feats
+        if rest:
+            branch_feats = Pipeline(nodes=tuple(rest))(feats)
+        with _node_span(node_label(chain.est), "fit"):
+            if isinstance(chain, ChainedLabelEstimator):
+                model = chain.est.fit(branch_feats, labels, **kw)
+            else:
+                model = chain.est.fit(branch_feats, **kw)
+        fitted.append(Pipeline.of(chain.prefix, model))
+    return fitted
+
+
+def _exec_rows(data: Any) -> int:
+    from keystone_tpu_torch.plan.costs import _rows
+
+    return _rows(data)
+
+
+def _fit_one(chain, data, labels, **kw):
+    if isinstance(chain, ChainedLabelEstimator):
+        return chain.fit(data, labels, **kw)
+    return chain.fit(data, **kw)
+
+
+def _node_span(name: str, phase: str):
+    """Per-node observation bracket: a null context when no event sink is
+    active (one global read), else the sink's event-emitting timer."""
+    log = _events.active()
+    if log is None:
+        return contextlib.nullcontext()
+    return log.node(name, phase)
 
 
 def _prefix_nodes(chain) -> list[Any]:

@@ -200,6 +200,7 @@ def plan_fit(
 
     if not _supports_protocol(est):
         plan.decide("fit_fallback", reason="no_fit_stats_protocol")
+        _passes.emit_plan(plan)
         return plan
 
     probe = _costs.slice_probe(sample if sample is not None else data)
@@ -211,6 +212,7 @@ def plan_fit(
     unprobed = [pn.label for pn in chain_nodes if pn.cost.source == "default"]
     if unprobed:
         plan.decide("fit_fallback", reason="unprobeable_prefix", nodes=unprobed)
+        _passes.emit_plan(plan)
         return plan
     d, widths = _feature_shape(probe_feats)
     k = int(labels.shape[-1])
@@ -232,6 +234,7 @@ def plan_fit(
             peak_bytes=peak_bytes,
             budget_bytes=plan.budget_bytes,
         )
+        _passes.emit_plan(plan)
         return plan
 
     sink = StreamingFitSink(est=est, d=d, k=k, widths=widths)
@@ -266,6 +269,7 @@ def plan_fit(
             reason="non_rowwise_prefix",
             unfused_nodes=[pn.label for pn in plan.prefix[:-1]],
         )
+        _passes.emit_plan(plan)
         return plan
 
     op, err = _choose_gram(plan, est, probe_feats, gram)
@@ -289,6 +293,7 @@ def plan_fit(
         state_bytes=state_bytes,
         gram=op,
     )
+    _passes.emit_plan(plan)
     return plan
 
 

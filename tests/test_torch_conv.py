@@ -48,6 +48,35 @@ def _conv_inputs(seed, n, h, w, c, k, f, pixels=False):
     return x, filters, means
 
 
+def _f64_convolver(x, filters, means, k, norm, var_constant=10.0):
+    """The Convolver's im2col schedule in float64: patches in (dy, dx, c)
+    order, each normalized with the d − 1 variance, less the whitener
+    means, times the filters."""
+    n, h, w, c = x.shape
+    p = np.lib.stride_tricks.sliding_window_view(x.astype(np.float64), (k, k), axis=(1, 2))
+    p = p.transpose(0, 1, 2, 4, 5, 3).reshape(n, h - k + 1, w - k + 1, k * k * c)
+    if norm:
+        mu = p.mean(-1, keepdims=True)
+        var = ((p - mu) ** 2).sum(-1, keepdims=True) / max(p.shape[-1] - 1, 1)
+        p = (p - mu) / np.sqrt(var + var_constant)
+    if means is not None:
+        p = p - means.astype(np.float64)
+    return p @ filters.astype(np.float64).T
+
+
+def test_f64_convolver_is_the_reference_schedule():
+    """The float64 evaluation that names a failing side agrees with both
+    packages at the random-patch workload's pixel-scale case."""
+    x, filters, means = _conv_inputs(102, 3, 32, 32, 3, 6, 64, True)
+    exact = _f64_convolver(x, filters, means, 6, True)
+    want = np.asarray(j_images.Convolver(filters=jnp.asarray(filters),
+                                         whitener_means=jnp.asarray(means),
+                                         patch_size=6)(jnp.asarray(x)))
+    got = convert.convolver(filters, means, device="cpu", patch_size=6)(torch.from_numpy(x))
+    assert _rel(want, exact) <= TOL
+    assert _rel(got.numpy(), exact) <= TOL
+
+
 @pytest.mark.parametrize("impl", ["auto", "conv", "xla"])
 @pytest.mark.parametrize(
     "h,w,c,k,f,norm,whiten,pixels",
@@ -67,7 +96,11 @@ def test_convolver_matches_jax(impl, h, w, c, k, f, norm, whiten, pixels):
     node = convert.convolver(filters, means if whiten else None, device="cpu", **kw)
     got = node(torch.from_numpy(x))
     assert got.dtype == torch.float32 and tuple(got.shape) == (3, h - k + 1, w - k + 1, f)
-    assert _rel(got.numpy(), want) <= TOL
+    err = _rel(got.numpy(), want)
+    if err > TOL:  # name the side that left float32: each against float64
+        exact = _f64_convolver(x, filters, means if whiten else None, k, norm)
+        pytest.fail(f"port vs JAX {err:.3g} > {TOL}; port vs float64 "
+                    f"{_rel(got.numpy(), exact):.3g}, JAX vs float64 {_rel(want, exact):.3g}")
 
 
 def test_convolver_impls_agree():

@@ -8,7 +8,9 @@ on a machine without JAX; there, run it without the repo's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import json
 import math
+import time
 
 import numpy as np
 import pytest
@@ -1678,3 +1680,130 @@ def test_a_replica_killed_mid_generate_fails_over(lm_fleet):
             sum(r.restarts for r in f.replicas) == 1 and all(r.state == "up" for r in f.replicas)):
         time.sleep(0.1)
     assert sum(r.restarts for r in f.replicas) == 1 and all(r.state == "up" for r in f.replicas)
+
+
+def test_k1_node_profile_reads_the_cpus_flops(card):
+    """A K1 node's cost profile counts the wrapper's N·D·(D+1) on the card
+    (a ctypes launch the FLOP counter never sees) and on the CPU (where
+    the plain version runs outside the counter): the same FLOPs; the
+    card's profile adds its allocator bytes."""
+    from keystone_tpu_torch.core.pipeline import transformer
+    from keystone_tpu_torch.observe import cost
+
+    a = torch.from_numpy(np.random.default_rng(3).normal(size=(2048, 512)).astype(np.float32))
+    node = transformer(gram.ata_int8, name="gram")
+    before = gram.INT8_GRAM.launches
+    on_card = cost.analyze(lambda n, b: n(b), node, a.to(card))
+    on_cpu = cost.analyze(lambda n, b: n(b), node, a)
+    assert gram.INT8_GRAM.launches == before + 1
+    assert on_card["flops"] == on_cpu["flops"] == 2048.0 * 512 * 513
+    assert on_card["peak_bytes"] >= on_card["argument_bytes"] + on_card["output_bytes"]
+    assert on_cpu["peak_bytes"] is None
+
+
+def test_tuned_and_stored_fit_launches_k1_per_chunk(card, tmp_path, monkeypatch):
+    """The streamed MNIST-shaped fit under ``KEYSTONE_TUNE=1`` and a plan
+    store: K1 launches once a chunk, its first launch bit for bit the plain
+    version; the tuner's flush persists the apply plan's record and a
+    second run's planned pass takes ``source="store"`` decisions."""
+    from keystone_tpu_torch.models import mnist_random_fft as m
+    from keystone_tpu_torch.plan import tune
+
+    monkeypatch.setenv("KEYSTONE_PLAN", "1")
+    monkeypatch.setenv("KEYSTONE_GRAM_OP", "int8")
+    monkeypatch.setenv("KEYSTONE_TUNE", "1")
+    monkeypatch.setenv("KEYSTONE_PLAN_STORE", str(tmp_path))
+    monkeypatch.delenv("KEYSTONE_STAGE_DEPTH", raising=False)
+    first = []
+    real = gram.int8_gram
+
+    def spy(q):
+        out = real(q)
+        if not first:
+            first.append((q.clone(), out.clone()))
+        return out
+
+    monkeypatch.setattr(gram, "int8_gram", spy)
+    argv = ["--synthetic", "20000", "--num-ffts", "4", "--block-size", "1024"]
+    try:
+        tune.reset()
+        before = gram.INT8_GRAM.launches
+        res = m.main(argv, device=card)
+        chunks = -(-20000 // res["fit_chunk_size"])
+        assert gram.INT8_GRAM.launches - before == chunks
+        q, out = first[0]
+        assert torch.equal(out, gram.int8_gram_plain(q))
+        tune.active().flush()
+        tune.reset()
+        res = m.main(argv, device=card)
+        stored = res["apply_decisions"]["train"]
+        assert any(d.get("source") == "store" for d in stored)
+        assert any(d["action"] == "learned" for d in stored)
+    finally:
+        tune.reset()
+
+
+def test_instrument_under_graph_capture_records_no_wall_time(card):
+    """``instrument(sync=True)`` inside a CUDA graph capture neither
+    synchronizes (which would break the capture) nor times: it counts a
+    capture, and the replay computes the node."""
+    from keystone_tpu_torch.core.pipeline import Pipeline, transformer
+    from keystone_tpu_torch.observe import instrument, metrics
+
+    inst = instrument.instrument(Pipeline.of(transformer(lambda b: b * 2 + 1, name="affine")),
+                                 sync=True)
+    x = torch.ones(64, device=card)
+    inst(x)  # warm
+    reg = metrics.get_registry()
+    timed = reg.snapshot().get("node_calls{node=00:affine}", 0)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream), torch.cuda.graph(graph, stream=stream):
+        out = inst(x)
+    torch.cuda.current_stream().wait_stream(stream)
+    assert reg.snapshot().get("node_calls{node=00:affine}", 0) == timed
+    assert reg.snapshot().get("node_captures{node=00:affine}", 0) >= 1
+    x.fill_(3.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.full_like(x, 7.0))
+
+
+def test_device_monitor_peak_is_the_allocators(card):
+    from keystone_tpu_torch.observe import devices
+
+    torch.cuda.reset_peak_memory_stats(card)
+    block = torch.empty((256, 1 << 20), dtype=torch.uint8, device=card)
+    del block
+    mon = devices.DeviceMemoryMonitor()
+    (sample,) = [s for s in mon.sample() if s["device"] == f"cuda:{torch.cuda.current_device()}"]
+    assert sample["peak_bytes_in_use"] == torch.cuda.max_memory_allocated(card)
+    assert mon.peak_bytes() >= 256 << 20
+
+
+def test_step_tracer_windows_keep_every_k2_launch(card, tmp_path):
+    """Windows opened after idle gaps, as a train loop opens them: each
+    trace is whole past its primer and holds every K2 launch of its steps,
+    counted by kernel name."""
+    from keystone_tpu_torch.observe import tracing
+    from keystone_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=card).manual_seed(3)
+    q, k, v = (torch.randn((1, 4, 256, 64), generator=gen, device=card, dtype=torch.bfloat16)
+               for _ in range(3))
+    fa.flash_attention(q, k, v, causal=True)
+    tracer = tracing.StepTracer([(s, 2) for s in range(1, 12, 3)], log_dir=str(tmp_path))
+    for step in range(13):
+        tracer.step(step)
+        torch.cuda.synchronize()
+        time.sleep(0.2)
+        for _ in range(3):
+            fa.flash_attention(q, k, v, causal=True)
+    tracer.close()
+    assert len(tracer.windows) == 4
+    for window in tracer.windows:
+        assert window["status"] == "ok" and window["lost_device_events"] == 0, window
+        with open(window["path"]) as f:
+            names = [e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+        assert sum(1 for n in names if "attention_kernel" in n) == 6, window

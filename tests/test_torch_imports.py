@@ -123,6 +123,10 @@ from keystone_tpu_torch import learn, native
 from keystone_tpu_torch.core import serialization
 from keystone_tpu_torch.learn import refit, shadow, swap
 from keystone_tpu_torch.native import enceval
+import keystone_tpu_torch.__main__
+from keystone_tpu_torch.core import profiling
+from keystone_tpu_torch.observe import cost, dashboard, devices, instrument, report, top, tracing
+from keystone_tpu_torch.plan import cli, store, tune
 app = server.build_app("lm", {"slots": "1", "s_max": "16", "max_new": "2", "vocab": "32",
                               "dim": "16", "heads": "2", "quantize": True}, device="cpu")
 assert len(app.generate([1, 2])) == 2
@@ -197,6 +201,21 @@ def test_entry_point_without_device_raises_without_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         m.main(["--synthetic", "60", "--num-ffts", "1", "--block-size", "512"])
+
+
+def test_planner_tools_without_device_raise_without_cuda():
+    """The plan CLI and ``fit_shared`` take the card unless asked: with no
+    CUDA, the CLI's default device raises and ``fit_shared`` requires its
+    ``device``."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the tools would run on it")
+    from keystone_tpu_torch import plan
+    from keystone_tpu_torch.plan import cli
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["mnist-random-fft"])
+    with pytest.raises(TypeError, match="device"):
+        plan.fit_shared([], torch.zeros((2, 2)))
 
 
 def test_timit_entry_point_without_device_raises_without_cuda():

@@ -286,10 +286,21 @@ def test_apply_shared_matches_branches_applied_apart():
 
 
 def test_tune_active_is_off_and_refuses_the_tuner(monkeypatch):
+    """Off unless asked; ``KEYSTONE_TUNE=1`` builds the port's autotuner
+    (before the tuner was ported it raised naming ROADMAP A8)."""
+    from keystone_tpu_torch.plan import tune
+
     monkeypatch.delenv("KEYSTONE_TUNE", raising=False)
+    monkeypatch.delenv("KEYSTONE_STAGE_DEPTH", raising=False)
+    tune.reset()
     assert staging.tune_active() is None
     monkeypatch.setenv("KEYSTONE_TUNE", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        staging.tune_active()
+    tune.reset()  # activation is env-lazy: re-arm after the flip
+    try:
+        tuner = staging.tune_active()
+        assert isinstance(tuner, tune.Autotuner)
+        assert set(tuner.knobs) == {"stage_depth", "ingest_workers"}
+    finally:
+        tune.reset()
     monkeypatch.setenv("KEYSTONE_INGEST_WORKERS", "5")
     assert streaming.default_ingest_workers() == 5 == j_streaming.default_ingest_workers()
