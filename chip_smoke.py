@@ -308,6 +308,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    (planned, int8) beside ``plan mnist-random-fft``, then ``observe DIR``
    with the card's cost profiles.
 
+43. two processes on one card: ``supervise --procs 2 -- chip_smoke.py
+   --dp-worker DIR`` (for this script's own use), each process joining
+   the process group over gloo on card 0 (NCCL refuses two ranks on one
+   device): phase 4's MNIST int8 fit split 30,000 / 30,000 (K1 once a
+   fit chunk on each rank, test error ≤ 1 %, ≥ 99.5 % of the test
+   predictions as phase 4's, the weights' distance printed), and three
+   flagship train steps split 4 / 4: in f32 at depth 2 against one
+   process from the same weights (losses within 1e-5 relative, first-step
+   gradients within 1e-5 of max|g|, weights within 5e-5 of max|w| of one
+   process accumulating each gradient over the same row blocks, their
+   distance to one process on the whole batch printed beside what
+   reversing that run's batch rows moves it), in bf16 at depth 8 (K2 8 a
+   step on each rank, a falling loss, ms a step on each rank).
+
 Phase 7 also holds K2 with its lse against its plain version at the train
 steps' shapes, (8, 16, 2,048, 64) and (1, 8, 16,384, 64), bf16 causal.
 
@@ -5422,6 +5436,305 @@ def phase_cli(device) -> dict:
     return res
 
 
+# --- two processes on one card (phase 43) ------------------------------------
+# Two port processes under the run supervisor, both on card 0: the process
+# group runs over gloo, because NCCL refuses two ranks on one device.
+DP_PROCS = 2
+DP_TRAIN_STEPS = 3
+DP_F32_DEPTH = 2  # the f32 leg's depth, cut for the time limit
+DP_LOSS_RTOL = 1e-5  # f32 losses, relative (tests/test_multihost.py's bar)
+DP_GRAD_TOL = 1e-5  # f32 first-step gradients, of max|g| of each leaf
+# f32 weights after the steps, of max|w| of a leaf (tests/test_multihost.py's
+# bar), against one process that accumulates each step's gradient over the
+# same row blocks the processes hold. Against one process on the whole
+# batch, f32 summation order alone moves AdamW's first step by more than
+# this at the flagship width (reversing one process's batch rows does):
+# that distance is measured and printed, and only its RMS is held to 5e-5
+DP_WEIGHT_TOL = 5e-5
+DP_TIMEOUT_S = 420
+
+
+def _capture_weights(out: list):
+    """Wrap the block solver's finalize so each fitted model's weights
+    (D, K) land in ``out`` (a host copy); returns the undo."""
+    from keystone_tpu_torch.ops.linear import BlockLeastSquaresEstimator
+
+    real = BlockLeastSquaresEstimator.fit_stats_finalize
+
+    def finalize(self, state, widths=None):
+        model = real(self, state, widths)
+        out.append(torch.cat(list(model.xs)).detach().float().cpu())
+        return model
+
+    BlockLeastSquaresEstimator.fit_stats_finalize = finalize
+    return lambda: setattr(BlockLeastSquaresEstimator, "fit_stats_finalize", real)
+
+
+def _dp_train(device, conf, compute_dtype, steps):
+    """``train`` at the flagship shape from the seed-0 weights: (model,
+    losses, wall s). In a process group it runs data-parallel."""
+    from keystone_tpu_torch.models.lm.train import synthetic_corpus, train
+
+    model = _train_model(device, conf, TRAIN_SEQ, compute_dtype=compute_dtype)
+    corpus = synthetic_corpus(200_000, conf["vocab"], seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, losses = train(model, corpus, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                          lr=TRAIN_LR, seed=0)
+    torch.cuda.synchronize()
+    return model, losses, time.perf_counter() - t0
+
+
+def _first_grads(device, rows=slice(None)) -> list:
+    """Every leaf's gradient of the f32 leg's first step from the seed-0
+    weights, on ``rows`` of its batch; in a process group, all-reduced to
+    the global mean as the data-parallel step does it."""
+    from keystone_tpu_torch.models.lm.losses import next_token_loss
+    from keystone_tpu_torch.models.lm.train import _step_batch, allreduce_mean_, synthetic_corpus
+
+    conf = dict(TRAIN_CONF, depth=DP_F32_DEPTH)
+    model = _train_model(device, conf, TRAIN_SEQ, compute_dtype="float32")
+    corpus = synthetic_corpus(200_000, conf["vocab"], seed=0)
+    toks = torch.from_numpy(_step_batch(corpus, 0, 0, TRAIN_BATCH, TRAIN_SEQ)[rows].copy())
+    params = model.leaves()
+    for p in params:
+        p.requires_grad_(True)
+    loss = next_token_loss(model, toks.to(device))
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+    allreduce_mean_(grads, loss.detach())
+    return [g.detach() for g in grads]
+
+
+def _one_process_train(device, rows, parts: int = 1) -> tuple:
+    """The f32 leg in one process, each step's batch taken in ``rows``
+    order and its gradient accumulated over ``parts`` equal row blocks
+    (the sum over blocks in block order, then divided by ``parts``, as
+    the data-parallel step's all-reduce does it): (leaves, losses)."""
+    from keystone_tpu_torch.models.lm.losses import next_token_loss
+    from keystone_tpu_torch.models.lm.train import _step_batch, make_optimizer, synthetic_corpus
+    from keystone_tpu_torch.parallel.multihost import row_block
+
+    conf = dict(TRAIN_CONF, depth=DP_F32_DEPTH)
+    model = _train_model(device, conf, TRAIN_SEQ, compute_dtype="float32")
+    corpus = synthetic_corpus(200_000, conf["vocab"], seed=0)
+    optimizer = make_optimizer(TRAIN_LR, steps=DP_TRAIN_STEPS)
+    state = optimizer.init(model.leaves())
+    params = model.leaves()
+    for p in params:
+        p.requires_grad_(True)
+    losses = []
+    for i in range(DP_TRAIN_STEPS):
+        toks = torch.from_numpy(_step_batch(corpus, 0, i, TRAIN_BATCH, TRAIN_SEQ)[rows].copy())
+        toks = toks.to(device)
+        grads, loss_sum = None, None
+        for part in range(parts):
+            lo, hi = row_block(TRAIN_BATCH, part, parts)
+            loss = next_token_loss(model, toks[lo:hi])
+            g = torch.autograd.grad(loss, params, allow_unused=True)
+            g = [torch.zeros_like(p) if x is None else x for x, p in zip(g, params)]
+            grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+            loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
+        optimizer.update([g.div_(parts) for g in grads], state, params)
+        losses.append(float(loss_sum / parts))
+    return [t.detach() for t in params], losses
+
+
+def _leaf_dist(got, want) -> tuple:
+    """(max over leaves of max|Δ| / max|want|, of RMS(Δ) / max|want|)."""
+    worst = rms = 0.0
+    for a, b in zip(got, want):
+        d = a.to(b.device).float() - b.float()
+        m = float(b.abs().max()) or 1.0
+        worst = max(worst, float(d.abs().max()) / m)
+        rms = max(rms, float(d.pow(2).mean().sqrt()) / m)
+    return worst, rms
+
+
+def f32_reference(device, procs: int) -> dict:
+    """The f32 leg in one process, for ``procs`` processes to be held
+    against: its losses and leaves on the whole batch, its first-step
+    gradients, the leaves of a run accumulating over ``procs`` row blocks,
+    and how far a run with reversed batch rows lies from the plain one."""
+    model, losses, wall = _dp_train(device, dict(TRAIN_CONF, depth=DP_F32_DEPTH), "float32",
+                                    DP_TRAIN_STEPS)
+    leaves = [t.detach() for t in model.leaves()]
+    del model
+    grads = _first_grads(device)
+    accumulated, _ = _one_process_train(device, slice(None), procs)
+    floor = _leaf_dist(_one_process_train(device, slice(None, None, -1))[0], leaves)
+    torch.cuda.empty_cache()
+    return {"losses": losses, "leaves": leaves, "grads": grads, "accumulated": accumulated,
+            "floor": floor, "wall_s": wall}
+
+
+def check_f32_leg(ref: dict, ranks_losses: list, leaves: list, grads: list, procs: int) -> dict:
+    """Hold a data-parallel f32 leg against the one-process ``ref``."""
+    loss_err = max(abs(a - b) / abs(b) for got in ranks_losses for a, b in zip(got, ref["losses"]))
+    grad_err = _leaf_dist(grads, ref["grads"])[0]
+    w_max, w_rms = _leaf_dist(leaves, ref["accumulated"])
+    plain_max, plain_rms = _leaf_dist(leaves, ref["leaves"])
+    print(f"  f32 at depth {DP_F32_DEPTH}, {DP_TRAIN_STEPS} steps, {procs} processes against one "
+          f"({ref['wall_s']:.2f} s): losses {ranks_losses[0]} vs {ref['losses']} "
+          f"({loss_err:.2e} relative); first-step gradients within {grad_err:.2e} of max|g|; "
+          f"weights within {w_max:.2e} of max|w| (RMS {w_rms:.2e}) of one process accumulating "
+          f"over the same {procs} row blocks, {plain_max:.2e} (RMS {plain_rms:.2e}) of one "
+          f"process on the whole batch, where reversing that run's rows moves it "
+          f"{ref['floor'][0]:.2e} (RMS {ref['floor'][1]:.2e})")
+    check(all(x == ranks_losses[0] for x in ranks_losses), "the ranks' f32 losses differ")
+    check(loss_err <= DP_LOSS_RTOL, f"{procs} processes f32 losses {loss_err:.2e}")
+    check(grad_err <= DP_GRAD_TOL, f"{procs} processes f32 first-step gradients {grad_err:.2e}")
+    check(w_max <= DP_WEIGHT_TOL, f"{procs} processes f32 weights {w_max:.2e}")
+    check(max(w_rms, plain_rms) <= DP_WEIGHT_TOL, f"{procs} processes f32 weights RMS "
+          f"{w_rms:.2e}, {plain_rms:.2e}")
+    return {"loss_rel_err": loss_err, "grad_err": grad_err, "weight_err": w_max,
+            "weight_rms_err": w_rms, "weight_err_whole_batch": plain_max,
+            "weight_rms_err_whole_batch": plain_rms, "reversed_rows_floor": ref["floor"][0],
+            "reversed_rows_rms": ref["floor"][1],
+            "losses": ranks_losses[0], "one_process_losses": ref["losses"]}
+
+
+def dp_f32_leg(device, out_dir: str, rank: int) -> dict:
+    """A process's f32 leg: its share of the first step's gradients
+    all-reduced, then the three steps of ``train``; rank 0 saves both."""
+    from keystone_tpu_torch.parallel.multihost import row_block
+
+    grads = _first_grads(device, slice(*row_block(TRAIN_BATCH)))
+    model, losses, _ = _dp_train(device, dict(TRAIN_CONF, depth=DP_F32_DEPTH), "float32",
+                                 DP_TRAIN_STEPS)
+    if rank == 0:
+        torch.save({"grads": [g.cpu() for g in grads],
+                    "leaves": [t.detach().cpu() for t in model.leaves()]},
+                   os.path.join(out_dir, "f32.pt"))
+    del model, grads
+    torch.cuda.empty_cache()
+    return {"losses": losses}
+
+
+def dp_worker(out_dir: str) -> None:
+    """``--dp-worker DIR``: one process of phase 43, under the supervisor's
+    environment. Joins the group over gloo on card 0, runs the MNIST main
+    path's int8 fit on its rows, then the f32 and bf16 train legs, and
+    writes its record (and, on rank 0, the weights) under ``DIR``."""
+    from keystone_tpu_torch.models import mnist_random_fft
+    from keystone_tpu_torch.ops import gram
+    from keystone_tpu_torch.parallel import multihost
+
+    # NCCL refuses two ranks on one device: both processes share card 0
+    device = multihost.initialize(backend="gloo", device="cuda:0")
+    rank, world = multihost.process_index(), multihost.process_count()
+    res = {"rank": rank, "world": world, "device": str(device), "backend": "gloo"}
+
+    weights: list = []
+    undo = _capture_weights(weights)
+    os.environ.update(KEYSTONE_PLAN="1", KEYSTONE_GRAM_OP="int8")
+    gram.INT8_GRAM.launches = 0
+    try:
+        run = mnist_random_fft.main(list(MAIN_ARGV))
+    finally:
+        undo()
+    lo, hi = multihost.row_block(run["n_train"])
+    rows = min(hi, run["n_train"]) - lo
+    rank_chunk = run["fit_chunk_size"] // world
+    res["mnist"] = {"k1_launches": gram.INT8_GRAM.launches, "rows": rows,
+                    "rank_chunk": rank_chunk, "fit_chunks": -(-rows // rank_chunk),
+                    **{k: run[k] for k in ("train_error", "test_error", "fit_s", "total_s",
+                                           "processes", "fit_chunk_size")}}
+    if rank == 0:
+        torch.save({"pred": torch.from_numpy(run["test_predictions"]), "w": weights[-1]},
+                   os.path.join(out_dir, "mnist.pt"))
+    del run
+    torch.cuda.empty_cache()
+
+    res["f32"] = dp_f32_leg(device, out_dir, rank)
+    _dp_train(device, TRAIN_CONF, "bfloat16", 1)  # the first step warms the allocator
+    _zero_counts()
+    model, losses, wall = _dp_train(device, TRAIN_CONF, "bfloat16", DP_TRAIN_STEPS)
+    res["bf16"] = {"losses": losses, "launches": _counts(),
+                   "ms_per_step": wall * 1e3 / DP_TRAIN_STEPS,
+                   "peak_bytes": torch.cuda.max_memory_allocated()}
+    del model
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    multihost.shutdown()
+
+
+def phase_two_processes(device, res8: dict, w8) -> dict:
+    """Phase 43: two processes on one card through the supervisor
+    (``supervise --procs 2 -- chip_smoke.py --dp-worker``), each joining
+    the process group over gloo on card 0. MNIST's streamed int8 fit at
+    the main path's size split 30,000 / 30,000 (K1 once a fit chunk on each
+    rank, test error ≤ 1 %, ≥ 99.5 % of test predictions as phase 4's
+    one-process int8 fit, the weights' distance printed); three flagship
+    train steps split 4 / 4 in f32 at depth 2 against one process from the
+    same weights (losses 1e-5 relative, first-step gradients 1e-5 of
+    max|g|, weights within 5e-5 of max|w| of one process accumulating over
+    the same row blocks, their distance to one process on the whole batch
+    printed beside what reversing its rows moves it), and in bf16 at depth
+    8 (K2 8 a step on each rank, a falling loss, ms a step)."""
+    import tempfile
+
+    from keystone_tpu_torch.core.kernels import BUILD_DIR
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    ref = f32_reference(device, DP_PROCS)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("KEYSTONE_", "KST_"))}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as out:
+        t0 = time.perf_counter()
+        sup = subprocess.run(
+            [sys.executable, "-m", "keystone_tpu_torch", "supervise", "--procs", str(DP_PROCS),
+             "--max-restarts", "0", "--grace", "5", "--",
+             sys.executable, os.path.abspath(__file__), "--dp-worker", out],
+            cwd=root, env=env, capture_output=True, text=True, timeout=DP_TIMEOUT_S)
+        pair_s = time.perf_counter() - t0
+        check(sup.returncode == 0, f"two processes: supervise exit {sup.returncode}\n"
+              f"{sup.stderr[-3000:]}")
+        ranks = []
+        for r in range(DP_PROCS):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        mnist = torch.load(os.path.join(out, "mnist.pt"))
+        f32_saved = torch.load(os.path.join(out, "f32.pt"))
+    print("two processes on one card: gloo (NCCL refuses two ranks on one device); "
+          f"{pair_s:.1f} s for the pair under the supervisor")
+    for r in ranks:
+        m = r["mnist"]
+        print(f"  rank {r['rank']}/{r['world']} on {r['device']}: MNIST {m['rows']} rows, K1 "
+              f"{m['k1_launches']} for {m['fit_chunks']} fit chunks of {m['rank_chunk']}, test "
+              f"error {m['test_error']:.4%}, fit {m['fit_s']:.2f} s, run {m['total_s']:.2f} s; "
+              f"bf16 K2 {r['bf16']['launches']['flash_attention']}, "
+              f"{r['bf16']['ms_per_step']:.1f} ms a step, losses {r['bf16']['losses']}")
+        check(r["world"] == DP_PROCS and m["processes"] == DP_PROCS, f"rank record {r}")
+        check(m["k1_launches"] == m["fit_chunks"], f"rank {r['rank']}: K1 {m['k1_launches']} "
+              f"launches for {m['fit_chunks']} fit chunks")
+        check(m["test_error"] <= MAX_TEST_ERROR, f"two processes: test error {m['test_error']}")
+        want_k2 = TRAIN_CONF["depth"] * DP_TRAIN_STEPS
+        check(r["bf16"]["launches"]["flash_attention"] == want_k2,
+              f"rank {r['rank']}: K2 {r['bf16']['launches']} for {want_k2}")
+        losses = r["bf16"]["losses"]
+        check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+              f"rank {r['rank']}: bf16 losses {losses}")
+    check(sum(r["mnist"]["rows"] for r in ranks) == res8["n_train"], "rows split")
+    agree = float((mnist["pred"].numpy() == res8["test_predictions"]).mean())
+    w_dist = float((mnist["w"] - w8).abs().max() / w8.abs().max())
+    print(f"  MNIST int8, two processes against one: test predictions agree on {agree:.4%}, "
+          f"weights {w_dist:.3e} of max|W| apart")
+    check(agree >= MIN_AGREEMENT, f"two processes: agreement {agree:.4%}")
+    f32 = check_f32_leg(ref, [r["f32"]["losses"] for r in ranks], f32_saved["leaves"],
+                        f32_saved["grads"], DP_PROCS)
+    res = {"backend": "gloo", "pair_s": pair_s,
+           "ranks": [{"rank": r["rank"], "mnist": r["mnist"],
+                      "bf16": {k: r["bf16"][k] for k in ("losses", "ms_per_step", "peak_bytes")},
+                      "k2_launches": r["bf16"]["launches"]["flash_attention"]} for r in ranks],
+           "mnist_agreement": agree, "mnist_weight_dist": w_dist, "f32": f32,
+           "s": time.perf_counter() - t_phase}
+    print(f"phase 43: {res['s']:.1f} s")
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available")
@@ -5431,6 +5744,9 @@ def main() -> None:
     device = resolve_device("cuda:0")
     if sys.argv[1:] == ["--breakdown"]:
         print(json.dumps(fit_breakdown(device)))
+        return
+    if sys.argv[1:2] == ["--dp-worker"]:
+        dp_worker(sys.argv[2])
         return
     if sys.argv[1:2] == ["--trace-windows"]:
         rows = trace_window_census(int(sys.argv[2]))
@@ -5444,7 +5760,12 @@ def main() -> None:
     k1 = phase_k1(device)
 
     gram.INT8_GRAM.launches = 0
-    res8 = run_main("int8")
+    w8: list = []
+    undo = _capture_weights(w8)
+    try:
+        res8 = run_main("int8")
+    finally:
+        undo()
     launches = gram.INT8_GRAM.launches
     chunk = res8["fit_chunk_size"] or res8["n_train"]
     n_chunks = -(-res8["n_train"] // chunk)
@@ -5589,6 +5910,12 @@ def main() -> None:
     print(json.dumps({"observe_path": {"card": smi, **observe_path}}))
     cli_path = phase_cli(device)
     print(json.dumps({"cli_path": {"card": smi, **cli_path}}))
+    dp_path = phase_two_processes(device, res8, w8[-1])
+    k1["launches_two_processes"] = {"per_rank": [r["mnist"]["k1_launches"]
+                                                 for r in dp_path["ranks"]]}
+    k2["launches_two_processes"] = {"per_rank": [r["k2_launches"] for r in dp_path["ranks"]],
+                                    "steps": DP_TRAIN_STEPS}
+    print(json.dumps({"two_process_path": {"card": smi, **dp_path}}))
 
     summary = {
         "card": smi,

@@ -7,8 +7,14 @@ the CPU (``--device cpu``); each module keeps its own ``-m`` entry too.
 ``--profile DIR`` traces the whole pipeline with ``torch.profiler``
 (:func:`keystone_tpu_torch.core.profiling.trace`, ``DIR/trace.json``);
 ``--observe DIR`` (or ``KEYSTONE_OBSERVE_DIR``) brackets it with a run
-event log that ``observe <dir>`` renders. ``--multihost`` waits for the
-multi-process slice (ROADMAP A6).
+event log that ``observe <dir>`` renders. ``--multihost`` joins the
+process group first (:func:`keystone_tpu_torch.parallel.multihost.initialize`,
+wired by the supervisor's environment), starts the cluster monitor, runs
+the pipeline data-parallel, and rolls every process's metrics up into
+``metrics_cluster.json`` (on process 0) when it returns::
+
+    python -m keystone_tpu_torch supervise --procs 2 -- \
+        python -m keystone_tpu_torch --multihost mnist-random-fft --synthetic 60000
 """
 
 from __future__ import annotations
@@ -84,18 +90,22 @@ def _take_flag(argv: list[str], flag: str) -> str | None:
 
 def main(argv: list[str] | None = None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if "--multihost" in argv:
-        raise SystemExit(
-            "--multihost: multi-process runs wait for the multi-card slice (ROADMAP A6)"
-        )
-    profile_dir = _take_flag(argv, "--profile")
-    observe_dir = _take_flag(argv, "--observe")
+    # the launcher's own flags stop at a "--": what follows is another
+    # command's (supervise -- python -m keystone_tpu_torch --multihost ...)
+    cut = argv.index("--") if "--" in argv else len(argv)
+    head, tail = argv[:cut], argv[cut:]
+    multihost = "--multihost" in head
+    if multihost:
+        head.remove("--multihost")
+    profile_dir = _take_flag(head, "--profile")
+    observe_dir = _take_flag(head, "--observe")
+    argv = head + tail
     if not argv or argv[0] in ("-h", "--help"):
         names = "\n  ".join(sorted(PIPELINES))
         commands = "\n  ".join(sorted(COMMANDS))
         raise SystemExit(
-            "usage: python -m keystone_tpu_torch [--profile DIR] [--observe DIR] "
-            "<pipeline> [args...]\n"
+            "usage: python -m keystone_tpu_torch [--multihost] [--profile DIR] "
+            "[--observe DIR] <pipeline> [args...]\n"
             f"pipelines:\n  {names}\n"
             f"commands:\n  {commands}\n"
             "(reference class names like pipelines.images.mnist.MnistRandomFFT are\n"
@@ -125,6 +135,15 @@ def main(argv: list[str] | None = None) -> None:
     if target is None:
         raise SystemExit(f"unknown pipeline {name!r}; run with --help for a list")
     entry = importlib.import_module(target).main
+    if multihost:
+        from keystone_tpu_torch.parallel import multihost as mh
+        from keystone_tpu_torch.resilience import cluster as _cluster
+
+        mh.initialize()
+        # membership heartbeats and failure detection for the whole run: a
+        # lost process becomes a clean EXIT_HOST_LOST exit that `supervise`
+        # relaunches, not a silent collective hang
+        _cluster.start_monitor()
 
     def dispatch():
         if profile_dir is not None:
@@ -138,15 +157,51 @@ def main(argv: list[str] | None = None) -> None:
         import os
 
         observe_dir = os.environ.get("KEYSTONE_OBSERVE_DIR") or None
-    if observe_dir is not None:
-        # the launcher brackets the whole pipeline with run_start/run_end
-        # so the report knows total wall and status
-        from keystone_tpu_torch.observe import events
+    def rollup(run_dir):
+        # every process calls it (it meets at a barrier); process 0 merges
+        # the cluster totals into the run dir. Never fatal; skipped after a
+        # host loss, whose barrier would only time out on the dead peer.
+        if not multihost:
+            return
+        from keystone_tpu_torch.parallel import multihost as mh
+        from keystone_tpu_torch.resilience import cluster as _cluster
 
-        with events.run(observe_dir, pipeline=name, argv=rest):
+        if _cluster.check_lost() is not None:
+            return
+        try:
+            mh.rollup_metrics(run_dir)
+        except Exception as e:  # noqa: BLE001
+            print(f"# multihost metrics roll-up failed: {e!r}", file=sys.stderr)
+
+    try:
+        if observe_dir is not None:
+            # the launcher brackets the whole pipeline with run_start/run_end
+            # so the report knows total wall and status
+            from keystone_tpu_torch.observe import events
+
+            with events.run(observe_dir, pipeline=name, argv=rest) as log:
+                dispatch()
+                rollup(getattr(log, "run_dir", observe_dir))
+        else:
             dispatch()
-    else:
-        dispatch()
+            rollup(None)
+    except Exception as e:
+        if multihost:
+            from keystone_tpu_torch.resilience import cluster as _cluster
+
+            if isinstance(e, _cluster.ClusterError):
+                # the supervisor's exit-code protocol: a host loss is a
+                # re-mesh request, not a crash
+                print(f"# host loss: {e}", file=sys.stderr)
+                raise SystemExit(_cluster.EXIT_HOST_LOST) from e
+        raise
+    finally:
+        if multihost:
+            from keystone_tpu_torch.parallel import multihost as mh
+            from keystone_tpu_torch.resilience import cluster as _cluster
+
+            _cluster.stop_monitor()
+            mh.shutdown()
 
 
 if __name__ == "__main__":

@@ -449,15 +449,18 @@ def resumable_fit(
     return model
 
 
-def checkpoint_barrier(step: int) -> None:
-    """Agree on ``step`` across processes before any writes: every process
-    arrives at the save or the save raises
-    :class:`~keystone_tpu_torch.resilience.cluster.ClusterBarrierError`
+def checkpoint_barrier(step: int, phase: str = "") -> None:
+    """Agree on ``step`` across processes before any writes (and, with
+    ``phase="saved"``, after the write): every process arrives or the save
+    raises :class:`~keystone_tpu_torch.resilience.cluster.ClusterBarrierError`
     within ``KEYSTONE_CKPT_BARRIER_S``. One process has nothing to agree
     with."""
     from keystone_tpu_torch.resilience.cluster import checkpoint_barrier as _barrier
 
-    _barrier(step)
+    if phase:
+        _barrier(step, phase=phase)
+    else:
+        _barrier(step)
 
 
 class TrainCheckpointer:
@@ -476,7 +479,14 @@ class TrainCheckpointer:
     ``restore`` writes the restored values INTO the template's tensors (a
     model updated in place stays the caller's object). A resume is exact
     when step ``i``'s batch derives from ``(seed, i)`` alone.
-    ``cluster_info`` rides in the sidecar and is not compared."""
+    ``cluster_info`` rides in the sidecar and is not compared, so any
+    process count may restore a checkpoint.
+
+    Across processes a save is coordinated: every process meets at
+    :func:`checkpoint_barrier`, process 0 alone writes the replicated
+    state, and every process meets again before going on, so no process
+    runs ahead of a checkpoint that is not on disk yet. Every process
+    restores."""
 
     def __init__(self, checkpoint_dir: str, meta: dict, legacy_defaults: dict | None = None,
                  cluster_info: dict | None = None):
@@ -530,11 +540,22 @@ class TrainCheckpointer:
     def save(self, state, step: int) -> dict:
         """Checkpoint ``state`` as step ``step``; returns the step's record
         (bytes, leaf shapes, digests) and keeps it as ``last_save``."""
+        from keystone_tpu_torch.resilience.cluster import process_count, process_index
+
         checkpoint_barrier(step)
-        self.last_save = _save_step(self._store, step, flatten(state))
+        if process_index() == 0:
+            self.last_save = _save_step(self._store, step, flatten(state))
+        else:
+            self.last_save = {"step": int(step), "writer": 0}
+        if process_count() > 1:
+            checkpoint_barrier(step, phase="saved")
         return self.last_save
 
     def _write_meta(self) -> None:
+        from keystone_tpu_torch.resilience.cluster import process_index
+
+        if process_index() != 0:
+            return
         meta = dict(self._meta)
         if self._cluster_info:
             meta["cluster"] = self._cluster_info

@@ -1,7 +1,10 @@
 """Multiclass evaluation — port of ``keystone_tpu/evaluation/multiclass.py``.
 
 The confusion matrix is a one-hot scatter-add on the predictions' device;
-the metrics and the report work on the host copy.
+the metrics and the report work on the host copy. Predictions given as a
+:class:`~keystone_tpu_torch.parallel.multihost.GlobalRows` are a global
+batch: each process counts its own rows and the counts are summed over
+the process group, so every process reports the global error.
 """
 
 from __future__ import annotations
@@ -130,9 +133,24 @@ class MulticlassClassifierEvaluator:
         self.num_classes = num_classes
 
     def evaluate(self, predicted, actual, n_valid: int | None = None):
+        """``predicted`` may be a ``GlobalRows``: ``actual`` and ``n_valid``
+        then index the global batch, as in the reference."""
+        from keystone_tpu_torch.parallel.multihost import GlobalRows, all_reduce_
+
+        glob = isinstance(predicted, GlobalRows)
+        if glob:
+            lo = predicted.offset
+            n_ok = predicted.n_global if n_valid is None else min(int(n_valid), predicted.n_global)
+            predicted, n_valid = predicted.local, max(0, n_ok - lo)
+            actual = actual[lo : lo + predicted.shape[0]]
         predicted = torch.as_tensor(predicted).to(torch.int64)
         actual = torch.as_tensor(actual).to(device=predicted.device, dtype=torch.int64)
+        if glob and actual.shape[0] < predicted.shape[0]:
+            # the global labels end before this block's pad rows
+            actual = torch.cat([actual, actual.new_zeros(predicted.shape[0] - actual.shape[0])])
         conf = _confusion(predicted, actual, self.num_classes, n_valid)
+        if glob:
+            all_reduce_(conf)
         return MulticlassMetrics(confusion=conf.cpu().numpy().astype(np.float64))
 
     __call__ = evaluate

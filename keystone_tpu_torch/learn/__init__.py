@@ -22,7 +22,8 @@ train → serve → observe → retrain:
 - :mod:`.shadow` — shadow A/B promotion: the candidate scores sampled live
   requests, and promotion is gated on divergence and feature drift.
 
-Across processes, ``allmerge_fit_state`` waits for ROADMAP A6.
+Across processes, ``allmerge_fit_state`` merges every process's state in
+rank order over the process group (:mod:`keystone_tpu_torch.parallel.multihost`).
 """
 
 from __future__ import annotations

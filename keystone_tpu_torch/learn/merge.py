@@ -239,17 +239,47 @@ def load_fit_state(path: str, device=None) -> FitState:
 # ------------------------------------------------------- cross-host merge
 
 
-def allmerge_fit_state(state: Any, timeout_s: float = 60.0) -> Any:
-    """Merge this process's accumulated state with every peer's; every
-    process returns the merged state. One process has no peer and gets its
-    own state back. Across processes the JAX package trades states over
-    its coordination service; the port's transport is ROADMAP A6."""
-    del timeout_s
-    import torch.distributed as dist
+def merge_over_group(state: Any) -> Any:
+    """Every process's accumulated state merged in rank order, on every
+    process: each field is gathered over the process group and the states
+    are folded with :func:`fit_stats_merge`, rank 0 first, so every process
+    computes the same merged state from the same inputs. A group of one
+    returns ``state``. A transport failure raises."""
+    from keystone_tpu_torch.parallel import multihost
 
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "allmerge_fit_state across processes needs the port's multi-process layer "
-            "(ROADMAP A6)"
+    if multihost.process_count() == 1:
+        return state
+    names = [f.name for f in dataclasses.fields(state)]
+    gathered = {
+        name: multihost.all_gather(getattr(state, name).reshape(-1))
+        for name in names
+    }
+    merged = None
+    for r in range(multihost.process_count()):
+        peer = type(state)(**{
+            name: gathered[name][r].reshape(getattr(state, name).shape) for name in names
+        })
+        merged = peer if merged is None else fit_stats_merge(merged, peer)
+    return merged
+
+
+def allmerge_fit_state(state: Any, timeout_s: float = 60.0) -> Any:
+    """Merge this process's accumulated fit state with every peer's; every
+    process must call it, and every process returns the same merged state
+    (states merged in rank order, :func:`merge_over_group`). One process
+    has no peer and gets its own state back. A transport failure degrades
+    to the local state with a warning — a lost merge loses freshness, never
+    the run. ``timeout_s`` is the reference's argument: the group's own
+    timeout bounds each collective."""
+    del timeout_s
+    try:
+        return merge_over_group(state)
+    except FitStateError:
+        raise
+    except Exception as e:  # noqa: BLE001 — degraded, never fatal
+        logger.warning(
+            "fit-state merge over the process group failed (%r); keeping this "
+            "process's state only",
+            e,
         )
-    return state
+        return state

@@ -97,11 +97,15 @@ def tar_source(conf, which: str):
 
 def assemble_global(features: np.ndarray, labels: np.ndarray):
     """Every process's local (n_p, D) features and labels as the global
-    training set. One process: passed through. Gathering across processes
-    waits for the multi-process layer (ROADMAP A6)."""
+    training set, in rank order, on every process (each process streamed a
+    disjoint tar shard). One process: passed through. A process whose
+    shard was empty may hold (0, 0) features: the width is gathered too."""
     if process_index_count()[1] == 1:
         return features, labels
-    raise NotImplementedError(
-        "assembling features across processes waits for the multi-process "
-        "layer (ROADMAP A6)"
-    )
+    import torch
+
+    from keystone_tpu_torch.parallel import multihost
+
+    feats = multihost.all_gather_rows(torch.as_tensor(np.asarray(features, np.float32)))
+    labs = multihost.all_gather_rows(torch.as_tensor(np.asarray(labels, np.int32)))
+    return feats.cpu().numpy(), labs.cpu().numpy()

@@ -2,9 +2,10 @@
 ``keystone_tpu/models/lm/sharding.py`` that one card runs.
 
 The JAX package shards each weight over the mesh ``model`` axis. The port
-drives one card per model so far: with no mesh, or a mesh whose ``model``
-axis has one position, :func:`shard_params` is the identity; a mesh that
-would shard the weights raises until multi-card training (ROADMAP A6).
+holds a whole model on each card: with no mesh, or a mesh whose ``model``
+axis has one position (data parallelism keeps a replica per process),
+:func:`shard_params` is the identity; a mesh that would shard the weights
+raises until tensor parallelism (ROADMAP A6 part 2).
 """
 
 from __future__ import annotations
@@ -16,5 +17,5 @@ def shard_params(model, mesh):
         return model
     raise NotImplementedError(
         f"shard_params over a model axis of {mesh.shape['model']}: tensor-parallel "
-        "weights come with ROADMAP A6"
+        "weights come with ROADMAP A6 part 2"
     )

@@ -25,9 +25,15 @@ optimizer, the train step, the loop and the synthetic corpus.
   monitor (:mod:`keystone_tpu_torch.resilience.cluster`) hears of every
   completed step.
 
-Data-parallel batch sharding over a mesh or across processes and the
-pipeline-parallel steps are not ported yet (ROADMAP A6); asking for one
-raises.
+Across processes (a process group from
+:func:`keystone_tpu_torch.parallel.multihost.initialize`, one card per
+process), training is data-parallel: every process derives the same global
+batch from ``(seed, step)`` and takes its row block, the step all-reduces
+the gradients (in buckets) and the loss to their global means before the
+clip and AdamW, and the parameters stay the same on every process. In one
+process, a mesh whose data axis names several cards trains the batch on
+the axis's first card: data parallelism across cards is a process per
+card. The pipeline-parallel steps are ROADMAP A6 part 2 and raise.
 """
 
 from __future__ import annotations
@@ -239,8 +245,48 @@ def make_optimizer(
     return AdamW(rate, weight_decay=weight_decay, grad_clip=grad_clip)
 
 
+# gradients are all-reduced in buckets of at most this many bytes: one
+# collective per bucket, not one per leaf
+_BUCKET_BYTES = 64 << 20
+
+
+def allreduce_mean_(grads: list, loss: torch.Tensor) -> torch.Tensor:
+    """The data-parallel reduction: every gradient (in place, in flat
+    buckets of at most ``_BUCKET_BYTES`` of one dtype) and the loss become
+    their means over the process group. Each process's loss and gradients
+    are means over its own equal share of the batch, so these means are
+    the global batch's. Returns the reduced loss."""
+    from keystone_tpu_torch.parallel import multihost
+
+    world = multihost.process_count()
+    if world == 1:
+        return loss
+    bucket: list = []
+    size = 0
+
+    def flush():
+        flat = torch.cat([g.reshape(-1) for g in bucket])
+        multihost.all_reduce_(flat).div_(world)
+        off = 0
+        for g in bucket:
+            g.copy_(flat[off : off + g.numel()].view_as(g))
+            off += g.numel()
+        bucket.clear()
+
+    for g in grads:
+        if bucket and (g.dtype != bucket[0].dtype or size + g.numel() * g.element_size() > _BUCKET_BYTES):
+            flush()
+            size = 0
+        bucket.append(g)
+        size += g.numel() * g.element_size()
+    if bucket:
+        flush()
+    loss = loss.reshape(1).clone()
+    return multihost.all_reduce_(loss).div_(world).reshape(())
+
+
 def make_train_step(optimizer: AdamW, *, logit_chunk: int = 0, guarded: bool = False,
-                    skip_nonfinite: bool = True):
+                    skip_nonfinite: bool = True, data_parallel: bool = False):
     """``step(model, opt_state, tokens) -> (model, opt_state, loss)``:
     next-token loss, the gradient of every float leaf, and the optimizer's
     update, in one call. The step turns on ``requires_grad`` of the leaves
@@ -268,7 +314,10 @@ def make_train_step(optimizer: AdamW, *, logit_chunk: int = 0, guarded: bool = F
         # a leaf the loss never reads (rope's empty position table) has a
         # zero gradient
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
-        return params, grads, loss.detach()
+        loss = loss.detach()
+        if data_parallel:
+            loss = allreduce_mean_(grads, loss)
+        return params, grads, loss
 
     def step(model: TransformerLM, opt_state: AdamWState, tokens):
         params, grads, loss = grads_of(model, tokens)
@@ -308,26 +357,47 @@ def _step_batch(corpus, seed: int, i: int, batch: int, seq: int):
     return np.stack([corpus[s : s + seq + 1] for s in starts])
 
 
-def _refuse_unported(*, model, batch, mesh) -> None:
-    """Raise for each of ``train``'s options whose machinery the port does
-    not have yet, naming the ROADMAP step that brings it."""
+def _data_parallel(*, model, batch, mesh) -> tuple[int, int] | None:
+    """This process's rows ``(lo, hi)`` of each global batch when training
+    is data-parallel across processes, else None. In one process, a mesh
+    whose data axis would shard a local model's batch trains it on the
+    axis's first card, and says so once."""
+    from keystone_tpu_torch.parallel import multihost
+    from keystone_tpu_torch.resilience.cluster import process_count
+
+    world = multihost.process_count()
+    if world == 1 and process_count() > 1:
+        raise RuntimeError(
+            f"train() in a job of {process_count()} processes outside a process group: "
+            "call keystone_tpu_torch.parallel.multihost.initialize() first (the "
+            "launcher's --multihost does), so the processes train data-parallel"
+        )
+    if world > 1:
+        if model.seq_mode != "local":
+            raise NotImplementedError(
+                f"train() of a {model.seq_mode!r} model across processes: sequence "
+                "parallelism over processes is ROADMAP A6 part 2"
+            )
+        if batch % world:
+            raise ValueError(f"batch {batch} does not split over {world} processes")
+        return multihost.row_block(batch)
     if (
         mesh is not None
         and model.seq_mode == "local"
         and mesh.shape.get("data", 1) > 1
         and batch % mesh.shape["data"] == 0
+        and not _warned["one_card"]
     ):
-        raise NotImplementedError(
-            "train(mesh=...) with a data axis would shard the batch of a local "
-            "model: data-parallel training comes with ROADMAP A6"
+        _warned["one_card"] = True
+        logger.warning(
+            "train(mesh=%s) in one process: the batch trains on %s; data "
+            "parallelism across cards is a process per card (--multihost)",
+            dict(mesh.shape), model.device,
         )
-    from keystone_tpu_torch.resilience.cluster import process_count
+    return None
 
-    if process_count() > 1:
-        raise NotImplementedError(
-            f"train() in a job of {process_count()} processes would train data-parallel "
-            "across them: multi-process training comes with ROADMAP A6"
-        )
+
+_warned = {"one_card": False}
 
 
 def _run_identity(model: TransformerLM, corpus, *, batch, seq, lr, seed, schedule,
@@ -454,9 +524,12 @@ def train(
       the dead peer). ``cluster.host_kill``, keyed by the step, SIGKILLs
       the process before that step's periodic save.
 
-    Not ported yet, and raising ``NotImplementedError`` (ROADMAP A6): a
-    ``mesh`` whose data axis would shard a local model's batch, and a
-    job of more than one process."""
+    In a process group of several processes, training is data-parallel:
+    each process takes its row block of every step's batch, the gradients
+    and the loss are all-reduced to their global means, the parameters
+    start from process 0's, and a checkpoint is written once, by process
+    0, between two barriers. In one process a ``mesh`` whose data axis
+    would shard a local model's batch trains it on the model's card."""
     from keystone_tpu_torch.resilience import cluster as _cluster
     from keystone_tpu_torch.resilience import faults as _faults
     from keystone_tpu_torch.resilience.guards import (
@@ -478,7 +551,7 @@ def train(
             "inference-only) — gradients through the rounding would be "
             "silently zero; train the float model and re-quantize"
         )
-    _refuse_unported(model=model, batch=batch, mesh=mesh)
+    rows = _data_parallel(model=model, batch=batch, mesh=mesh)
     guard_cfg = resolve_guard(guard)
     plan = _faults.active()
     # the guarded step is built only when asked (a guard mode, or an armed
@@ -490,7 +563,7 @@ def train(
     if skip_nonfinite:
         opt_state.count = torch.zeros((), dtype=torch.int64, device=model.device)
     step = make_train_step(optimizer, logit_chunk=logit_chunk, guarded=guarded,
-                           skip_nonfinite=skip_nonfinite)
+                           skip_nonfinite=skip_nonfinite, data_parallel=rows is not None)
     losses = []
 
     ckpt = None
@@ -584,11 +657,21 @@ def train(
                     "point at a fresh directory"
                 )
         completed = last_saved = start
+        if rows is not None:
+            # every replica starts from process 0's parameters
+            from keystone_tpu_torch.parallel import multihost
+
+            with torch.no_grad():
+                for p in model.leaves():
+                    multihost.broadcast_(p)
         for i in range(start, steps):
             if tracer is not None:
                 tracer.step(i)
             t_step0 = time.perf_counter()
-            toks = torch.from_numpy(_step_batch(corpus, seed, i, batch, seq)).to(model.device)
+            toks = _step_batch(corpus, seed, i, batch, seq)
+            if rows is not None:
+                toks = toks[rows[0] : rows[1]]
+            toks = torch.from_numpy(np.ascontiguousarray(toks)).to(model.device)
             t_host = time.perf_counter() - t_step0
             if guarded:
                 model, opt_state, loss = step(model, opt_state, toks,

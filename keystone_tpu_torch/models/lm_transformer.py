@@ -91,14 +91,21 @@ class LMConfig:
 
 def run(conf: LMConfig, mesh=None, device=None) -> dict:
     """Build, train and (with ``--corpus``) score the LM on ``device``
-    (default: the card). With no ``mesh`` and more than one card visible,
-    the JAX package's default mesh over every card is built; a local model
-    would then shard its batch, which raises until ROADMAP A6."""
+    (default: the card). In a process group of several processes (the
+    launcher's ``--multihost``), the model lives on this process's card
+    and trains data-parallel over the group's mesh. With no ``mesh`` and
+    more than one card visible in one process, the JAX package's default
+    mesh over every card is built, and a local model trains its batch on
+    the first card (``train`` says so once)."""
+    from keystone_tpu_torch.parallel import multihost
     from keystone_tpu_torch.parallel.mesh import create_mesh
 
     if conf.schedule not in ("constant", "cosine"):
         # fail before the corpus load and the model's creation
         raise ValueError(f"--schedule {conf.schedule!r}; expected constant|cosine")
+    if multihost.process_count() > 1:
+        mesh = mesh if mesh is not None else create_mesh()
+        device = multihost.local_device()
     device = resolve_device(device)
     if mesh is None and device.type == "cuda" and torch.cuda.device_count() > 1:
         mesh = create_mesh()

@@ -16,6 +16,13 @@ Two fit paths, as in the reference:
   ``KEYSTONE_GRAM_OP=int8`` asks for it) and solves the Gram-form BCD;
   the train and test passes run through the planned executor.
 
+Across processes (a process group from
+:func:`keystone_tpu_torch.parallel.multihost.initialize`, as
+``--multihost`` starts), every process draws the same data from the seed
+and takes its own row block: the fit merges every process's statistics
+and solves on each, the streamed fit runs K1 on every process, and the
+errors are global.
+
 Run on the card: ``python -m keystone_tpu_torch.models.mnist_random_fft
 --synthetic 60000 --num-ffts 32``; ``--device cpu`` runs on the CPU.
 """
@@ -50,6 +57,8 @@ from keystone_tpu_torch.ops.stats import (
     next_pow2,
 )
 from keystone_tpu_torch.ops.util import ClassLabelIndicators, MaxClassifier, ZipVectors
+from keystone_tpu_torch.parallel import multihost
+from keystone_tpu_torch.parallel.mesh import create_mesh, data_sharding
 
 logger = get_logger("keystone_tpu_torch.models.mnist_random_fft")
 
@@ -215,11 +224,19 @@ def _load_mnist_csv(path: str) -> LabeledData:
     return load_labeled_csv(path, label_offset=1)
 
 
-def run(conf: MnistRandomFFTConfig, device=None) -> dict:
+def run(conf: MnistRandomFFTConfig, device=None, mesh=None) -> dict:
     """Fit and evaluate on ``device`` (default: the card). The result
     holds the errors, phase times, test predictions and, for the streamed
-    fit, the planner's decisions: the fit's and each planned pass's."""
-    device = resolve_device(device)
+    fit, the planner's decisions: the fit's and each planned pass's.
+
+    In a process group of several processes (or over a ``mesh`` across
+    processes) each process fits and evaluates its row block on its own
+    card; the errors and the test predictions are global, on every
+    process."""
+    if mesh is None and multihost.process_count() > 1:
+        mesh = create_mesh()
+    dp = mesh is not None and mesh.spans_processes
+    device = data_sharding(mesh) if dp else resolve_device(device)
     t0 = time.perf_counter()
 
     train = _load(conf, "train")
@@ -230,6 +247,9 @@ def run(conf: MnistRandomFFTConfig, device=None) -> dict:
     train_x = torch.from_numpy(train.data)
     test_x = torch.from_numpy(test.data)
     label_indicators = ClassLabelIndicators(num_classes=NUM_CLASSES)(train.labels)
+    # this process's rows: all of them alone, its row block in a group
+    train_lo, train_hi = _rows_of(n_train, dp)
+    test_lo, test_hi = _rows_of(n_test, dp)
 
     batch_featurizers = build_batch_featurizers(
         conf.num_ffts,
@@ -248,7 +268,7 @@ def run(conf: MnistRandomFFTConfig, device=None) -> dict:
     streamed_fit = plan_mod.enabled()
     train_blocks = None
     if not streamed_fit:
-        train_blocks = featurize(batch_featurizers, train_x.to(device))
+        train_blocks = featurize(batch_featurizers, train_x[train_lo:train_hi].to(device))
         synchronize(device)
     t_feat = time.perf_counter()
 
@@ -262,8 +282,14 @@ def run(conf: MnistRandomFFTConfig, device=None) -> dict:
             n_valid=n_train,
             device=device,
             return_plan=True,
+            mesh=mesh,
         )
         model = fitted[-1]
+    elif dp:
+        model = est.fit(
+            multihost.GlobalRows(train_blocks, n_train, train_lo),
+            label_indicators[train_lo:train_hi].to(device),
+        )
     else:
         model = est.fit(train_blocks, label_indicators.to(device), n_valid=n_train)
     synchronize(device)
@@ -275,9 +301,11 @@ def run(conf: MnistRandomFFTConfig, device=None) -> dict:
     preds: dict[str, torch.Tensor] = {}
     apply_decisions: dict[str, list] = {}
 
-    def streaming_eval(name: str, labels: np.ndarray, n_valid: int):
+    def streaming_eval(name: str, labels: np.ndarray, n_valid: int, lo: int = 0):
         def cb(partial_pred):
             preds[name] = classify(partial_pred)
+            if dp:
+                preds[name] = multihost.GlobalRows(preds[name], n_valid, lo)
             errors[name] = evaluator(preds[name], labels, n_valid=n_valid).error
             logger.info("%s error so far: %.2f%%", name, 100 * errors[name])
 
@@ -289,16 +317,21 @@ def run(conf: MnistRandomFFTConfig, device=None) -> dict:
         apply = Pipeline.of(bank, model, MaxClassifier())
         for name, x, split in (("train", train_x, train), ("test", test_x, test)):
             apply_plan = plan_mod.plan_pipeline(apply, sample=x, device=device,
-                                                n_rows=int(x.shape[0]))
+                                                n_rows=int(x.shape[0]), mesh=mesh)
             apply_decisions[name] = apply_plan.decisions
             preds[name] = plan_mod.run_plan(apply_plan, x)
             errors[name] = evaluator(preds[name], split.labels, n_valid=len(split)).error
             logger.info("%s error (planned): %.2f%%", name, 100 * errors[name])
     else:
-        model.apply_and_evaluate(train_blocks, streaming_eval("train", train.labels, n_train))
+        model.apply_and_evaluate(
+            train_blocks, streaming_eval("train", train.labels, n_train, train_lo))
         del train_blocks
-        test_blocks = featurize(batch_featurizers, test_x.to(device))
-        model.apply_and_evaluate(test_blocks, streaming_eval("test", test.labels, n_test))
+        test_blocks = featurize(batch_featurizers, test_x[test_lo:test_hi].to(device))
+        model.apply_and_evaluate(
+            test_blocks, streaming_eval("test", test.labels, n_test, test_lo))
+    if dp:
+        # the global test predictions, on every process
+        preds["test"] = preds["test"].gather()
     synchronize(device)
     t_end = time.perf_counter()
 
@@ -323,6 +356,7 @@ def run(conf: MnistRandomFFTConfig, device=None) -> dict:
         "n_train": n_train,
         "n_test": n_test,
         "device": str(device),
+        "processes": multihost.process_count() if dp else 1,
         "load_s": t_load - t0,
         "featurize_s": t_feat - t_load,
         "fit_s": t_fit - t_feat,
@@ -342,6 +376,15 @@ def run(conf: MnistRandomFFTConfig, device=None) -> dict:
         result["train_samples_per_s"],
     )
     return result
+
+
+def _rows_of(n: int, dp: bool) -> tuple[int, int]:
+    """This process's rows of an ``n``-row split: all of them alone, its
+    row block in a process group."""
+    if not dp:
+        return 0, n
+    lo, hi = multihost.row_block(n)
+    return min(lo, n), min(hi, n)
 
 
 def _record_observability(ev, bank, model, test_x, device) -> None:

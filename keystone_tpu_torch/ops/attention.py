@@ -71,6 +71,11 @@ def _resolve_mesh(mesh):
     mesh = mesh if mesh is not None else current_mesh()
     if mesh is None:
         raise ValueError("no mesh: pass mesh=... or install one with use_mesh(...)")
+    if mesh.spans_processes:
+        raise NotImplementedError(
+            "ring and Ulysses attention over a mesh across processes: sequence "
+            "parallelism over processes is ROADMAP A6 part 2"
+        )
     return mesh
 
 

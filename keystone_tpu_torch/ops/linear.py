@@ -254,12 +254,18 @@ class LinearMapEstimator(LabelEstimator):
     lam: float = 0.0
 
     def fit(self, data, labels, n_valid: int | None = None) -> LinearMapper:
+        """A :class:`~keystone_tpu_torch.parallel.multihost.GlobalRows`
+        ``data`` fits the global batch (:func:`_global_stats`)."""
+        if _is_global(data):
+            return self.fit_stats_finalize(_global_stats(data, labels, None))
         with _matmul_precision(None):
             x, b_mean, a_mean = _linear_map_fit(data, labels, n_valid, self.lam)
         return _centered_mapper(x, b_mean, a_mean)
 
     def fit_sweep(self, data, labels, lams, n_valid: int | None = None) -> list:
         """One exact ridge model per λ from one Gram."""
+        if _is_global(data):
+            return self.fit_sweep_finalize(_global_stats(data, labels, None), lams)
         with _matmul_precision(None):
             xs, b_mean, a_mean = _linear_map_fit_sweep(data, labels, n_valid, lams)
         return [_centered_mapper(x, b_mean, a_mean) for x in xs]
@@ -292,6 +298,27 @@ class LinearMapEstimator(LabelEstimator):
     @staticmethod
     def fit_stats_state_bytes(d: int, k: int) -> int:
         return 4 * (d * d + d * k + 2 * d + 2 * k)
+
+
+def _is_global(data) -> bool:
+    from keystone_tpu_torch.parallel.multihost import GlobalRows
+
+    return isinstance(data, GlobalRows)
+
+
+def _global_stats(data, labels, precision: str | None) -> "NormalEqState":
+    """The normal-equation statistics of a global batch: this process's
+    valid rows folded into a state, then every process's state merged in
+    rank order over the process group (the reference's GSPMD turns each
+    row contraction into a psum instead). ``labels`` is a ``GlobalRows``
+    of the same layout or this process's label rows."""
+    from keystone_tpu_torch.learn.merge import merge_over_group
+
+    local = _concat_blocks(data.local)
+    lab = labels.local if _is_global(labels) else labels
+    state = normal_eq_init(local.shape[-1], lab.shape[-1], local.device)
+    state = normal_eq_update(state, local, lab, data.n_valid, precision=precision)
+    return merge_over_group(state)
 
 
 def _normal_eq_stats(data, labels, n_valid):
@@ -502,6 +529,8 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         point is the same, and k passes from a model checkpointed after j
         passes continue the (j+k)-pass fit (see
         :func:`keystone_tpu_torch.core.checkpoint.resumable_fit`)."""
+        if _is_global(data):
+            return self._fit_global(data, labels, [self.lam], init)[0]
         blocks = _split_blocks(data, self.block_size)
         init_xs = None if init is None else tuple(init.xs)
         with _matmul_precision(self.precision):
@@ -521,6 +550,8 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         the per-(block, λ) factors grow with L, so ``sweep_chunk`` runs a
         few λ at a time (the Grams are recomputed per chunk); ``None``
         sizes chunks to keep those under about 2 GiB."""
+        if _is_global(data):
+            return self._fit_global(data, labels, [float(lam) for lam in lams])
         blocks = _split_blocks(data, self.block_size)
         lams = [float(lam) for lam in lams]
         if sweep_chunk is None:
@@ -569,10 +600,21 @@ class BlockLeastSquaresEstimator(LabelEstimator):
 
     def fit_sweep_finalize(self, state, lams, widths=None) -> list:
         """One model per λ in ``lams`` off one accumulated state."""
+        return self._finalize(state, lams, widths)
+
+    def _fit_global(self, data, labels, lams, init=None) -> list:
+        """A global batch (``GlobalRows``): the Gram form of the same BCD
+        fixed point, over the statistics of every process's rows."""
+        widths = (tuple(b.shape[-1] for b in data.local)
+                  if isinstance(data.local, (list, tuple)) else None)
+        init_x = None if init is None else torch.cat(list(init.xs), dim=0)
+        return self._finalize(_global_stats(data, labels, self.precision), lams, widths, init_x)
+
+    def _finalize(self, state, lams, widths, init_x=None) -> list:
         widths = self._finalize_widths(state, widths)
         ata, atb, b_mean, a_mean, _ = normal_eq_finalize(state)
         with _matmul_precision(self.precision):
-            xs_l = _bcd_fit_gram(ata, atb, lams, widths, self.num_iter)
+            xs_l = _bcd_fit_gram(ata, atb, lams, widths, self.num_iter, init_x)
         means = tuple(split_by_widths(a_mean, widths))
         offs = np.concatenate([[0], np.cumsum(widths)]).astype(int)
         return [
@@ -659,18 +701,22 @@ def _bcd_fit_sweep(blocks: tuple, labels, n_valid, lams, num_iter: int):
     return tuple(xs), tuple(means), b_mean
 
 
-def _bcd_fit_gram(ata, atb, lams, widths: tuple, num_iter: int) -> torch.Tensor:
+def _bcd_fit_gram(ata, atb, lams, widths: tuple, num_iter: int, init_x=None) -> torch.Tensor:
     """Gram-form BCD: the same fixed point as :func:`_bcd_fit`, from the
     FULL centered normal-equation statistics. The data-form block update
     ``rhs_i = A_iᵀR + G_ii x_i`` becomes ``(AᵀB)_i − G[i,:] x + G_ii x_i``,
     so the pass loop never touches the rows. Returns (L, D, K), one
-    solution per λ in ``lams``; a one-λ list is the single fit."""
+    solution per λ in ``lams``; a one-λ list is the single fit. ``init_x``
+    (D, K) warm-starts every λ's passes."""
     offs = np.concatenate([[0], np.cumsum(widths)]).astype(int)
     diag = [ata[offs[i] : offs[i + 1], offs[i] : offs[i + 1]] for i in range(len(widths))]
 
     def solve_one(lam: float):
         factors = [ridge_factor(g, lam) for g in diag]
-        x = torch.zeros((ata.shape[0], atb.shape[-1]), dtype=ata.dtype, device=ata.device)
+        if init_x is None:
+            x = torch.zeros((ata.shape[0], atb.shape[-1]), dtype=ata.dtype, device=ata.device)
+        else:
+            x = init_x.to(dtype=ata.dtype, device=ata.device).clone()
         for _ in range(num_iter):
             for i in range(len(widths)):
                 o, o2 = offs[i], offs[i + 1]
@@ -692,8 +738,9 @@ class LeastSquaresEstimator(LabelEstimator):
     num_iter: int = 1
 
     def fit(self, data, labels, n_valid: int | None = None) -> Transformer:
-        blocked = isinstance(data, (list, tuple))
-        if blocked or data.shape[-1] > self.block_size:
+        rows = data.local if _is_global(data) else data
+        blocked = isinstance(rows, (list, tuple))
+        if blocked or rows.shape[-1] > self.block_size:
             est = BlockLeastSquaresEstimator(
                 block_size=self.block_size, num_iter=self.num_iter, lam=self.lam
             )

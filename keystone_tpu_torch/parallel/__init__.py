@@ -1,5 +1,5 @@
-"""Device meshes for the sequence-parallel paths and the data-parallel
-placement helpers."""
+"""Device meshes for the sequence-parallel paths, the data-parallel
+placement helpers and the multi-process layer (:mod:`.multihost`)."""
 
 from keystone_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -9,13 +9,17 @@ from keystone_tpu_torch.parallel.mesh import (
     current_mesh,
     data_axis_size,
     data_sharding,
+    data_sharding_fn,
     pad_batch,
+    replicated_sharding,
     shard_batch,
     shard_chunk_size,
     use_mesh,
 )
+from keystone_tpu_torch.parallel.multihost import GlobalRows, global_batch_from_local
 
 __all__ = [
+    "GlobalRows",
     "DATA_AXIS",
     "MODEL_AXIS",
     "Mesh",
@@ -23,7 +27,10 @@ __all__ = [
     "current_mesh",
     "data_axis_size",
     "data_sharding",
+    "data_sharding_fn",
+    "global_batch_from_local",
     "pad_batch",
+    "replicated_sharding",
     "shard_batch",
     "shard_chunk_size",
     "use_mesh",

@@ -1,18 +1,26 @@
-"""Device mesh — port of the parts of ``keystone_tpu/parallel/mesh.py`` that
-sequence-parallel attention and the data-parallel workloads read.
+"""Device mesh — port of ``keystone_tpu/parallel/mesh.py``.
 
-The JAX package is single-controller: one process drives every device of a
-mesh. The port keeps that model. A :class:`Mesh` is a (data, model) grid of
-``torch.device``s driven by one process; ring and Ulysses attention move
-shards between the devices along one axis with ``tensor.to(device)`` — a
-peer copy between two cards, and no copy at all when two positions name the
-same device.
+The JAX package is single-controller within a process: one process drives
+every device of its mesh. A :class:`Mesh` here is a (data, model) grid of
+``torch.device``s in one of two layouts:
 
-A device may appear more than once in a mesh. That is the counterpart of
-the JAX package's forced host devices (its tests run an 8-device CPU mesh on
-one host): one card can run a whole n-position schedule, with the real
-offsets and causal skips of every position, and one CPU can stand in for
-eight positions in the tests.
+- **one process.** Every position is driven by this process. Ring and
+  Ulysses attention move shards between the positions along one axis with
+  ``tensor.to(device)`` — a peer copy between two cards, and no copy at
+  all when two positions name the same device. A batch is placed whole on
+  the data axis's first device: all its rows sit on one card.
+- **across processes.** After :func:`keystone_tpu_torch.parallel.multihost.initialize`,
+  :func:`create_mesh` gives a data axis with one position per process,
+  each naming that process's card (``ranks`` holds the rank of each
+  position). :func:`shard_batch` then gives this process its row block of
+  the padded global batch, on its own card, as a
+  :class:`~keystone_tpu_torch.parallel.multihost.GlobalRows`.
+
+A device may appear more than once in a one-process mesh. That is the
+counterpart of the JAX package's forced host devices (its tests run an
+8-device CPU mesh on one host): one card can run a whole n-position
+schedule, with the real offsets and causal skips of every position, and
+one CPU can stand in for eight positions in the tests.
 """
 
 from __future__ import annotations
@@ -42,6 +50,13 @@ class Mesh:
 
     devices: tuple  # tuple of tuples of torch.device
     axis_names: tuple = (DATA_AXIS, MODEL_AXIS)
+    # the process rank at each data position when the data axis spans
+    # processes; None for a mesh this process drives alone
+    ranks: tuple | None = None
+
+    @property
+    def spans_processes(self) -> bool:
+        return self.ranks is not None and len(self.ranks) > 1
 
     @property
     def shape(self) -> dict:
@@ -70,7 +85,25 @@ def create_mesh(
     """A 2-axis ("data", "model") mesh over ``devices`` (default: every
     visible CUDA device; raises without CUDA). ``data=None`` puts every
     device not on the model axis on the data axis. ``devices`` may name one
-    device several times (see the module docstring)."""
+    device several times (see the module docstring).
+
+    In a process group of several processes and without ``devices``, the
+    data axis spans the processes: one position per rank, each naming
+    that rank's card. A model axis across processes is ROADMAP A6 part 2."""
+    from keystone_tpu_torch.parallel import multihost
+
+    if devices is None and multihost.process_count() > 1:
+        world = multihost.process_count()
+        if model != 1:
+            raise NotImplementedError(
+                f"create_mesh(model={model}) across processes: a model axis over "
+                "processes is tensor parallelism (ROADMAP A6 part 2)"
+            )
+        if data not in (None, world):
+            raise ValueError(f"a mesh across {world} processes has data={world}, got {data}")
+        return Mesh(
+            tuple((d,) for d in multihost.group_devices()), ranks=tuple(range(world))
+        )
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -114,16 +147,61 @@ def current_mesh() -> Mesh | None:
 
 
 def data_sharding(mesh: Mesh | None = None, ndim: int = 2) -> torch.device | None:
-    """Where a batch of rank ``ndim`` lives on ``mesh`` (default: the
-    ambient mesh): the device at data index 0, or None without a mesh.
-    One process drives the whole mesh, so a batch is placed whole on that
-    device; splitting its rows over several cards waits for the
-    multi-process layer (ROADMAP A6). ``ndim`` is the reference's
-    argument: every rank is placed alike."""
+    """Where this process's rows of a batch of rank ``ndim`` live on
+    ``mesh`` (default: the ambient mesh), or None without a mesh: this
+    process's card on a mesh across processes, else the device at data
+    index 0 (one process places a batch whole on one device). ``ndim`` is
+    the reference's argument: every rank is placed alike."""
     mesh = mesh or current_mesh()
     if mesh is None:
         return None
+    if mesh.spans_processes:
+        return mesh.devices[local_position(mesh)][0]
     return mesh.axis_devices(mesh.axis_names[0])[0]
+
+
+def local_position(mesh: Mesh) -> int:
+    """This process's position on the data axis of a mesh across
+    processes."""
+    from keystone_tpu_torch.parallel import multihost
+
+    return mesh.ranks.index(multihost.process_index())
+
+
+def local_block(x, mesh: Mesh) -> tuple:
+    """This process's row block of ``x`` (numpy array or tensor) zero-padded
+    to a multiple of the data axis of a mesh across processes: ``(block,
+    lo)``, ``lo`` the global index of its first row."""
+    from keystone_tpu_torch.parallel import multihost
+
+    n_data = data_axis_size(mesh)
+    placed, _ = pad_batch(x, n_data)
+    lo, hi = multihost.row_block(int(placed.shape[0]), local_position(mesh), n_data)
+    return placed[lo:hi], lo
+
+
+def replicated_sharding(mesh: Mesh | None = None) -> torch.device | None:
+    """Where this process keeps a value every position holds whole (the
+    successor of Spark's ``broadcast``): the same device as its rows, or
+    None without a mesh."""
+    return data_sharding(mesh)
+
+
+def data_sharding_fn(mesh: Mesh | None):
+    """Per-chunk placement callable for the staging engine: maps a chunk
+    — one tensor or a tuple of them (the fused fit stages (data, labels)
+    pairs) — to the device of each leaf (None mesh → None, plain
+    placement). The one home of the chunk → placement rule."""
+    if mesh is None:
+        return None
+    device = data_sharding(mesh)
+
+    def place(chunk):
+        if isinstance(chunk, (list, tuple)):
+            return type(chunk)(place(c) for c in chunk)
+        return device
+
+    return place
 
 
 def data_axis_size(mesh: Mesh | None) -> int:
@@ -158,14 +236,23 @@ def shard_batch(x, mesh: Mesh | None = None, *, pad: bool = True, device=None):
     """Place a host batch for a data-parallel pass. Without a mesh (and
     none installed) the rows go to ``device``: the card unless the caller
     asks for the CPU. With a mesh they are zero-padded (when ``pad``) to a
-    multiple of the data-axis size and placed on the mesh's first device
-    (:func:`data_sharding`); spreading them over several cards waits for
-    the multi-process layer (ROADMAP A6)."""
+    multiple of the data-axis size. A one-process mesh places them on its
+    first device (:func:`data_sharding`); a mesh across processes gives
+    this process its row block, on its own card, as a
+    :class:`~keystone_tpu_torch.parallel.multihost.GlobalRows` whose
+    ``n_global`` counts the rows before padding."""
     mesh = mesh or current_mesh()
     x = torch.from_numpy(x) if isinstance(x, np.ndarray) else torch.as_tensor(x)
     if mesh is None:
         return x.to(resolve_device(device))
     n_data = data_axis_size(mesh)
-    if pad and x.shape[0] % n_data:
-        x, _ = pad_batch(x, n_data)
-    return x.to(data_sharding(mesh, x.ndim))
+    if not mesh.spans_processes:
+        if pad and x.shape[0] % n_data:
+            x, _ = pad_batch(x, n_data)
+        return x.to(data_sharding(mesh, x.ndim))
+    from keystone_tpu_torch.parallel import multihost
+
+    if not pad and x.shape[0] % n_data:
+        raise ValueError(f"{x.shape[0]} rows do not split over {n_data} processes; pass pad=True")
+    block, lo = local_block(x, mesh)
+    return multihost.GlobalRows(block.to(data_sharding(mesh, x.ndim)), int(x.shape[0]), lo)

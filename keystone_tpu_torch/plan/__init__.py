@@ -36,6 +36,7 @@ from typing import Any, Sequence
 import torch
 
 from keystone_tpu_torch.core.pipeline import Transformer, node_label
+from keystone_tpu_torch.parallel.mesh import current_mesh, data_axis_size
 from keystone_tpu_torch.plan import costs as _costs
 from keystone_tpu_torch.plan import executor as _executor
 from keystone_tpu_torch.plan import passes as _passes
@@ -106,12 +107,14 @@ def plan_pipeline(
     chunk_size: int | None = None,
     n_rows: int | None = None,
     stage_depth: int | None = None,
+    mesh: Any = None,
 ) -> Plan:
     """Build and optimize a plan for a fitted (apply) pipeline on
     ``device``: costs from recorded profiles, else sampled on a bounded
     slice of ``sample``; then rewrite rules, materialization, chunk size
     (forced by ``chunk_size`` or chosen for ``n_rows`` rows) and staging
-    depth.
+    depth. ``mesh`` (default: the ambient mesh) splits the rows over the
+    processes of a data axis that spans processes (:func:`_shards`).
 
     Self-tuning (both env-gated, off by default): with a plan store
     (``KEYSTONE_PLAN_STORE``, :mod:`.store`) the learned record for this
@@ -170,6 +173,7 @@ def plan_pipeline(
         ),
         device_kind=device_kind,
         rows=_costs._rows(probe) if probe is not None else 0,
+        mesh=mesh if mesh is not None else current_mesh(),
     )
     if probe is not None:
         unprobed = [pn.label for pn in chain if pn.cost.source == "default"]
@@ -180,11 +184,13 @@ def plan_pipeline(
     _passes.choose_materialization(plan, rows=n_rows)
     if chunk_req is not None or n_rows is not None:
         _passes.choose_chunk_size(
-            plan, n_rows or 0, requested=chunk_req, source=chunk_source
+            plan, n_rows or 0, requested=chunk_req, source=chunk_source,
+            shards=_shards(plan),
         )
     _passes.choose_staging(
         plan, n_rows or 0, requested_depth=depth_req, depth_source=depth_source
     )
+    _passes.choose_sharding(plan, _shards(plan))
     if learned is not None:
         plan.decide(
             "learned",
@@ -211,6 +217,17 @@ def plan_pipeline(
     return plan
 
 
+def _shards(plan: Plan) -> int:
+    """The cards that hold a plan's rows: the processes on its mesh's data
+    axis. A one-process mesh counts 1, because all its rows sit on one
+    card (the reference counts its data axis: there each position is a
+    device of the one program)."""
+    mesh = plan.mesh
+    if mesh is None or not mesh.spans_processes:
+        return 1
+    return data_axis_size(mesh)
+
+
 def execute(
     pipe: Transformer,
     data: Any,
@@ -220,10 +237,12 @@ def execute(
     budget_bytes: int | None = None,
     chunk_size: int | None = None,
     stage_depth: int | None = None,
+    mesh: Any = None,
 ) -> Any:
     """One-shot planned execution: plan ``pipe`` (sampling costs on a
     slice of ``data`` unless a separate ``sample`` is given) and run it on
-    ``device``."""
+    ``device``; over a ``mesh`` across processes, on this process's rows
+    (the output is then a ``GlobalRows``)."""
     plan = plan_pipeline(
         pipe,
         sample=data if sample is None else sample,
@@ -232,6 +251,7 @@ def execute(
         chunk_size=chunk_size,
         n_rows=_costs._rows(data),
         stage_depth=stage_depth,
+        mesh=mesh,
     )
     return run_plan(plan, data)
 

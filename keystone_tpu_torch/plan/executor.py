@@ -20,6 +20,13 @@
 - :func:`shared_prefix_nodes` and :func:`apply_shared`: the per-chunk
   form of prefix sharing, one prefix apply feeding several branches.
 
+Over a mesh whose data axis spans processes (``plan.shard``), each
+process runs the plan on its row block of the padded global batch
+(:func:`_stage_input`), on its own card, and an apply returns a
+:class:`~keystone_tpu_torch.parallel.multihost.GlobalRows`;
+:func:`fit_stream` folds this process's rows and merges the states over
+the process group, so every process finalizes the same model.
+
 Segments record ``plan.segment`` spans and chunked segments a
 ``source="plan"`` telemetry row when a sink is active; :func:`fit_stream`
 counts the reference's ``plan_fused_fit*`` counters, :func:`serve_stream`
@@ -153,14 +160,56 @@ def _run_chain(chain: list[PlanNode], data: Any, plan: Plan, *, own_input: bool 
     return out
 
 
+def _rank_chunk(plan: Plan) -> int | None:
+    """The rows of one chunk that one process runs: a sharded plan's
+    chunk is split over the data axis."""
+    if plan.chunk_size is None or not plan.shard:
+        return plan.chunk_size
+    from keystone_tpu_torch.parallel.mesh import data_axis_size
+
+    return max(plan.chunk_size // data_axis_size(plan.mesh), 1)
+
+
+def _stage_input(plan: Plan, data: Any):
+    """This process's row block of the global batch for a sharded plan,
+    as a ``GlobalRows`` (its rows stay where they were: the segments
+    stage them onto this process's card), else ``data`` as it is.
+
+    The batch is padded to a multiple of the data axis. Padding is legal
+    only when every node is row-wise (the ``_chunkable_node`` contract: a
+    whole-dataset ``FunctionNode`` would see the pad rows); an indivisible
+    batch over a chain that is not row-wise runs whole on every process,
+    with the refusal counted."""
+    if not plan.shard or plan.mesh is None:
+        return data
+    if not isinstance(data, (np.ndarray, torch.Tensor)) or data.ndim < 1:
+        return data
+    from keystone_tpu_torch.parallel.mesh import data_axis_size, local_block
+    from keystone_tpu_torch.parallel.multihost import GlobalRows
+
+    reg = _metrics.get_registry()
+    n_data = data_axis_size(plan.mesh)
+    n = int(data.shape[0])
+    if n % n_data:
+        chains = [plan.prefix, *plan.branches]
+        if not all(_chunkable_node(pn.op) for chain in chains for pn in chain):
+            reg.counter("plan_shard_refused").inc()
+            return data
+        reg.counter("plan_shard_pad_rows").inc(-n % n_data)
+    block, lo = local_block(data, plan.mesh)
+    reg.counter("plan_shard_dispatches").inc()
+    return GlobalRows(block, n, lo)
+
+
 def _exec_segment(seg, seg_pipe: Pipeline, data: Any, plan: Plan, chunk_ok: bool, reg) -> Any:
     """Execute one segment body, chunked or whole."""
     if not chunk_ok:
         return seg_pipe(to_device(data, plan.device))
     steplog = _telemetry.active_step_log()
     t0 = time.perf_counter()
+    chunk = _rank_chunk(plan)
     out = apply_in_chunks(
-        seg_pipe, data, plan.chunk_size, plan.device, stage_depth=plan.stage_depth
+        seg_pipe, data, chunk, plan.device, stage_depth=plan.stage_depth
     )
     reg.counter("plan_chunked_executions").inc()
     if steplog is not None:
@@ -175,8 +224,8 @@ def _exec_segment(seg, seg_pipe: Pipeline, data: Any, plan: Plan, chunk_ok: bool
             flops=flops or None,
             rows=rows,
             rows_per_s=round(rows / wall, 3) if wall else None,
-            chunks=-(-rows // plan.chunk_size) if rows else 0,
-            chunk_size=plan.chunk_size,
+            chunks=-(-rows // chunk) if rows else 0,
+            chunk_size=chunk,
             stage_depth=plan.stage_depth,
         )
     return out
@@ -185,7 +234,20 @@ def _exec_segment(seg, seg_pipe: Pipeline, data: Any, plan: Plan, chunk_ok: bool
 def run_plan(plan: Plan, data: Any) -> Any:
     """Execute a plan on ``data`` (host or device rows) on the plan's
     device. A single-chain plan returns the chain's output; a
-    multi-branch plan returns one output per branch."""
+    multi-branch plan returns one output per branch. A sharded plan runs
+    this process's row block and returns ``GlobalRows`` outputs."""
+    staged = _stage_input(plan, data)
+    if staged is data:
+        return _run_plan_rows(plan, data)
+    from keystone_tpu_torch.parallel.multihost import GlobalRows
+
+    out = _run_plan_rows(plan, staged.local)
+    if isinstance(out, list):
+        return [GlobalRows(o, staged.n_global, staged.offset) for o in out]
+    return GlobalRows(out, staged.n_global, staged.offset)
+
+
+def _run_plan_rows(plan: Plan, data: Any) -> Any:
     if not plan.branches:
         return _run_chain(plan.prefix, data, plan)
     if plan.share_prefix and plan.prefix:
@@ -324,16 +386,29 @@ def apply_shared(
     staging engine on ``device`` (the card unless the caller asks for
     the CPU; with a ``mesh``, its data device, the chunk rounded up to
     its data axis). Each call with more than one branch counts
-    ``plan_shared_prefix_applies``."""
+    ``plan_shared_prefix_applies``. Over a mesh across processes, each
+    process runs its row block of the padded batch (each chunk split over
+    the data axis) and gets ``GlobalRows`` outputs."""
     from keystone_tpu_torch.core.runtime import resolve_device
     from keystone_tpu_torch.core.staging import run_staged
 
     target = chunk_size
+    rows = None
     if mesh is not None:
-        from keystone_tpu_torch.parallel.mesh import data_sharding, shard_chunk_size
+        from keystone_tpu_torch.parallel import multihost
+        from keystone_tpu_torch.parallel.mesh import (
+            data_axis_size,
+            data_sharding,
+            local_block,
+            shard_chunk_size,
+        )
 
         target = shard_chunk_size(chunk_size, mesh)
         device = data_sharding(mesh)
+        if mesh.spans_processes:
+            n = int(data.shape[0])
+            data, lo = local_block(data, mesh)
+            rows, target = (n, lo), target // data_axis_size(mesh)
     device = resolve_device(device)
 
     def chunks():
@@ -349,7 +424,10 @@ def apply_shared(
         # the unit is one chunked apply that shared a prefix; the
         # corpus-level passes-saved count belongs to the caller
         _metrics.get_registry().counter("plan_shared_prefix_applies").inc()
-    return [torch.cat([chunk[j] for chunk in per_chunk], dim=0) for j in range(len(branch_fns))]
+    outs = [torch.cat([chunk[j] for chunk in per_chunk], dim=0) for j in range(len(branch_fns))]
+    if rows is not None:
+        return [multihost.GlobalRows(o, *rows) for o in outs]
+    return outs
 
 
 def fit_stream(plan: Plan, data: Any, labels: Any, *, n_valid=None, init_state=None):
@@ -364,7 +442,13 @@ def fit_stream(plan: Plan, data: Any, labels: Any, *, n_valid=None, init_state=N
     instead of a zero state — the online-learning verb
     (:mod:`keystone_tpu_torch.learn`): a refit folds only the new chunks,
     so rows already inside the state are never featurized again (the
-    ``plan_fused_fit_rows`` counter advances by exactly the new rows)."""
+    ``plan_fused_fit_rows`` counter advances by exactly the new rows).
+
+    A sharded plan folds this process's row block of ``data`` (the global
+    batch, the same on every process), in chunks of its share of the
+    plan's chunk, and merges the states over the process group in rank
+    order: every process returns the same state. ``init_state`` is then
+    the global state so far, and only process 0 seeds the fold with it."""
     from keystone_tpu_torch.ops.linear import _matmul_precision
     from keystone_tpu_torch.plan.fused_fit import StreamingFitSink
 
@@ -386,7 +470,17 @@ def fit_stream(plan: Plan, data: Any, labels: Any, *, n_valid=None, init_state=N
 
     n = int(data.shape[0])
     n_ok = int(n_valid) if n_valid is not None else n
-    chunk = int(plan.chunk_size or n)
+    if plan.shard:
+        from keystone_tpu_torch.parallel import multihost
+        from keystone_tpu_torch.parallel.mesh import local_position
+
+        rank = local_position(plan.mesh)
+        lo, hi = multihost.row_block(n, rank, len(plan.mesh.ranks))
+        lo, hi = min(lo, n), min(hi, n)
+        data, labels, n, n_ok = data[lo:hi], labels[lo:hi], hi - lo, max(0, min(n_ok - lo, hi - lo))
+        if init_state is not None and rank != 0:
+            init_state = None
+    chunk = int(_rank_chunk(plan) or n or 1)
 
     def chunks():
         for start in range(0, n, chunk):
@@ -405,6 +499,10 @@ def fit_stream(plan: Plan, data: Any, labels: Any, *, n_valid=None, init_state=N
         state = fold_staged(
             chunks(), update, init_state, plan.device, stage_depth=plan.stage_depth
         )
+    if plan.shard:
+        from keystone_tpu_torch.learn.merge import merge_over_group
+
+        state = merge_over_group(state)
     reg = _metrics.get_registry()
     reg.counter("plan_fused_fits").inc()
     reg.counter("plan_fused_fit_chunks").inc(-(-n // chunk) if n else 0)

@@ -37,6 +37,7 @@ from keystone_tpu_torch.core.pipeline import (
     node_label,
 )
 from keystone_tpu_torch.observe import metrics as _metrics
+from keystone_tpu_torch.parallel.mesh import current_mesh
 from keystone_tpu_torch.plan.ir import NodeCost, Plan, PlanNode
 from keystone_tpu_torch.plan.passes import rewrite_rule
 
@@ -172,11 +173,14 @@ def plan_fit(
     budget_bytes: int | None = None,
     sample: Any | None = None,
     gram: str | None = None,
+    mesh: Any = None,
 ) -> Plan:
     """Build the fused streaming-fit plan for a chained label fit. The plan
     either fully fuses (one :class:`StreamingFitSink` node) or records why
     it can't (``fit_fallback``) — :func:`fit_streaming` then takes the
-    classic materialized path."""
+    classic materialized path. ``mesh`` (default: the ambient mesh) splits
+    the rows over the processes of a data axis that spans processes: the
+    chunk is then the global one, split over the processes."""
     from keystone_tpu_torch import plan as plan_mod
     from keystone_tpu_torch.plan import costs as _costs
     from keystone_tpu_torch.plan import passes as _passes
@@ -193,7 +197,9 @@ def plan_fit(
             else budget_bytes
         ),
         device_kind=_costs.device_kind(device),
+        mesh=mesh if mesh is not None else current_mesh(),
     )
+    shards = plan_mod._shards(plan)
     n_rows = _costs._rows(data)
     info = FitPlanInfo(fused=False, n_valid=n_valid)
     plan.fit = info
@@ -277,13 +283,15 @@ def plan_fit(
     plan.prefix[-1].op = fused_sink
     info.fused, info.gram, info.quant_error = True, op, err
 
-    _passes.choose_chunk_size(plan, n_rows, requested=chunk_size)
-    if plan.chunk_size is None and n_rows > _DEFAULT_FIT_CHUNK:
+    _passes.choose_chunk_size(plan, n_rows, requested=chunk_size, shards=shards)
+    if plan.chunk_size is None and n_rows > _DEFAULT_FIT_CHUNK * shards:
         # no cost basis for a choice, but an unchunked fused fit would
-        # stage the whole batch at once — bound it anyway
-        plan.chunk_size = _DEFAULT_FIT_CHUNK
+        # stage the whole batch at once — bound it anyway (each process
+        # takes its share of a chunk)
+        plan.chunk_size = _DEFAULT_FIT_CHUNK * shards
         plan.decide("chunk", size=plan.chunk_size, source="fit_default")
     _passes.choose_staging(plan, n_rows, requested_depth=stage_depth)
+    _passes.choose_sharding(plan, shards)
     plan.decide(
         "fuse_fit",
         nodes_fused=len(fused_sink.prefix),

@@ -101,6 +101,8 @@ class Plan:
     stage_depth: int = 2  # staged host→device chunks kept in flight
     fit: Any = None  # FitPlanInfo for a fused streaming fit (fused_fit)
     decisions: list[dict] = dataclasses.field(default_factory=list)
+    mesh: Any = None  # parallel.mesh.Mesh the plan runs over (None: one device)
+    shard: bool = False  # rows split over the processes of the mesh's data axis
 
     def decide(self, action: str, **fields: Any) -> dict:
         rec = {"action": action, **fields}

@@ -18,8 +18,10 @@
   vs compute estimate;
 - :func:`emit_plan` — one ``optimize`` event carrying every decision.
 
-Passes mutate only the plan and record decisions. Sharded dispatch over
-a mesh's data axis waits for the multi-card slice (ROADMAP A6).
+- :func:`choose_sharding` — row blocks over a mesh whose data axis spans
+  processes (one card per process).
+
+Passes mutate only the plan and record decisions.
 """
 
 from __future__ import annotations
@@ -208,12 +210,18 @@ def choose_chunk_size(
     requested: int | None = None,
     source: str = "requested",
     budget_fraction: float = 0.25,
+    shards: int = 1,
 ) -> Plan:
     """Bound the per-chunk working set to ``budget_fraction`` of the
     memory budget using the plan's worst per-row peak bytes; chunk sizes
     are powers of two. A forced size records where it came from in
     ``source``: the caller (``requested``), a stored learned plan
-    (``store``) or the live autotuner (``autotuner``)."""
+    (``store``) or the live autotuner (``autotuner``).
+
+    ``shards`` (the cards holding rows, ``plan._shards``) scales the
+    bound: a chunk splits its rows over the shards, so each card's budget
+    admits ``shards``× more rows per chunk, and the size is kept
+    divisible by ``shards`` so every shard gets an even block."""
     if requested is not None:
         plan.chunk_size = requested
         plan.decide("chunk", size=requested, source=source)
@@ -224,11 +232,14 @@ def choose_chunk_size(
     )
     if peak_row <= 0.0 or plan.budget_bytes <= 0:
         return plan  # no basis for a choice — executor stays unchunked
-    limit = max(int(plan.budget_bytes * budget_fraction / peak_row), 1)
+    shards = max(int(shards), 1)
+    limit = max(int(plan.budget_bytes * budget_fraction * shards / peak_row), 1)
     if limit >= n_rows:
         plan.decide("chunk", size=None, reason="fits_whole_batch")
         return plan
     size = 1 << max(limit.bit_length() - 1, 0)
+    if shards > 1:
+        size = max(size - size % shards, shards)
     plan.chunk_size = size
     plan.decide(
         "chunk",
@@ -236,6 +247,22 @@ def choose_chunk_size(
         peak_bytes_per_row=int(peak_row),
         budget_bytes=plan.budget_bytes,
     )
+    return plan
+
+
+def choose_sharding(plan: Plan, shards: int) -> Plan:
+    """Row blocks over the processes of the plan's mesh: with more than
+    one shard, the chunk is rounded up to a shard multiple (the same
+    number of chunks, an even block per process) and the plan runs each
+    process's rows on its own card."""
+    if shards <= 1:
+        plan.shard = False
+        return plan
+    if plan.chunk_size and plan.chunk_size % shards:
+        plan.chunk_size = -(-plan.chunk_size // shards) * shards
+    plan.shard = True
+    plan.decide("shard", shards=shards, axis="data", chunk_size=plan.chunk_size)
+    _metrics.get_registry().counter("plan_shard_planned").inc()
     return plan
 
 

@@ -6,8 +6,9 @@ supervisor (:mod:`keystone_tpu_torch.resilience.supervisor`) drives.
 The JAX package rides the ``jax.distributed`` coordination service. The
 port's channel is a ``torch.distributed.TCPStore`` at
 ``KEYSTONE_COORDINATOR`` (``HOST:PORT``), which the supervisor hosts for
-each generation (:class:`StoreKV`); a process group that ROADMAP A6's
-multihost layer builds later joins the same store. A TCPStore cannot
+each generation (:class:`StoreKV`); the process group that
+:func:`keystone_tpu_torch.parallel.multihost.initialize` builds joins the
+same store. A TCPStore cannot
 list keys by prefix, so the failure detector reads the one heartbeat
 key of each of the ``num_processes`` it knows (:meth:`LocalKV.get_many`,
 :meth:`StoreKV.get_many`), and a read that fails in transport returns
@@ -667,7 +668,9 @@ def _barrier_store():
         return _barrier_kv
 
 
-def checkpoint_barrier(step: int, timeout_s: float | None = None, kv=None) -> bool:
+def checkpoint_barrier(
+    step: int, timeout_s: float | None = None, kv=None, phase: str = ""
+) -> bool:
     """Agreement point before a coordinated checkpoint save: every process
     must arrive at ``step``'s save before any starts writing, so a dead or
     wedged peer turns into a loud :class:`ClusterBarrierError` (bounded by
@@ -679,7 +682,8 @@ def checkpoint_barrier(step: int, timeout_s: float | None = None, kv=None) -> bo
     (``KEYSTONE_RESTART``) and the step, read until it reaches the
     process count: a relaunched generation never sees the counts of the
     one before it (single-box mode also gives each generation a fresh
-    store)."""
+    store). ``phase`` names a second barrier at the same step (the
+    coordinated save's "saved")."""
     nprocs = process_count()
     if nprocs <= 1:
         return False
@@ -690,6 +694,8 @@ def checkpoint_barrier(step: int, timeout_s: float | None = None, kv=None) -> bo
     if timeout_s is None:
         timeout_s = _env_float(ENV_CKPT_BARRIER_S, _DEFAULT_CKPT_BARRIER_S)
     key = f"{BARRIER_PREFIX}{os.environ.get(ENV_RESTART, '0') or '0'}/{int(step)}"
+    if phase:
+        key = f"{key}/{phase}"
     deadline = time.monotonic() + timeout_s
     try:
         arrived = kv.add(key, 1)

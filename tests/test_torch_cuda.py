@@ -1807,3 +1807,116 @@ def test_step_tracer_windows_keep_every_k2_launch(card, tmp_path):
         with open(window["path"]) as f:
             names = [e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
         assert sum(1 for n in names if "attention_kernel" in n) == 6, window
+
+
+# -- the multi-process layer on the card
+
+
+_MH_SCRIPT = """
+import json, os, sys
+sys.path.insert(0, sys.argv[1])
+from keystone_tpu_torch.parallel import multihost
+
+mode, rank, port, out = sys.argv[2], int(sys.argv[3]), sys.argv[4], sys.argv[5]
+backend = "nccl" if mode == "nccl" else "gloo"
+try:
+    device = multihost.initialize(f"127.0.0.1:{port}", 2, rank, init_timeout_s=60,
+                                  backend=backend, device="cuda:0")
+except RuntimeError as e:
+    print("REFUSED:", e, flush=True)
+    sys.exit(3)
+from keystone_tpu_torch.models import mnist_random_fft
+from keystone_tpu_torch.ops import gram
+os.environ.update(KEYSTONE_PLAN="1", KEYSTONE_GRAM_OP="int8")
+gram.INT8_GRAM.launches = 0
+res = mnist_random_fft.main(json.loads(os.environ["MH_ARGV"]))
+lo, hi = multihost.row_block(res["n_train"])
+rows = min(hi, res["n_train"]) - lo
+chunk = res["fit_chunk_size"] // 2
+out_rec = {"k1": gram.INT8_GRAM.launches, "chunks": -(-rows // chunk), "device": str(device),
+           "pred": res["test_predictions"].tolist(), "test_error": res["test_error"]}
+with open(f"{out}/rank{rank}.json", "w") as f:
+    json.dump(out_rec, f)
+multihost.shutdown()
+"""
+_MH_ARGV = ["--synthetic", "20000", "--num-ffts", "8", "--block-size", "2048"]
+
+
+def _mh_pair(mode: str, tmp_path) -> list:
+    """Two processes of ``_MH_SCRIPT`` on card 0; their exit codes and
+    output."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = str(Path(__file__).resolve().parent.parent)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("KEYSTONE_")}
+    env["MH_ARGV"] = json.dumps(_MH_ARGV)
+    procs = [subprocess.Popen([sys.executable, "-c", _MH_SCRIPT, root, mode, str(r), str(port),
+                               str(tmp_path)], env=env, text=True, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append((p.communicate(timeout=240)[0], p.returncode))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    return outs
+
+
+def test_multihost_world_of_one_on_nccl(card, monkeypatch):
+    """``initialize`` alone forms a group of one over NCCL on card 0; an
+    all-reduce and a ``GlobalRows`` of its rows run on the card."""
+    import os
+
+    from keystone_tpu_torch.parallel import multihost
+
+    for key in ("KEYSTONE_COORDINATOR", "KEYSTONE_PROCESS_ID", "KEYSTONE_NUM_PROCESSES"):
+        monkeypatch.delenv(key, raising=False)
+    try:
+        device = multihost.initialize()
+        assert device.type == "cuda" and multihost.process_count() == 1
+        assert torch.distributed.get_backend() == "nccl"
+        x = torch.arange(4.0, device=device)
+        assert torch.equal(multihost.all_reduce_(x), torch.arange(4.0, device=device))
+        rows = multihost.global_batch_from_local(np.ones((5, 3), np.float32))
+        assert rows.local.device == device and (rows.n_global, rows.offset) == (5, 0)
+    finally:
+        multihost.shutdown()
+        for key in ("KEYSTONE_COORDINATOR", "KEYSTONE_PROCESS_ID", "KEYSTONE_NUM_PROCESSES"):
+            os.environ.pop(key, None)
+
+
+def test_nccl_refuses_two_ranks_on_one_card(card, tmp_path):
+    """Two ranks asking for NCCL on one card are refused by name, pointing
+    at ``backend="gloo"``; neither hangs."""
+    for out, rc in _mh_pair("nccl", tmp_path):
+        assert rc == 3, out
+        assert "two ranks on one card" in out and "backend='gloo'" in out, out
+
+
+def test_two_process_gloo_fit_on_card_launches_k1_per_rank(card, tmp_path, monkeypatch):
+    """Two processes on card 0 over gloo: the streamed int8 MNIST fit
+    launches K1 once a fit chunk on each rank, and the global test
+    predictions agree with one process's on ≥ 99.5 %."""
+    from keystone_tpu_torch.models import mnist_random_fft
+
+    outs = _mh_pair("gloo", tmp_path)
+    for out, rc in outs:
+        assert rc == 0, out
+    recs = [json.loads((tmp_path / f"rank{r}.json").read_text()) for r in range(2)]
+    for rec in recs:
+        assert rec["device"] == "cuda:0" and rec["k1"] == rec["chunks"] > 0, rec
+    assert recs[0]["pred"] == recs[1]["pred"]
+    monkeypatch.setenv("KEYSTONE_PLAN", "1")
+    monkeypatch.setenv("KEYSTONE_GRAM_OP", "int8")
+    one = mnist_random_fft.main(list(_MH_ARGV))
+    agree = float(np.mean(np.asarray(recs[0]["pred"]) == one["test_predictions"]))
+    assert agree >= 0.995, agree

@@ -161,6 +161,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "chip_multicard.py")
 
 
 @pytest.mark.parametrize("path", sorted(_port_sources()), ids=lambda p: os.path.relpath(p, REPO))

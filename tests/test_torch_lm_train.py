@@ -342,9 +342,10 @@ def test_step_batch_and_flops_match_jax():
 
 def test_unported_train_options_raise(monkeypatch, tmp_path):
     """None of train's options outside the port is ignored: each raises
-    and names the ROADMAP step that brings it. ``checkpoint_dir`` is
-    ported (tests/test_torch_lm_resume.py holds the resume), and so are
-    the guard and the step watchdog."""
+    and names the ROADMAP step that brings it (tensor parallelism, A6 part
+    2). ``checkpoint_dir`` is ported (tests/test_torch_lm_resume.py holds
+    the resume), and so are the guard, the step watchdog and data
+    parallelism across processes."""
     pm = port_of(_tiny())
     corpus = lm.synthetic_corpus(500, VOCAB)
     kw = dict(steps=1, batch=4, seq=SEQ)
@@ -358,14 +359,19 @@ def test_unported_train_options_raise(monkeypatch, tmp_path):
         monkeypatch.setenv(env, "skip" if env == "KEYSTONE_GUARD" else "3")
         assert len(train(pm, corpus, **kw)[1]) == 1
         monkeypatch.delenv(env)
-    with pytest.raises(NotImplementedError, match="A6"):
-        train(pm, corpus, **kw, mesh=create_mesh(data=2, devices=["cpu"] * 2))
-    # a job of several processes would train data-parallel across them
+    # a one-process mesh whose data axis names several cards trains the
+    # batch on the model's device, as a mesh of one position does
+    two = port_of(_tiny())
+    _, on_mesh = train(two, corpus, **kw, mesh=create_mesh(data=2, devices=["cpu"] * 2))
+    _, alone = train(port_of(_tiny()), corpus, **kw)
+    assert on_mesh == alone
+    # a job of several processes trains data-parallel over the process
+    # group (tests/test_torch_multihost.py); without one it raises
     monkeypatch.setenv("KEYSTONE_NUM_PROCESSES", "2")
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(RuntimeError, match="multihost.initialize"):
         train(pm, corpus, **kw)
     monkeypatch.delenv("KEYSTONE_NUM_PROCESSES")
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(NotImplementedError, match="A6 part 2"):
         lm.shard_params(pm, create_mesh(data=1, model=2, devices=["cpu"] * 2))
     assert lm.shard_params(pm, create_mesh(data=2, devices=["cpu"] * 2)) is pm
     # --moe-every trains a MoE model with the JAX package's parameter count

@@ -1,0 +1,640 @@
+"""keystone_tpu_torch's multi-process layer against the JAX package's,
+over gloo on the CPU.
+
+Two processes of the port form a ``torch.distributed`` group through
+``parallel.multihost.initialize``, each holding its half of the rows, and
+their results are held against the JAX package's one-process results: the
+block least-squares fit (within 2e-4, ``tests/test_multihost.py:74``), the
+flagship train step and ``train`` (losses within 1e-5, weights within
+5e-5), a crash and resume through coordinated checkpoints (5e-5), the
+fit-state merge (1e-6 relative), ``assemble_global``, the metrics roll-up
+and ``merge_metric_dumps`` (exact).
+
+The worker is this file: ``python test_torch_multihost.py <mode> <rank>
+<world> <port> <out>`` imports only torch and the port. The JAX reference
+runs in the test process. Each spawned pair has its own time limit, after
+which every child is killed and the test fails.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+# the reference test's data and model (tests/test_multihost.py:74,
+# tests/_lm_worker_common.py)
+FIT_N, FIT_D, FIT_C = 256, 24, 4
+LM_BATCH, LM_SEQ, LM_STEPS, LM_LR, LM_VOCAB = 8, 32, 3, 1e-3, 31
+TRAIN_SEED = 3
+MNIST_ARGV = ["--synthetic", "600", "--num-ffts", "2", "--block-size", "512"]
+# the streamed fit's chunk: one process folds the same 150-row chunks that
+# two processes fold as their halves, so the int8 codes (scaled per chunk)
+# are the same
+MNIST_FIT_CHUNK = 150
+MERGE_ROWS = (40, 25)
+
+
+def _fit_data():
+    rng = np.random.default_rng(0)
+    cls = rng.integers(0, FIT_C, size=FIT_N)
+    centers = rng.normal(size=(FIT_C, FIT_D)).astype(np.float32) * 2
+    data = (centers[cls] + rng.normal(size=(FIT_N, FIT_D))).astype(np.float32)
+    labels = -np.ones((FIT_N, FIT_C), np.float32)
+    labels[np.arange(FIT_N), cls] = 1.0
+    return data, labels
+
+
+def _merge_chunk(rank: int):
+    rng = np.random.default_rng(100 + rank)
+    n = MERGE_ROWS[rank]
+    return (rng.normal(size=(n, 16)) + rank).astype(np.float32), rng.normal(size=(n, 3)).astype(
+        np.float32)
+
+
+def _assemble_inputs(rank: int):
+    """(features, labels) per rank for two gathers: an empty rank with
+    (0, 0) features, then unequal ranks."""
+    rng = np.random.default_rng(7 + rank)
+    empty = ((rng.normal(size=(3, 4)).astype(np.float32), np.arange(3, dtype=np.int32))
+             if rank == 0 else (np.zeros((0, 0), np.float32), np.zeros((0,), np.int32)))
+    n = (2, 5)[rank]
+    unequal = (rng.normal(size=(n, 4)).astype(np.float32),
+               np.arange(n, dtype=np.int32) + 10 * rank)
+    return empty, unequal
+
+
+# --------------------------------------------------------------- workers
+
+
+def _w_fit(rank, world, out: Path) -> None:
+    """The fit, the fit-state merge, assemble_global, the metrics roll-up
+    and the MNIST run across the group."""
+    import torch
+
+    from keystone_tpu_torch.learn.merge import allmerge_fit_state
+    from keystone_tpu_torch.loaders.imagenet_stream import assemble_global
+    from keystone_tpu_torch.models import mnist_random_fft
+    from keystone_tpu_torch.observe import metrics
+    from keystone_tpu_torch.ops.linear import (
+        BlockLeastSquaresEstimator,
+        normal_eq_init,
+        normal_eq_update,
+    )
+    from keystone_tpu_torch.parallel import create_mesh, multihost, shard_batch
+
+    res: dict = {}
+    data, labels = _fit_data()
+    lo, hi = rank * FIT_N // world, (rank + 1) * FIT_N // world
+    g_data = multihost.global_batch_from_local(data[lo:hi])
+    g_labels = multihost.global_batch_from_local(labels[lo:hi])
+    assert (g_data.n_global, g_data.offset) == (FIT_N, lo), g_data
+    model = BlockLeastSquaresEstimator(block_size=7, num_iter=3, lam=0.1).fit(g_data, g_labels)
+    w = torch.cat(list(model.xs))
+    res["fit_x"] = w.numpy()
+    res["fit_b"] = model.b.numpy()
+    # the weights come out the same on every process
+    res["fit_replicas_equal"] = all(torch.equal(w, o) for o in multihost.all_gather(w))
+
+    a, b = _merge_chunk(rank)
+    state = normal_eq_update(normal_eq_init(16, 3, "cpu"), torch.from_numpy(a), torch.from_numpy(b))
+    merged = allmerge_fit_state(state)
+    for name in ("ata", "atb", "mean_a", "mean_b", "n"):
+        res[f"merge_{name}"] = getattr(merged, name).numpy()
+
+    for tag, (f, y) in zip(("empty", "unequal"), _assemble_inputs(rank)):
+        gf, gy = assemble_global(f, y)
+        res[f"assemble_{tag}_f"], res[f"assemble_{tag}_y"] = gf, gy
+
+    reg = metrics.get_registry()
+    reg.counter("mh_rows").inc(100 * (rank + 1))
+    reg.counter("mh_calls", host=str(rank)).inc(rank + 1)
+    reg.gauge("mh_hbm_peak").set(float(1000 * (rank + 1)))
+    t = reg.timer("mh_step_seconds")
+    for k in range(10):
+        t.observe(0.010 * (rank + 1) + 0.001 * k)
+    rolled = multihost.rollup_metrics(str(out))
+    res["rollup_on_rank"] = rolled is not None
+
+    from keystone_tpu_torch import plan as plan_mod
+    from keystone_tpu_torch.plan import fused_fit
+
+    fused_fit._DEFAULT_FIT_CHUNK = MNIST_FIT_CHUNK
+    mesh = create_mesh()
+    res["mesh_data"] = mesh.shape["data"]
+    rows = shard_batch(np.arange(10, dtype=np.float32).reshape(5, 2), mesh)
+    res["shard_local"] = rows.local.numpy()
+    res["shard_layout"] = np.array([rows.n_global, rows.offset, rows.n_valid])
+    res["shard_gather"] = rows.gather().numpy()
+    res["plan_shards"] = plan_mod._shards(plan_mod.Plan(prefix=[], mesh=mesh))
+    for tag, env in (("classic", {}), ("streamed", {"KEYSTONE_PLAN": "1",
+                                                    "KEYSTONE_GRAM_OP": "int8"})):
+        os.environ.update(env)
+        with _finalized() as weights:
+            r = mnist_random_fft.main(MNIST_ARGV, device="cpu")
+        for k in env:
+            os.environ.pop(k)
+        res[f"mnist_{tag}_w"] = weights[-1]
+        res[f"mnist_{tag}_pred"] = r["test_predictions"]
+        res[f"mnist_{tag}_err"] = np.array([r["train_error"], r["test_error"]])
+        res[f"mnist_{tag}_procs"] = r["processes"]
+    _save(out, rank, res)
+
+
+def _finalized():
+    """A context collecting the weights (D, K) of every model the block
+    solver finalizes from normal-equation statistics."""
+    import contextlib
+
+    import torch
+
+    from keystone_tpu_torch.ops.linear import BlockLeastSquaresEstimator
+
+    @contextlib.contextmanager
+    def ctx():
+        real, out = BlockLeastSquaresEstimator._finalize, []
+
+        def finalize(self, *a, **kw):
+            models = real(self, *a, **kw)
+            out.append(torch.cat(list(models[-1].xs)).numpy())
+            return models
+
+        BlockLeastSquaresEstimator._finalize = finalize
+        try:
+            yield out
+        finally:
+            BlockLeastSquaresEstimator._finalize = real
+
+    return ctx()
+
+
+def _lm_model(out: Path):
+    from keystone_tpu_torch import convert
+
+    z = np.load(out / "lm_in.npz")
+    meta = json.loads(str(z["meta"]))
+    leaves = {
+        "embed": z["embed"],
+        "pos_embed": z["pos_embed"],
+        "blocks": [
+            {n: z[f"b{i}_{n}"] for n in ("wq", "wk", "wv", "wo", "w1", "w2")}
+            for i in range(meta["depth"])
+        ],
+    }
+    return convert.transformer_lm(leaves, num_heads=meta["num_heads"], device="cpu")
+
+
+def _w_lm(rank, world, out: Path) -> None:
+    """Three data-parallel steps of ``make_train_step`` with optax.adamw's
+    defaults (``_lm_worker_common.build``), then three of ``train``."""
+    import torch
+
+    from keystone_tpu_torch.models.lm.train import (
+        _step_batch,
+        make_optimizer,
+        make_train_step,
+        synthetic_corpus,
+        train,
+    )
+    from keystone_tpu_torch.parallel import multihost
+
+    corpus = synthetic_corpus(20_000, LM_VOCAB, seed=0)
+    model = _lm_model(out)
+    optimizer = make_optimizer(LM_LR, weight_decay=1e-4)
+    state = optimizer.init(model.leaves())
+    step = make_train_step(optimizer, data_parallel=True)
+    lo, hi = multihost.row_block(LM_BATCH)
+    losses = []
+    for i in range(LM_STEPS):
+        toks = np.ascontiguousarray(_step_batch(corpus, 0, i, LM_BATCH, LM_SEQ)[lo:hi])
+        model, state, loss = step(model, state, torch.from_numpy(toks))
+        losses.append(float(loss))
+    res = {"losses": np.asarray(losses), "wq": model.blocks[0].wq.detach().numpy(),
+           "embed": model.embed.detach().numpy()}
+    model2, losses2 = train(_lm_model(out), corpus, steps=LM_STEPS, batch=LM_BATCH, seq=LM_SEQ,
+                            lr=LM_LR, seed=TRAIN_SEED)
+    res.update(train_losses=np.asarray(losses2), train_wq=model2.blocks[0].wq.detach().numpy(),
+               train_embed=model2.embed.detach().numpy())
+    _save(out, rank, res)
+
+
+def _w_ckpt(rank, world, out: Path, ckdir: str, phase: str) -> None:
+    """The reference's crash-and-resume worker (tests/multihost_ckpt_worker.py):
+    two coordinated-checkpointed steps, then a rerun to four."""
+    import torch
+
+    from keystone_tpu_torch.core.checkpoint import TrainCheckpointer
+    from keystone_tpu_torch.models.lm.train import (
+        _step_batch,
+        _train_state,
+        make_optimizer,
+        make_train_step,
+        synthetic_corpus,
+    )
+    from keystone_tpu_torch.parallel import multihost
+
+    corpus = synthetic_corpus(20_000, LM_VOCAB, seed=0)
+    model = _lm_model(out)
+    optimizer = make_optimizer(LM_LR, weight_decay=1e-4)
+    state = optimizer.init(model.leaves())
+    step = make_train_step(optimizer, data_parallel=True)
+    steps = 2 if phase == "crash" else 4
+    ckpt = TrainCheckpointer(ckdir, {"kind": "mh_lm", "batch": LM_BATCH},
+                             cluster_info={"num_processes": world})
+    restored, start = ckpt.restore(_train_state(model, state))
+    state.count = int(restored["count"])
+    if phase == "resume":
+        assert start == 2, f"resume found start={start}"
+    lo, hi = multihost.row_block(LM_BATCH)
+    for i in range(start, steps):
+        toks = np.ascontiguousarray(_step_batch(corpus, 0, i, LM_BATCH, LM_SEQ)[lo:hi])
+        model, state, _ = step(model, state, torch.from_numpy(toks))
+        ckpt.save(_train_state(model, state), i + 1)
+    if phase == "resume":
+        _save(out, rank, {"wq": model.blocks[0].wq.detach().numpy(),
+                          "embed": model.embed.detach().numpy()})
+
+
+def _save(out: Path, rank: int, res: dict) -> None:
+    if rank == 0:
+        np.savez(out / "rank0.npz", **{k: np.asarray(v) for k, v in res.items()})
+
+
+def _worker(argv: list) -> int:
+    mode, rank, world, port, out = argv[0], int(argv[1]), int(argv[2]), argv[3], Path(argv[4])
+    from keystone_tpu_torch.parallel import multihost
+
+    multihost.initialize(f"127.0.0.1:{port}", world, rank, init_timeout_s=30, device="cpu")
+    try:
+        if mode == "fit":
+            _w_fit(rank, world, out)
+        elif mode == "lm":
+            _w_lm(rank, world, out)
+        elif mode == "ckpt":
+            _w_ckpt(rank, world, out, argv[5], argv[6])
+        else:
+            raise SystemExit(f"unknown mode {mode!r}")
+    finally:
+        multihost.shutdown()
+    print(f"worker {rank}: ok", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(_worker(sys.argv[1:]))
+
+
+# ----------------------------------------------------------------- tests
+
+import pytest  # noqa: E402
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from keystone_tpu.learn.merge import fit_stats_merge as j_fit_stats_merge  # noqa: E402
+from keystone_tpu.ops import linear as jlinear  # noqa: E402
+from keystone_tpu.parallel import multihost as jmultihost  # noqa: E402
+from keystone_tpu_torch.parallel import create_mesh  # noqa: E402
+from keystone_tpu_torch.parallel import multihost  # noqa: E402
+
+PAIR_LIMIT_S = 60.0
+_ENV_KEYS = ("KEYSTONE_COORDINATOR", "KEYSTONE_PROCESS_ID", "KEYSTONE_NUM_PROCESSES")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _spawn(mode: str, out: Path, port: int, *extra) -> None:
+    """Run one worker pair; every child is killed and the test fails when
+    the pair outlives ``PAIR_LIMIT_S``."""
+    env = dict(os.environ)
+    for key in _ENV_KEYS + ("KEYSTONE_PLAN", "KEYSTONE_GRAM_OP", "KEYSTONE_FAULTS",
+                            "KEYSTONE_OBSERVE_DIR"):
+        env.pop(key, None)
+    root = str(Path(__file__).resolve().parent.parent)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+    env["OMP_NUM_THREADS"] = "2"
+    procs = [
+        subprocess.Popen(
+            [sys.executable, __file__, mode, str(r), "2", str(port), str(out), *map(str, extra)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for r in range(2)
+    ]
+    deadline = time.monotonic() + PAIR_LIMIT_S
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.wait()
+        pytest.fail(f"{mode} worker pair outlived {PAIR_LIMIT_S:.0f} s")
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, f"{mode} worker failed:\n{log}"
+
+
+@pytest.fixture(scope="module")
+def fit_run(tmp_path_factory):
+    out = tmp_path_factory.mktemp("mh_fit")
+    _spawn("fit", out, _free_port())
+    return out, dict(np.load(out / "rank0.npz"))
+
+
+def _jax_lm():
+    """The JAX one-process model, optimizer, step and corpus
+    (``_lm_worker_common.build``), built afresh: its train step donates
+    the model's buffers."""
+    from _lm_worker_common import build
+
+    return build()
+
+
+def _write_lm_in(out: Path, jm) -> None:
+    arrays = {"embed": np.asarray(jm.embed), "pos_embed": np.asarray(jm.pos_embed)}
+    for i, blk in enumerate(jm.blocks):
+        for n in ("wq", "wk", "wv", "wo", "w1", "w2"):
+            arrays[f"b{i}_{n}"] = np.asarray(getattr(blk, n))
+    meta = {"depth": len(jm.blocks), "num_heads": jm.num_heads}
+    np.savez(out / "lm_in.npz", meta=json.dumps(meta), **arrays)
+
+
+def _jax_steps(steps: int):
+    """tests/test_multihost.py:137 ``_single_process_lm_reference``."""
+    from _lm_worker_common import step_batch
+
+    model, optimizer, step, corpus = _jax_lm()
+    opt_state = optimizer.init(model)
+    losses = []
+    for i in range(steps):
+        model, opt_state, loss = step(model, opt_state, jnp.asarray(step_batch(corpus, i)))
+        losses.append(float(loss))
+    return model, losses
+
+
+@pytest.fixture(scope="module")
+def lm_run(tmp_path_factory):
+    out = tmp_path_factory.mktemp("mh_lm")
+    _write_lm_in(out, _jax_lm()[0])
+    _spawn("lm", out, _free_port())
+    return dict(np.load(out / "rank0.npz"))
+
+
+# -- pure functions and errors, in this process
+
+
+def _dumps(kind: str) -> list:
+    if kind == "counters":
+        return [{"rows": {"kind": "counter", "value": 100}, "only0": {"kind": "counter",
+                                                                      "value": 3}},
+                {"rows": {"kind": "counter", "value": 200}, "calls{host=1}": {
+                    "kind": "counter", "value": 2}}]
+    if kind == "gauges":
+        return [{"peak": {"kind": "gauge", "value": 1000.0}},
+                {"peak": {"kind": "gauge", "value": 2500.0}, "other": {"kind": "gauge",
+                                                                       "value": -1.0}},
+                {"peak": {"kind": "gauge", "value": 2000.0}}]
+    rng = np.random.default_rng(11)
+    dumps = []
+    for h in range(3):
+        s = [float(v) for v in rng.uniform(0.01 * (h + 1), 0.02 * (h + 1), size=7 + h)]
+        dumps.append({"step_s": {"kind": "timer", "count": len(s), "total_s": sum(s),
+                                 "min_s": min(s), "max_s": max(s), "p50_s": s[0],
+                                 "samples": s}})
+    dumps.append({"step_s": {"kind": "timer", "count": 0, "total_s": 0.0, "max_s": 0.0,
+                             "samples": []}})
+    return dumps
+
+
+@pytest.mark.parametrize("kind", ["counters", "gauges", "timers"])
+def test_merge_metric_dumps_matches_jax(kind):
+    got = multihost.merge_metric_dumps(_dumps(kind))
+    want = jmultihost.merge_metric_dumps(_dumps(kind))
+    assert got == want
+
+
+def test_initialize_errors_match_jax(free_tcp_port, monkeypatch):
+    """A dead coordinator raises within the timeout and names the address;
+    a partial KEYSTONE_* group raises, naming the missing variable."""
+    addr = f"127.0.0.1:{free_tcp_port}"
+    for init in (multihost.initialize, jmultihost.initialize):
+        t0 = time.monotonic()
+        with pytest.raises(RuntimeError, match="unreachable") as err:
+            init(addr, 2, 1, init_timeout_s=0.5)
+        assert addr in str(err.value) and time.monotonic() - t0 < 10
+    for key in _ENV_KEYS:
+        monkeypatch.delenv(key, raising=False)
+    monkeypatch.setenv("KEYSTONE_COORDINATOR", addr)
+    monkeypatch.setenv("KEYSTONE_NUM_PROCESSES", "2")
+    for init in (multihost.initialize, jmultihost.initialize):
+        with pytest.raises(RuntimeError, match="KEYSTONE_PROCESS_ID.*must be set as a group"):
+            init()
+    assert not multihost.is_initialized()
+
+
+def test_one_process_group_and_shards(monkeypatch):
+    """``initialize`` alone forms a group of one over gloo; ``_shards``
+    counts the cards that hold rows, so a one-process mesh counts 1 where
+    the reference counts its data axis."""
+    from keystone_tpu import plan as jplan
+    from keystone_tpu.parallel import mesh as jmesh
+    from keystone_tpu_torch import plan as plan_mod
+
+    one_process = create_mesh(data=4, devices=["cpu"] * 4)
+    assert plan_mod._shards(plan_mod.Plan(prefix=[], mesh=one_process)) == 1
+    j_mesh = jmesh.create_mesh(data=4)
+    assert jplan._shards(jplan.Plan(prefix=[], mesh=j_mesh)) == 4
+    for key in _ENV_KEYS:
+        monkeypatch.delenv(key, raising=False)
+    try:
+        assert multihost.initialize(device="cpu") == torch.device("cpu")
+        assert multihost.process_count() == 1 and multihost.is_initialized()
+        assert multihost.group_devices() == (torch.device("cpu"),)
+        x = torch.arange(3.0)
+        assert torch.equal(multihost.all_reduce_(x), torch.arange(3.0))
+    finally:
+        multihost.shutdown()
+        for key in _ENV_KEYS:
+            os.environ.pop(key, None)
+
+
+# -- two processes against the JAX package
+
+
+def test_two_process_fit_matches_single_process(fit_run):
+    _, got = fit_run
+    data, labels = _fit_data()
+    est = jlinear.BlockLeastSquaresEstimator(block_size=7, num_iter=3, lam=0.1)
+    ref = est.fit(jnp.asarray(data), jnp.asarray(labels))
+    want = np.concatenate([np.asarray(x) for x in ref.xs])
+    np.testing.assert_allclose(got["fit_x"], want, atol=2e-4)
+    np.testing.assert_allclose(got["fit_b"], np.asarray(ref.b), atol=2e-4)
+    assert bool(got["fit_replicas_equal"])
+
+
+def test_allmerge_fit_state_matches_jax_merge(fit_run):
+    _, got = fit_run
+    states = []
+    for rank in range(2):
+        a, b = _merge_chunk(rank)
+        states.append(jlinear.normal_eq_update(jlinear.normal_eq_init(16, 3), jnp.asarray(a),
+                                               jnp.asarray(b)))
+    want = j_fit_stats_merge(states[0], states[1])
+    for name in ("ata", "atb", "mean_a", "mean_b", "n"):
+        w = np.asarray(getattr(want, name))
+        np.testing.assert_allclose(got[f"merge_{name}"], w, rtol=1e-6,
+                                   atol=1e-6 * float(np.abs(w).max()), err_msg=name)
+
+
+def test_assemble_global_unequal_and_empty_ranks(fit_run):
+    _, got = fit_run
+    for i, tag in enumerate(("empty", "unequal")):
+        parts = [_assemble_inputs(r)[i] for r in range(2)]
+        width = max(f.shape[-1] for f, _ in parts)
+        want_f = np.concatenate([f.reshape(-1, width) if f.size else np.zeros((0, width),
+                                                                              np.float32)
+                                 for f, _ in parts])
+        want_y = np.concatenate([y for _, y in parts])
+        np.testing.assert_array_equal(got[f"assemble_{tag}_f"], want_f)
+        np.testing.assert_array_equal(got[f"assemble_{tag}_y"], want_y)
+
+
+def test_metrics_rollup_two_processes(fit_run):
+    out, got = fit_run
+    assert bool(got["rollup_on_rank"])
+    merged = json.loads((out / "metrics_cluster.json").read_text())
+    assert merged["hosts"] == 2
+    m = merged["metrics"]
+    assert m["mh_rows"] == 300
+    assert m["mh_calls{host=0}"] == 1 and m["mh_calls{host=1}"] == 2
+    assert m["mh_hbm_peak"] == 2000.0
+    assert m["mh_step_seconds"]["count"] == 20 and "p95_s" in m["mh_step_seconds"]
+
+
+def test_mesh_across_processes_shards_rows(fit_run):
+    """Over a mesh across two processes, ``shard_batch`` gives each its
+    row block of the padded batch (rank 0: rows 0-2 of 5 padded to 6) and
+    ``gather`` puts the valid rows back together; on a one-process mesh
+    the placement helpers name its first device."""
+    from keystone_tpu_torch.parallel import data_sharding_fn, replicated_sharding
+
+    _, got = fit_run
+    x = np.arange(10, dtype=np.float32).reshape(5, 2)
+    np.testing.assert_array_equal(got["shard_local"], x[:3])
+    np.testing.assert_array_equal(got["shard_layout"], [5, 0, 3])
+    np.testing.assert_array_equal(got["shard_gather"], x)
+    mesh = create_mesh(data=2, devices=["cpu", "meta"])
+    assert replicated_sharding(mesh) == torch.device("cpu")
+    place = data_sharding_fn(mesh)
+    assert place((torch.ones(2), torch.ones(2, 3))) == (torch.device("cpu"),) * 2
+    assert data_sharding_fn(None) is None
+
+
+def test_two_process_mnist_matches_one_process(fit_run):
+    """MNIST random-FFT across two processes (the classic fit and the
+    streamed int8 fit over the planner's row blocks) against one process of
+    the port: the same test predictions, errors global on every process,
+    and the streamed fit's weights."""
+    from keystone_tpu_torch.models import mnist_random_fft
+    from keystone_tpu_torch.plan import fused_fit
+
+    _, got = fit_run
+    assert int(got["mesh_data"]) == 2 and int(got["plan_shards"]) == 2
+    for tag, env in (("classic", {}), ("streamed", {"KEYSTONE_PLAN": "1",
+                                                    "KEYSTONE_GRAM_OP": "int8"})):
+        with pytest.MonkeyPatch.context() as mp:
+            for k, v in env.items():
+                mp.setenv(k, v)
+            mp.setattr(fused_fit, "_DEFAULT_FIT_CHUNK", MNIST_FIT_CHUNK)
+            with _finalized() as weights:
+                want = mnist_random_fft.main(MNIST_ARGV, device="cpu")
+        assert int(got[f"mnist_{tag}_procs"]) == 2
+        agree = float(np.mean(got[f"mnist_{tag}_pred"] == want["test_predictions"]))
+        assert agree >= 0.995, (tag, agree)
+        np.testing.assert_allclose(got[f"mnist_{tag}_err"],
+                                   [want["train_error"], want["test_error"]], atol=0.01)
+        if weights:
+            # the streamed fits fold the same chunks: the merged statistics
+            # give the same solve, held at the f32 solve paths' 1e-3 of
+            # max|W| (tests/test_torch_mnist.py)
+            w = weights[-1]
+            assert np.abs(got[f"mnist_{tag}_w"] - w).max() <= 1e-3 * np.abs(w).max(), tag
+
+
+def test_two_process_lm_training_matches_single_process(lm_run):
+    """Data-parallel steps across two processes against the JAX one-process
+    run on the same batches (the reference test's bars)."""
+    model, losses = _jax_steps(LM_STEPS)
+    np.testing.assert_allclose(lm_run["losses"], losses, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(lm_run["wq"], np.asarray(model.blocks[0].wq), atol=5e-5)
+    np.testing.assert_allclose(lm_run["embed"], np.asarray(model.embed), atol=5e-5)
+
+
+def test_two_process_train_matches_jax_train(lm_run):
+    """``train`` across two processes against the JAX package's ``train``
+    in one process, from the same weights."""
+    from keystone_tpu.models.lm.train import train as j_train
+
+    jm, _, _, corpus = _jax_lm()
+    jm, j_losses = j_train(jm, corpus, steps=LM_STEPS, batch=LM_BATCH, seq=LM_SEQ, lr=LM_LR,
+                           seed=TRAIN_SEED)
+    np.testing.assert_allclose(lm_run["train_losses"], j_losses, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(lm_run["train_wq"], np.asarray(jm.blocks[0].wq), atol=5e-5)
+    np.testing.assert_allclose(lm_run["train_embed"], np.asarray(jm.embed), atol=5e-5)
+
+
+def test_two_process_checkpoint_resume(tmp_path):
+    """Coordinated checkpoints across two processes: two steps, a crash,
+    then a rerun that restores on every process and finishes four steps,
+    against the JAX package's uninterrupted four."""
+    _write_lm_in(tmp_path, _jax_lm()[0])
+    ckdir = tmp_path / "mh_ck"
+    _spawn("ckpt", tmp_path, _free_port(), ckdir, "crash")
+    assert not (tmp_path / "rank0.npz").exists()
+    assert sorted(p.name for p in ckdir.glob("step_*")) == ["step_1", "step_2"]
+    _spawn("ckpt", tmp_path, _free_port(), ckdir, "resume")
+    got = np.load(tmp_path / "rank0.npz")
+    model, _ = _jax_steps(4)
+    np.testing.assert_allclose(got["wq"], np.asarray(model.blocks[0].wq), atol=5e-5)
+    np.testing.assert_allclose(got["embed"], np.asarray(model.embed), atol=5e-5)
+
+
+def test_multihost_flag_runs_a_pipeline_under_supervise(tmp_path):
+    """``supervise --procs 2 -- python -m keystone_tpu_torch --multihost
+    --observe DIR mnist-random-fft ...`` joins the two processes from the
+    supervisor's environment, runs the pipeline on each one's rows and
+    rolls their metrics up into process 0's run directory."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("KEYSTONE_")}
+    root = str(Path(__file__).resolve().parent.parent)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+    env["OMP_NUM_THREADS"] = "2"
+    obs = tmp_path / "obs"
+    cmd = [sys.executable, "-m", "keystone_tpu_torch", "supervise", "--procs", "2",
+           "--max-restarts", "0", "--", sys.executable, "-m", "keystone_tpu_torch",
+           "--multihost", "--observe", str(obs), "mnist-random-fft", *MNIST_ARGV,
+           "--device", "cpu"]
+    # a session of its own: on a timeout the supervisor and its children go
+    sup = subprocess.Popen(cmd, env=env, cwd=root, stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        _, err = sup.communicate(timeout=PAIR_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(sup.pid, 9)
+        sup.wait()
+        pytest.fail(f"supervise --multihost outlived {PAIR_LIMIT_S:.0f} s")
+    assert sup.returncode == 0, err[-3000:]
+    assert err.count("MnistRandomFFT: train err") == 2, err[-3000:]
+    (merged,) = [json.loads(p.read_text()) for p in obs.glob("*/metrics_cluster.json")]
+    assert merged["hosts"] == 2
+    assert merged["metrics"]["cluster_events{action=monitor_start}"] == 2

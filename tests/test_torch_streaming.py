@@ -231,7 +231,7 @@ def test_synthetic_source_equals_jax(which):
 def test_tar_source_shards_by_torch_distributed(tars, tmp_path, monkeypatch):
     """One process streams every tar; as rank 1 of 2 (read from an
     initialized ``torch.distributed`` group) it streams the second file
-    only, and assembling across processes raises naming ROADMAP A6."""
+    only, and assembling across processes gathers every rank's rows."""
     label_map = tmp_path / "map.txt"
     label_map.write_text("n00 0\nn01 1\nn02 2\n")
     conf = _conf(imnet, synthetic=0, train_location=str(tmp_path), label_map=str(label_map),
@@ -248,8 +248,14 @@ def test_tar_source_shards_by_torch_distributed(tars, tmp_path, monkeypatch):
     monkeypatch.setattr(dist, "get_world_size", lambda: 2)
     second = list(imagenet_stream.tar_source(conf, "train")())
     assert np.concatenate([lab for _, lab in second]).tolist() == [1] * 7
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        imagenet_stream.assemble_global(f, np.arange(3))
+    # across processes every rank's rows are gathered in rank order
+    # (tests/test_torch_multihost.py runs it over two real processes)
+    from keystone_tpu_torch.parallel import multihost
+
+    monkeypatch.setattr(multihost, "all_gather_rows", lambda t: torch.cat([t, t]))
+    got_f, got_y = imagenet_stream.assemble_global(f, np.arange(3))
+    np.testing.assert_array_equal(got_f, np.concatenate([f, f]))
+    np.testing.assert_array_equal(got_y, np.concatenate([np.arange(3)] * 2))
 
 
 def test_apply_shared_matches_branches_applied_apart():
