@@ -20,7 +20,28 @@ through the run supervisor (``supervise --procs 4 -- chip_multicard.py
    ``chip_smoke.check_f32_leg`` holds them), and in bf16 at depth 8 (K2 8
    a step on every rank, a falling loss, ms a step on each rank);
 3. one NCCL all-reduce of the bf16 model's gradients (f32, in one flat
-   buffer): ms and bus GB/s (2·(n−1)/n of the bytes a rank sends).
+   buffer): ms and bus GB/s (2·(n−1)/n of the bytes a rank sends);
+4. tensor parallelism over a model axis of four cards: ``train`` in bf16
+   at depth 8 (ms a step and peak memory a rank, K2 8 a step a rank at
+   (8, 4, 2,048, 64)), and f32 at depth 2 against one process on card 0
+   under ``chip_smoke.check_par_leg``'s bars (losses 1e-5 relative,
+   first-step gradients 1e-5 of max|g|, weights' RMS 5e-5 of max|w|);
+5. dp × tp on (2, 2): the same f32 leg against one process, and bf16
+   ``train`` at depth 8 (ms a step);
+6. GPipe over four stages, bf16 at depth 8, ``n_micro`` 8: ms a step, K2
+   16 a step a rank, the predicted bubble (S−1)/(S−1+M) beside the
+   measured one (1 − the stages' busy share of the pipe, from CUDA events
+   around each stage's forward and backward);
+7. ring and Ulysses scoring at seq 8,192 over the four cards (phase 13's
+   model and windows): ms a forward, K3 per rank exactly (rank r runs r+1
+   hops a layer), one ring hop's peer GB/s (a (2, 16, 2,048, 64) bf16 K
+   and V block to the next card), one ``all_to_all``'s ms at that shape,
+   and a ring train step after one that warms it (K3 10 a layer over the
+   ranks);
+8. after each of 4-7, the parameters hash the same on every rank.
+
+Every NCCL communicator is warmed before it is timed: its first use
+builds it.
 
 The line before the last is ``{"multicard": {...}}``; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 4}}``.
@@ -44,7 +65,132 @@ import chip_smoke as cs
 PROCS = 4
 STEPS = cs.DP_TRAIN_STEPS
 ALLREDUCE_REPS = 10
-TIMEOUT_S = 900
+TIMEOUT_S = 1500
+PP_MICRO = 8
+COMM_REPS = 10
+
+
+def _event_ms(fn, reps: int = COMM_REPS) -> list:
+    """Each of ``reps`` calls of ``fn`` (after three that warm it) timed
+    with CUDA events, sorted."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)
+
+
+def _warm(mesh) -> None:
+    """One all-reduce over each of ``mesh``'s process groups: NCCL builds a
+    communicator at its first use."""
+    from keystone_tpu_torch.parallel.collectives import all_reduce
+
+    for axis in mesh.axis_names:
+        group = mesh.axis_group(axis)
+        if group is not None:
+            all_reduce(torch.ones(1, device=torch.cuda.current_device()), group)
+    torch.cuda.synchronize()
+
+
+def parallel_parts(device, out_dir: str) -> dict:
+    """Parts 4-8 on this rank."""
+    from keystone_tpu_torch.models.lm import (
+        make_optimizer,
+        make_pp_train_step,
+        make_train_step,
+        unshard_params,
+    )
+    from keystone_tpu_torch.models.lm.train import _step_batch, synthetic_corpus
+    from keystone_tpu_torch.parallel import create_mesh, multihost
+    from keystone_tpu_torch.parallel import pipeline_parallel as pp
+    from keystone_tpu_torch.parallel.collectives import all_to_all_cat, shift
+
+    rank = multihost.process_index()
+    res: dict = {}
+    for tag, (n_data, n_model) in (("tp", (1, PROCS)), ("dptp", (2, PROCS // 2))):
+        mesh = create_mesh(data=n_data, model=n_model)
+        _warm(mesh)
+        res[tag] = cs.dist_f32_leg(device, mesh, out_dir, tag)
+        torch.cuda.empty_cache()
+        bf16 = cs.tp_bf16_leg(device, mesh)
+        res[tag]["bf16"] = {k: bf16[k] for k in ("losses", "launches", "ms_per_step",
+                                                 "peak_bytes")}
+        res[tag]["bf16"]["replicas_equal"] = cs.replicas_equal(
+            unshard_params(bf16.pop("model")).leaves())
+        torch.cuda.empty_cache()
+
+    # GPipe: four stages over the cards, bf16 at depth 8
+    mesh = create_mesh(data=1, model=PROCS)
+    corpus = synthetic_corpus(200_000, cs.TRAIN_CONF["vocab"], seed=0)
+    batches = [torch.from_numpy(_step_batch(corpus, 0, i, cs.TRAIN_BATCH, cs.TRAIN_SEQ)).to(device)
+               for i in range(STEPS + 1)]
+    model = cs._par_model(device, cs.TRAIN_CONF["depth"], "bfloat16")
+    optimizer = make_optimizer(cs.TRAIN_LR, steps=STEPS + 1)
+    state = optimizer.init(model.leaves())
+    step = make_pp_train_step(optimizer, mesh, n_micro=PP_MICRO)
+    model, state, _ = step(model, state, batches[0])
+    torch.cuda.synchronize()
+    cs._zero_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for toks in batches[1:]:
+        model, state, loss = step(model, state, toks)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = cs._counts()
+    pp.STAGE_EVENTS = []
+    step(model, state, batches[0])
+    torch.cuda.synchronize()
+    busy = sum(a.elapsed_time(b) for kind, a, b in pp.STAGE_EVENTS if kind == "stage")
+    pipe = sum(a.elapsed_time(b) for kind, a, b in pp.STAGE_EVENTS if kind == "pipe")
+    pp.STAGE_EVENTS = None
+    res["gpipe"] = {"losses": losses, "launches": counts, "ms_per_step": wall * 1e3 / STEPS,
+                    "stage_busy_ms": busy, "pipe_ms": pipe, "bubble": 1.0 - busy / pipe,
+                    "replicas_equal": cs.replicas_equal(model.leaves())}
+    del model, state, step
+    torch.cuda.empty_cache()
+
+    # sequence parallelism over the four cards
+    mesh = create_mesh()
+    _warm(mesh)
+    model, held, kw = cs.scoring_model(device)
+    res["scoring"] = cs.score_modes(model, mesh, held, kw)
+    group = mesh.axis_group("data")
+    b, h, s_local, d = cs.HOP
+    gen = torch.Generator(device=device).manual_seed(rank)
+    k, v = (torch.randn((b, h, s_local, d), generator=gen, device=device, dtype=torch.bfloat16)
+            for _ in range(2))
+    hop = _event_ms(lambda: shift([k, v], group))
+    a2a = _event_ms(lambda: all_to_all_cat(k, group, 1, 2))
+    hop_bytes = 2 * k.numel() * k.element_size()
+    res["comm"] = {"hop_bytes": hop_bytes, "hop_ms": hop[len(hop) // 2], "hop_ms_all": hop,
+                   "hop_gb_per_s": hop_bytes / (hop[len(hop) // 2] * 1e-3) / 1e9,
+                   "all_to_all_bytes": k.numel() * k.element_size(),
+                   "all_to_all_ms": a2a[len(a2a) // 2], "all_to_all_ms_all": a2a}
+    ring = model.replace(seq_mode="ring", mesh=mesh)
+    window = torch.from_numpy(
+        held[: cs.SCORE_BATCH * (cs.SCORE_SEQ + 1)].reshape(cs.SCORE_BATCH, -1)).to(device)
+    optimizer = make_optimizer(cs.TRAIN_LR)
+    state = optimizer.init(ring.leaves())
+    step = make_train_step(optimizer, logit_chunk=cs.SCORE_CHUNK)
+    ring, state, _ = step(ring, state, window)  # the first step warms the allocator
+    cs._zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ring, state, loss = step(ring, state, window)
+    torch.cuda.synchronize()
+    res["ring_train"] = {"loss": float(loss), "launches": cs._counts(),
+                        "ms": (time.perf_counter() - t0) * 1e3,
+                        "replicas_equal": cs.replicas_equal(ring.leaves())}
+    return res
 
 
 def worker(out_dir: str) -> None:
@@ -109,9 +255,62 @@ def worker(out_dir: str) -> None:
     res["allreduce"] = {"elements": n, "bytes": nbytes, "ms": ms,
                         "bus_gb_per_s": 2 * (world - 1) / world * nbytes / (ms * 1e-3) / 1e9,
                         "ms_all": times}
+    del flat
+    torch.cuda.empty_cache()
+    res["parallel"] = parallel_parts(device, out_dir)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     multihost.shutdown()
+
+
+def check_parallel(ranks: list) -> dict:
+    """Hold and print parts 4-8 of every rank."""
+    depth = cs.TRAIN_CONF["depth"]
+    forwards = -(-cs.SCORE_WINDOWS // cs.SCORE_BATCH)
+    s_stages = PROCS
+    predicted = (s_stages - 1) / (s_stages - 1 + PP_MICRO)
+    for r, par in enumerate(ranks):
+        for tag in ("tp", "dptp"):
+            b = par[tag]["bf16"]
+            print(f"  rank {r} {tag} bf16 depth {depth}: {b['ms_per_step']:.1f} ms a step, peak "
+                  f"{b['peak_bytes'] / 2**30:.2f} GiB, K2 {b['launches']['flash_attention']}, "
+                  f"losses {b['losses']}")
+            cs.check(b["launches"]["flash_attention"] == depth * STEPS,
+                     f"rank {r} {tag} bf16 K2 {b['launches']}")
+            cs.check(all(math.isfinite(x) for x in b["losses"]) and b["losses"][-1] < b["losses"][0],
+                     f"rank {r} {tag} bf16 losses {b['losses']}")
+            cs.check(b["replicas_equal"], f"{tag} bf16: parameters differ across ranks")
+        g = par["gpipe"]
+        print(f"  rank {r} GPipe {s_stages} stages bf16 depth {depth}, n_micro {PP_MICRO}: "
+              f"{g['ms_per_step']:.1f} ms a step, K2 {g['launches']['flash_attention']}, bubble "
+              f"{g['bubble']:.3f} measured ({g['stage_busy_ms']:.1f} ms of stage work in "
+              f"{g['pipe_ms']:.1f} ms of pipe) against {predicted:.3f} predicted")
+        cs.check(g["launches"]["flash_attention"] == depth // s_stages * PP_MICRO * STEPS,
+                 f"rank {r} GPipe K2 {g['launches']}")
+        cs.check(all(math.isfinite(x) for x in g["losses"]), f"GPipe losses {g['losses']}")
+        cs.check(g["replicas_equal"], "GPipe: parameters differ across ranks")
+        for mode in ("ring", "ulysses"):
+            sc = par["scoring"][mode]
+            want = ({"flash_attention_step": forwards * depth * (r + 1)} if mode == "ring"
+                    else {"flash_attention": forwards * depth})
+            want = {k: want.get(k, 0) for k in sc["launches"]}
+            print(f"  rank {r} {mode} scoring over {PROCS} cards: loss {sc['loss']:.6f}, "
+                  f"{sc['ms_per_forward']:.1f} ms a forward, launches {sc['launches']}")
+            cs.check(sc["launches"] == want, f"rank {r} {mode}: {sc['launches']} for {want}")
+        c = par["comm"]
+        print(f"  rank {r}: a ring hop of {c['hop_bytes'] / 1e6:.1f} MB {c['hop_ms']:.3f} ms "
+              f"({c['hop_gb_per_s']:.1f} GB/s to the next card); all_to_all of "
+              f"{c['all_to_all_bytes'] / 1e6:.1f} MB {c['all_to_all_ms']:.3f} ms")
+        t = par["ring_train"]
+        print(f"  rank {r} ring train step: loss {t['loss']:.6f}, {t['ms']:.1f} ms, launches "
+              f"{t['launches']}")
+        cs.check(math.isfinite(t["loss"]) and t["replicas_equal"], f"ring train step {t}")
+        cs.check(t["launches"]["flash_attention_step"] == depth * (r + 1),
+                 f"rank {r} ring train K3 {t['launches']}")
+    for mode in ("ring", "ulysses"):
+        losses = {p["scoring"][mode]["loss"] for p in ranks}
+        cs.check(len(losses) == 1, f"{mode} scoring losses differ across ranks: {losses}")
+    return {"gpipe_bubble_predicted": predicted, "ranks": ranks}
 
 
 def main() -> None:
@@ -139,6 +338,8 @@ def main() -> None:
     finally:
         undo()
     ref = cs.f32_reference(device, PROCS)
+    par_ref, par_floor = cs.par_reference(device, cs.PAR_F32_DEPTH)
+    torch.cuda.empty_cache()
 
     root = os.path.dirname(os.path.abspath(__file__))
     env = {k: v for k, v in os.environ.items() if not k.startswith(("KEYSTONE_", "KST_"))}
@@ -158,6 +359,11 @@ def main() -> None:
                 ranks.append(json.load(f))
         mnist = torch.load(os.path.join(out, "mnist.pt"))
         f32_saved = torch.load(os.path.join(out, "f32.pt"))
+        par_ranks = [r["parallel"] for r in ranks]
+        par_f32 = {tag: cs.check_par_leg(
+            f"{label} f32 depth {cs.PAR_F32_DEPTH} over {PROCS} cards",
+            cs.load_dist_f32_leg(out, tag, par_ranks, cs.PAR_F32_DEPTH), par_ref, par_floor)
+            for tag, label in (("tp", "TP (1, 4)"), ("dptp", "dp x tp (2, 2)"))}
 
     print(f"four processes, one card each: {procs_s:.1f} s under the supervisor")
     want_k2 = cs.TRAIN_CONF["depth"] * STEPS
@@ -185,10 +391,13 @@ def main() -> None:
     cs.check(agree >= cs.MIN_AGREEMENT, f"agreement {agree:.4%}")
     f32 = cs.check_f32_leg(ref, [r["f32"]["losses"] for r in ranks], f32_saved["leaves"],
                            f32_saved["grads"], PROCS)
-    summary = {"cards": smi, "backend": "nccl", "procs_s": procs_s,
+    parallel = check_parallel(par_ranks)
+    parallel["f32"] = par_f32
+    summary = {"cards": smi, "backend": "nccl", "procs_s": procs_s, "parallel": parallel,
                "one_process": {"mnist_fit_s": res8["fit_s"], "mnist_test_error":
                                res8["test_error"]},
-               "ranks": ranks, "mnist_agreement": agree, "mnist_weight_dist": w_dist,
+               "ranks": [{k: v for k, v in r.items() if k != "parallel"} for r in ranks],
+               "mnist_agreement": agree, "mnist_weight_dist": w_dist,
                "f32": f32,
                "s": time.perf_counter() - t_all}
     print(json.dumps({"multicard": summary}))

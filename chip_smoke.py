@@ -29,7 +29,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    versions at the LM path's shapes and ragged ones, timed beside their
    plain versions, a PyTorch library call and their bounds; K4 replayed
    three times from a CUDA graph gives its eager bits; K2 also at the
-   scoring path's shapes (2, 16, 8,192, 64) and (2, 4, 8,192, 64);
+   scoring path's shapes (2, 16, 8,192, 64) and (2, 4, 8,192, 64) and at
+   a tensor-parallel position's (8, 4, 2,048, 64);
 8. LM main path: the bench's decode model (vocab 32,768, dim 1,024,
    depth 8, 16 heads, bf16, batch 8, 128-token prompts, 256 new tokens)
    made by ``TransformerLM.create`` on the card, in three legs — float,
@@ -321,6 +322,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    distance to one process on the whole batch printed beside what
    reversing that run's batch rows moves it), in bf16 at depth 8 (K2 8 a
    step on each rank, a falling loss, ms a step on each rank).
+
+44. tensor, pipeline and sequence parallelism at the flagship width. (a)
+   One process, meshes naming the card 4 times (8 for the 3-axis one),
+   f32 against the unsharded step from the same weights (losses within
+   1e-5 relative, first-step gradients within 1e-5 of max|g|, the
+   weights' RMS within 5e-5 of max|w|, their max printed beside what
+   reversing the batch rows moves one process): TP (model 4) and pp × dp
+   × tp on (2, 2, 2) at depth 2, GPipe (4 stages, n_micro 4) at depth 4;
+   K2 exactly as each layout implies (8, 16 and 16 a step); then TP's
+   bf16 ``train`` at depth 8 (K2 32 a step, a falling loss, ms a step,
+   peak memory). (b) Two processes on the card over gloo through the
+   supervisor (``--sp-worker DIR``, for this script's own use): ring and
+   Ulysses scoring at seq 8,192 over the two (phase 13's model and
+   windows) against the one-process ring and Ulysses on a mesh naming the
+   card twice (losses within 1e-5 relative, K3 16 and 32 on ranks 0 and
+   1, K2 16 a rank for Ulysses, the parameters hashing the same on both
+   ranks), and one f32 TP step over a model axis of two against one
+   process, as in (a).
 
 Phase 7 also holds K2 with its lse against its plain version at the train
 steps' shapes, (8, 16, 2,048, 64) and (1, 8, 16,384, 64), bf16 causal.
@@ -688,10 +707,12 @@ def _rel(a, b) -> float:
 
 def phase_k2(device) -> dict:
     """K2 against its plain version: the prefill shape, the model's
-    max_seq, the scoring path's local call (2, 16, 8,192, 64) and one
-    Ulysses position's call (2, 4, 8,192, 64), and ragged f32 cases with
-    offsets (non-causal, and causal with fully masked rows) and the lse.
-    Timed at those four shapes, each beside SDPA and its bound."""
+    max_seq, the scoring path's local call (2, 16, 8,192, 64), one
+    Ulysses position's call (2, 4, 8,192, 64) and one tensor-parallel
+    position's call at the train step (8, 4, 2,048, 64), and ragged f32
+    cases with offsets (non-causal, and causal with fully masked rows) and
+    the lse. Timed at those five shapes, each beside SDPA and its
+    bound."""
     import torch.nn.functional as F
 
     from keystone_tpu_torch.ops import flash_attention as fa
@@ -707,7 +728,9 @@ def phase_k2(device) -> dict:
     timed = {}
     for name, shape in (("prefill", (8, 16, 128, 64)), ("max_seq", (8, 16, 2048, 64)),
                         ("scoring_local", (2, 16, SCORE_SEQ, 64)),
-                        ("scoring_ulysses_position", (2, 16 // SCORE_RING, SCORE_SEQ, 64))):
+                        ("scoring_ulysses_position", (2, 16 // SCORE_RING, SCORE_SEQ, 64)),
+                        ("tp_position", (TRAIN_BATCH, TRAIN_CONF["num_heads"] // PAR_N,
+                                         TRAIN_SEQ, 64))):
         b, h, s, d = shape
         q, k, v = qkv(b, h, s, s, d, torch.bfloat16)
         out = fa.flash_attention(q, k, v, causal=True)
@@ -790,6 +813,7 @@ def phase_k2(device) -> dict:
         "timing": "device time, CUDA-graph replay; eager_call_ms is a Python call",
         "at_max_seq": timed["max_seq"],
         "at_scoring_shapes": {n: timed[n] for n in ("scoring_local", "scoring_ulysses_position")},
+        "at_tp_position": timed["tp_position"],
         "ragged_f32": ragged,
         "at_train_shapes_with_lse": at_train,
     }
@@ -1128,6 +1152,7 @@ TRACE_NAMES = {"flash_attention": ("flash_fwd_f32", "attention_kernel"),
 
 
 TRACE_ATTEMPTS = 3
+PRIMER_GAP_S = 0.002
 
 
 def traced_launches(fn, margin_s: float = 0.0, reset=None) -> dict:
@@ -1137,6 +1162,11 @@ def traced_launches(fn, margin_s: float = 0.0, reset=None) -> dict:
     of the wall. ``margin_s`` of idle time inside the trace before and
     after the call keep launches from other threads clear of the trace's
     start and stop.
+
+    A session's first device records can come back stamped before it
+    began and be dropped (ROADMAP §C): each session opens with
+    ``core.profiling``'s primer, whose records take that loss, and only
+    the device records that start after the primer's region ends count.
 
     A session whose trace holds no device activity at all is taken again,
     up to ``TRACE_ATTEMPTS`` sessions, after ``reset()`` where the call
@@ -1148,30 +1178,37 @@ def traced_launches(fn, margin_s: float = 0.0, reset=None) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from keystone_tpu_torch.core import profiling
+
     for attempt in range(TRACE_ATTEMPTS):
         if reset is not None and attempt:
             reset()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            time.sleep(margin_s)
+            profiling.prime()
+            # the primer ends synchronized; the gap keeps the call's first
+            # kernels clear of its region's end
+            time.sleep(max(margin_s, PRIMER_GAP_S))
             t0 = time.perf_counter()
             out = fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             time.sleep(margin_s)
+        events = prof.events()
+        after = max(e.time_range.end for e in events if e.name == profiling.PRIMER_REGION)
         counts = dict.fromkeys(TRACE_NAMES, 0)
         busy_us, kernels, graph_launches = 0.0, 0, 0
-        for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total", 0) or 0
-            on_device = getattr(e, "device_type", None) == DeviceType.CUDA
-            if "cudaGraphLaunch" in e.key:
-                graph_launches += e.count
-            if us > 0 and (on_device or e.self_cpu_time_total == 0):
-                busy_us += us
-                kernels += e.count
+        for e in events:
+            if e.time_range.start <= after:
+                continue
+            if "cudaGraphLaunch" in e.name:
+                graph_launches += 1
+            if e.device_type == DeviceType.CUDA and e.time_range.elapsed_us() > 0:
+                busy_us += e.time_range.elapsed_us()
+                kernels += 1
                 for k, names in TRACE_NAMES.items():
-                    if any(n in e.key for n in names):
-                        counts[k] += e.count
+                    if any(n in e.name for n in names):
+                        counts[k] += 1
         if busy_us > 0:
             break
         print(f"trace: session {attempt + 1} of {TRACE_ATTEMPTS} recorded no device time "
@@ -5735,6 +5772,393 @@ def phase_two_processes(device, res8: dict, w8) -> dict:
     return res
 
 
+# --- phase 44: tensor, pipeline and sequence parallelism (one card)
+PAR_N = 4  # model positions and pipeline stages of the one-process meshes
+PAR_F32_DEPTH = 2  # the TP and pp × dp × tp f32 legs, cut for the time limit
+PP_F32_DEPTH = 4  # the GPipe f32 leg: four stages take a depth divisible by 4
+PP_MICRO = 4
+PAR_STEPS = DP_TRAIN_STEPS
+SP_PROCS = 2
+SP_LOSS_RTOL = 1e-5  # two processes' scoring losses against one process
+
+
+def _par_model(device, depth: int, compute_dtype: str):
+    return _train_model(device, dict(TRAIN_CONF, depth=depth), TRAIN_SEQ,
+                        compute_dtype=compute_dtype)
+
+
+def _par_batches(steps: int, rows=slice(None)) -> list:
+    """The flagship train batches of steps 0.. (seed 0), rows ``rows``."""
+    from keystone_tpu_torch.models.lm.train import _step_batch, synthetic_corpus
+
+    corpus = synthetic_corpus(200_000, TRAIN_CONF["vocab"], seed=0)
+    return [torch.from_numpy(_step_batch(corpus, 0, i, TRAIN_BATCH, TRAIN_SEQ)[rows].copy())
+            for i in range(steps)]
+
+
+def _par_layout(device, name: str, model) -> tuple:
+    """(model, loss of (model, tokens), step factory of an optimizer, K2
+    launches a step per block) for a layout on one card named ``PAR_N``
+    times (8 for the 3-axis mesh)."""
+    from keystone_tpu_torch.models.lm import (
+        make_pp_train_step,
+        make_train_step,
+        next_token_loss,
+        next_token_loss_pp,
+        shard_params,
+    )
+    from keystone_tpu_torch.parallel import Mesh, create_mesh
+
+    if name in ("plain", "tp"):
+        per_block = 1
+        if name == "tp":
+            model = shard_params(model, create_mesh(data=1, model=PAR_N, devices=[device] * PAR_N))
+            per_block = PAR_N
+        return model, next_token_loss, make_train_step, per_block
+    if name == "pp":
+        mesh = create_mesh(data=1, model=PAR_N, devices=[device] * PAR_N)
+        kw = dict(n_micro=PP_MICRO)
+        per_block = PP_MICRO
+    else:  # pp × dp × tp on (2, 2, 2)
+        mesh = Mesh([[[device] * 2] * 2] * 2, ("pipe", "data", "model"))
+        model = shard_params(model, mesh)
+        kw = dict(n_micro=2, axis="pipe", data_axis="data")
+        per_block = 2 * 2 * 2  # microbatches × data rows × model positions
+    return (model, lambda m, t: next_token_loss_pp(m, t, mesh, **kw),
+            lambda opt: make_pp_train_step(opt, mesh, **kw), per_block)
+
+
+def _par_leg(device, name: str, depth: int, batches) -> dict:
+    """A layout's f32 leg from the seed-0 weights: every leaf's first-step
+    gradient, then ``len(batches)`` steps; K2's launches over the steps
+    held to the count the layout implies."""
+    from keystone_tpu_torch.models.lm import make_optimizer
+
+    model, loss_fn, make_step, per_block = _par_layout(
+        device, name, _par_model(device, depth, "float32"))
+    params = model.leaves()
+    for p in params:
+        p.requires_grad_(True)
+    grads = torch.autograd.grad(loss_fn(model, batches[0].to(device)), params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g.detach() for g, p in zip(grads, params)]
+    optimizer = make_optimizer(TRAIN_LR, steps=PAR_STEPS)
+    state = optimizer.init(params)
+    step = make_step(optimizer)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for toks in batches:
+        model, state, loss = step(model, state, toks.to(device))
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    want = depth * per_block * len(batches)
+    check(counts["flash_attention"] == want and counts["flash_attention_step"] == 0,
+          f"{name} f32 launches {counts}, want K2 {want}")
+    return {"losses": [float(x) for x in losses], "leaves": [p.detach() for p in params],
+            "grads": grads, "k2_launches": counts["flash_attention"],
+            "k2_per_step": depth * per_block, "ms_per_step": wall * 1e3 / len(batches)}
+
+
+def check_par_leg(label: str, got: dict, ref: dict, floor: tuple | None = None) -> dict:
+    """Hold a parallel f32 leg against the one-process step from the same
+    weights: losses within 1e-5 relative, first-step gradients within 1e-5
+    of max|g|, the weights' RMS distance within 5e-5 of max|w| as
+    ``check_f32_leg`` holds the whole-batch run; their max distance is
+    printed beside the f32 floor (what reversing the batch rows moves one
+    process's weights: AdamW's first step is lr·sign(g) where g sits at
+    rounding level, ROADMAP §C)."""
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"]))
+    grad_err = _leaf_dist(got["grads"], ref["grads"])[0]
+    w_max, w_rms = _leaf_dist(got["leaves"], ref["leaves"])
+    floor_s = ("" if floor is None else
+               f", whose reversed rows move it {floor[0]:.2e} (RMS {floor[1]:.2e})")
+    print(f"  {label}: losses {got['losses']} vs {ref['losses'][:len(got['losses'])]} "
+          f"({loss_err:.2e} relative); first-step gradients within {grad_err:.2e} of max|g|; "
+          f"weights {w_max:.2e} of max|w| (RMS {w_rms:.2e}) from one process{floor_s}; K2 "
+          f"{got['k2_launches']} ({got['k2_per_step']} a step), {got['ms_per_step']:.1f} ms a "
+          "step")
+    check(loss_err <= DP_LOSS_RTOL, f"{label} f32 losses {loss_err:.2e}")
+    check(grad_err <= DP_GRAD_TOL, f"{label} f32 first-step gradients {grad_err:.2e}")
+    check(w_rms <= DP_WEIGHT_TOL, f"{label} f32 weights RMS {w_rms:.2e}")
+    return {"loss_rel_err": loss_err, "grad_err": grad_err, "weight_err": w_max,
+            "weight_rms_err": w_rms, "reversed_rows_floor": floor and floor[0],
+            "reversed_rows_rms": floor and floor[1], "losses": got["losses"],
+            "one_process_losses": ref["losses"], "k2_launches": got["k2_launches"],
+            "k2_per_step": got["k2_per_step"], "ms_per_step": got["ms_per_step"]}
+
+
+def par_reference(device, depth: int, steps: int = PAR_STEPS) -> tuple:
+    """The one-process f32 leg at ``depth`` and the f32 floor beside it:
+    (leg, (max, RMS) distance of the same run on reversed batch rows)."""
+    ref = _par_leg(device, "plain", depth, _par_batches(steps))
+    rev = _par_leg(device, "plain", depth, _par_batches(steps, slice(None, None, -1)))
+    return ref, _leaf_dist(rev["leaves"], ref["leaves"])
+
+
+def tp_bf16_leg(device, mesh, steps: int = PAR_STEPS) -> dict:
+    """``train`` of the bf16 model at depth 8 sharded over ``mesh``'s model
+    axis (a first call warms the allocator): losses, K2, ms a step and peak
+    memory."""
+    from keystone_tpu_torch.models.lm import shard_params, synthetic_corpus, train
+
+    corpus = synthetic_corpus(200_000, TRAIN_CONF["vocab"], seed=0)
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR, seed=0, mesh=mesh)
+    bf16 = lambda: shard_params(_par_model(device, TRAIN_CONF["depth"], "bfloat16"), mesh)  # noqa: E731
+    train(bf16(), corpus, steps=1, **kw)
+    model = bf16()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    model, losses = train(model, corpus, steps=steps, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"losses": losses, "launches": _counts(), "ms_per_step": wall * 1e3 / steps,
+            "peak_bytes": torch.cuda.max_memory_allocated(), "model": model}
+
+
+def replicas_equal(tensors) -> bool:
+    """True when ``tensors`` hash the same on every rank of the group."""
+    import hashlib
+
+    from keystone_tpu_torch.parallel import multihost
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().contiguous().numpy().tobytes())
+    mine = torch.tensor([int.from_bytes(h.digest()[:7], "little")], dtype=torch.int64)
+    return all(torch.equal(mine, o.cpu()) for o in multihost.all_gather_meta(mine))
+
+
+def scoring_model(device):
+    """Phases 12-13's scoring model (seed 0), its held-out stream and the
+    ``evaluate_perplexity`` arguments."""
+    from keystone_tpu_torch.models.lm import TransformerLM, synthetic_corpus
+
+    model = TransformerLM.create(**SCORE_CONF, compute_dtype="bfloat16", device=device,
+                                 generator=torch.Generator(device=device).manual_seed(0))
+    held = synthetic_corpus(SCORE_WINDOWS * (SCORE_SEQ + 1), SCORE_CONF["vocab"], seed=7)
+    return model, held, dict(seq=SCORE_SEQ, batch=SCORE_BATCH, logit_chunk=SCORE_CHUNK)
+
+
+def score_modes(model, mesh, held, kw) -> dict:
+    """Ring and Ulysses scoring of ``model`` over ``mesh`` (one window
+    warms): loss, launches, ms a forward."""
+    from keystone_tpu_torch.evaluation import evaluate_perplexity
+
+    forwards = -(-SCORE_WINDOWS // SCORE_BATCH)
+    out = {}
+    for mode in ("ring", "ulysses"):
+        m = model.replace(seq_mode=mode, mesh=mesh)
+        evaluate_perplexity(m, held[: SCORE_BATCH * (SCORE_SEQ + 1)], **kw)
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        ev = evaluate_perplexity(m, held, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[mode] = {"loss": ev["loss"], "launches": _counts(),
+                     "ms_per_forward": wall * 1e3 / forwards}
+    return out
+
+
+def dist_f32_leg(device, mesh, out_dir: str, tag: str, steps: int = PAR_STEPS) -> dict:
+    """A process's f32 leg at depth 2 sharded over ``mesh`` across
+    processes: the first step's gradients (averaged over the data axis,
+    gathered whole over the model axis), then ``steps`` steps of the
+    data-parallel step on its data row's rows; rank 0 saves the whole
+    gradients and leaves as ``<tag>.pt``."""
+    from keystone_tpu_torch.models.lm import (
+        make_optimizer,
+        make_train_step,
+        next_token_loss,
+        shard_params,
+        unshard_params,
+    )
+    from keystone_tpu_torch.models.lm.sharding import gather_leaf, leaf_dims
+    from keystone_tpu_torch.models.lm.train import allreduce_mean_
+    from keystone_tpu_torch.parallel import multihost
+
+    n_data = mesh.shape["data"]
+    tp = shard_params(_par_model(device, PAR_F32_DEPTH, "float32"), mesh)
+    batches = _par_batches(steps, slice(*multihost.row_block(TRAIN_BATCH, mesh.coords()["data"],
+                                                             n_data)))
+    params = tp.leaves()
+    for p in params:
+        p.requires_grad_(True)
+    loss = next_token_loss(tp, batches[0].to(device))
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+    if n_data > 1:
+        allreduce_mean_(grads, loss.detach(), mesh.axis_group("data"))
+    grads = [gather_leaf(tp, g, d).cpu() for g, d in zip(grads, leaf_dims(tp))]
+    optimizer = make_optimizer(TRAIN_LR, steps=PAR_STEPS)
+    state = optimizer.init(params)
+    step = make_train_step(optimizer, data_parallel=n_data > 1)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for toks in batches:
+        tp, state, loss = step(tp, state, toks.to(device))
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    leaves = [t.detach().cpu() for t in unshard_params(tp).leaves()]
+    if multihost.process_index() == 0:
+        torch.save({"grads": grads, "leaves": leaves}, os.path.join(out_dir, f"{tag}.pt"))
+    return {"losses": [float(x) for x in losses], "launches": counts,
+            "ms_per_step": wall * 1e3 / steps, "replicas_equal": replicas_equal(leaves)}
+
+
+def load_dist_f32_leg(out_dir: str, tag: str, ranks: list, per_step: int) -> dict:
+    """Rank 0's saved leg of :func:`dist_f32_leg` for :func:`check_par_leg`,
+    after checking that every rank computed the same losses and holds the
+    same parameters."""
+    losses = [r[tag]["losses"] for r in ranks]
+    check(all(x == losses[0] for x in losses), f"{tag}: the ranks' losses differ: {losses}")
+    check(all(r[tag]["replicas_equal"] for r in ranks), f"{tag}: parameters differ across ranks")
+    saved = torch.load(os.path.join(out_dir, f"{tag}.pt"))
+    k2 = ranks[0][tag]["launches"]["flash_attention"]
+    check(k2 == per_step * len(losses[0]), f"{tag}: K2 {k2} for {per_step} a step")
+    return {"losses": losses[0], "leaves": saved["leaves"], "grads": saved["grads"],
+            "k2_launches": k2, "k2_per_step": per_step,
+            "ms_per_step": ranks[0][tag]["ms_per_step"]}
+
+
+def sp_worker(out_dir: str) -> None:
+    """``--sp-worker DIR``: one process of phase 44's pair on card 0 over
+    gloo: ring and Ulysses scoring over the two processes, then one f32
+    TP step over a model axis of two."""
+    from keystone_tpu_torch.models.lm import (
+        make_optimizer,
+        make_train_step,
+        next_token_loss,
+        shard_params,
+        unshard_params,
+    )
+    from keystone_tpu_torch.models.lm.sharding import gather_leaf, leaf_dims
+    from keystone_tpu_torch.parallel import create_mesh, multihost
+
+    device = multihost.initialize(backend="gloo", device="cuda:0")
+    rank = multihost.process_index()
+    model, held, kw = scoring_model(device)
+    res = {"rank": rank, "scoring": score_modes(model, create_mesh(), held, kw),
+           "scoring_replicas_equal": replicas_equal(model.leaves())}
+    del model
+    torch.cuda.empty_cache()
+
+    res["tp"] = dist_f32_leg(device, create_mesh(data=1, model=SP_PROCS), out_dir, "tp", steps=1)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    multihost.shutdown()
+
+
+def phase_parallel(device) -> dict:
+    """Phase 44: tensor, pipeline and sequence parallelism on one card.
+    (a) One process, meshes naming the card 4 times (8 for the 3-axis one),
+    at the flagship width in f32 against the unsharded step from the same
+    weights: TP (model 4) and pp × dp × tp on (2, 2, 2) at depth 2, GPipe
+    (4 stages, n_micro 4) at depth 4; then TP's bf16 ``train`` at depth 8.
+    (b) Two processes on the card over gloo (``--sp-worker``): ring and
+    Ulysses scoring at seq 8,192 against the one-process ring and Ulysses
+    on a mesh naming the card twice, and one f32 TP step (model 2)
+    against one process; K3 per rank exactly."""
+    import tempfile
+
+    from keystone_tpu_torch.core.kernels import BUILD_DIR
+    from keystone_tpu_torch.parallel import create_mesh
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    res: dict = {"f32": {}}
+    ref2, floor2 = par_reference(device, PAR_F32_DEPTH)
+    for name in ("tp", "pp_dp_tp"):
+        got = _par_leg(device, name, PAR_F32_DEPTH, _par_batches(PAR_STEPS))
+        res["f32"][name] = check_par_leg(f"{name} f32 depth {PAR_F32_DEPTH}", got, ref2, floor2)
+        del got
+    ref4, floor4 = par_reference(device, PP_F32_DEPTH)
+    got = _par_leg(device, "pp", PP_F32_DEPTH, _par_batches(PAR_STEPS))
+    res["f32"]["pp"] = check_par_leg(f"GPipe f32 depth {PP_F32_DEPTH}, {PAR_N} stages, "
+                                     f"n_micro {PP_MICRO}", got, ref4, floor4)
+    del got, ref4, ref2
+    torch.cuda.empty_cache()
+
+    mesh = create_mesh(data=1, model=PAR_N, devices=[device] * PAR_N)
+    bf16 = tp_bf16_leg(device, mesh)
+    del bf16["model"]
+    want_k2 = TRAIN_CONF["depth"] * PAR_N * PAR_STEPS
+    print(f"  TP bf16 depth {TRAIN_CONF['depth']} over {PAR_N} positions: losses "
+          f"{bf16['losses']}, K2 {bf16['launches']['flash_attention']}, "
+          f"{bf16['ms_per_step']:.1f} ms a step, peak {bf16['peak_bytes'] / 2**30:.2f} GiB")
+    check(bf16["launches"]["flash_attention"] == want_k2, f"TP bf16 K2 {bf16['launches']}")
+    check(all(math.isfinite(x) for x in bf16["losses"]) and bf16["losses"][-1] < bf16["losses"][0],
+          f"TP bf16 losses {bf16['losses']}")
+    res["tp_bf16"] = bf16
+    torch.cuda.empty_cache()
+
+    # (b) the one-process references, then two processes on the card
+    model, held, kw = scoring_model(device)
+    one = score_modes(model, create_mesh(data=SP_PROCS, devices=[device] * SP_PROCS), held, kw)
+    del model
+    tp_ref = _par_leg(device, "plain", PAR_F32_DEPTH, _par_batches(1))
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("KEYSTONE_", "KST_"))}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as out:
+        t0 = time.perf_counter()
+        sup = subprocess.run(
+            [sys.executable, "-m", "keystone_tpu_torch", "supervise", "--procs", str(SP_PROCS),
+             "--max-restarts", "0", "--grace", "5", "--",
+             sys.executable, os.path.abspath(__file__), "--sp-worker", out],
+            cwd=root, env=env, capture_output=True, text=True, timeout=DP_TIMEOUT_S)
+        pair_s = time.perf_counter() - t0
+        check(sup.returncode == 0, f"phase 44 pair: supervise exit {sup.returncode}\n"
+              f"{sup.stderr[-3000:]}")
+        ranks = []
+        for r in range(SP_PROCS):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        tp_got = load_dist_f32_leg(out, "tp", ranks, PAR_F32_DEPTH)
+    forwards = -(-SCORE_WINDOWS // SCORE_BATCH)
+    depth = SCORE_CONF["depth"]
+    print(f"  two processes on one card over gloo: {pair_s:.1f} s for the pair")
+    for mode in ("ring", "ulysses"):
+        o = one[mode]
+        print(f"  {mode} one process, the card named {SP_PROCS} times: loss {o['loss']:.6f}, "
+              f"{o['ms_per_forward']:.1f} ms a forward, launches {o['launches']}")
+        for r in ranks:
+            g = r["scoring"][mode]
+            rel = abs(g["loss"] - o["loss"]) / o["loss"]
+            if mode == "ring":
+                want = {"flash_attention_step": forwards * depth * (r["rank"] + 1)}
+            else:
+                want = {"flash_attention": forwards * depth}
+            want = {k: want.get(k, 0) for k in g["launches"]}
+            print(f"    rank {r['rank']}: loss {g['loss']:.6f} ({rel:.2e} relative), "
+                  f"{g['ms_per_forward']:.1f} ms a forward, launches {g['launches']}")
+            check(g["launches"] == want, f"{mode} rank {r['rank']}: {g['launches']} for {want}")
+            check(rel <= SP_LOSS_RTOL, f"{mode} rank {r['rank']}: loss {rel:.2e} from one process")
+    ring_total = sum(r["scoring"]["ring"]["launches"]["flash_attention_step"] for r in ranks)
+    check(ring_total == one["ring"]["launches"]["flash_attention_step"],
+          f"the ranks' K3 {ring_total} against one process's {one['ring']['launches']}")
+    for r in ranks:
+        check(r["scoring_replicas_equal"], f"rank {r['rank']}: parameters differ across ranks")
+    res["two_processes"] = {
+        "pair_s": pair_s, "one_process": one,
+        "ranks": [{"rank": r["rank"], "scoring": r["scoring"]} for r in ranks],
+        "tp_f32": check_par_leg(f"TP f32 over {SP_PROCS} processes", tp_got, tp_ref),
+    }
+    res["s"] = time.perf_counter() - t_phase
+    print(f"phase 44: {res['s']:.1f} s")
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available")
@@ -5747,6 +6171,9 @@ def main() -> None:
         return
     if sys.argv[1:2] == ["--dp-worker"]:
         dp_worker(sys.argv[2])
+        return
+    if sys.argv[1:2] == ["--sp-worker"]:
+        sp_worker(sys.argv[2])
         return
     if sys.argv[1:2] == ["--trace-windows"]:
         rows = trace_window_census(int(sys.argv[2]))
@@ -5916,6 +6343,20 @@ def main() -> None:
     k2["launches_two_processes"] = {"per_rank": [r["k2_launches"] for r in dp_path["ranks"]],
                                     "steps": DP_TRAIN_STEPS}
     print(json.dumps({"two_process_path": {"card": smi, **dp_path}}))
+    par_path = phase_parallel(device)
+    k2["launches_parallel"] = {
+        "f32_per_step": {k: v["k2_per_step"] for k, v in par_path["f32"].items()},
+        "tp_bf16_main": par_path["tp_bf16"]["launches"]["flash_attention"],
+        "ulysses_pair_per_rank": [r["scoring"]["ulysses"]["launches"]["flash_attention"]
+                                  for r in par_path["two_processes"]["ranks"]],
+    }
+    k3["launches_parallel"] = {
+        "ring_pair_per_rank": [r["scoring"]["ring"]["launches"]["flash_attention_step"]
+                               for r in par_path["two_processes"]["ranks"]],
+        "ring_one_process": par_path["two_processes"]["one_process"]["ring"]["launches"][
+            "flash_attention_step"],
+    }
+    print(json.dumps({"parallel_path": {"card": smi, **par_path}}))
 
     summary = {
         "card": smi,

@@ -73,7 +73,9 @@ def _cuda_session(prof) -> bool:
     return torch.profiler.ProfilerActivity.CUDA in (prof.activities or ())
 
 
-def _prime() -> None:
+def prime() -> None:
+    """Run the primer inside an open session with CUDA activity (see
+    ``PRIMER_OPS``); the card is idle when it returns."""
     torch.cuda.synchronize()
     with torch.profiler.record_function(PRIMER_REGION):
         x = torch.zeros(1, device="cuda")
@@ -90,7 +92,7 @@ def start_profiler(path: str):
     prof = torch.profiler.profile(activities=activities())
     prof.__enter__()
     if _cuda_session(prof):
-        _prime()
+        prime()
     return prof
 
 

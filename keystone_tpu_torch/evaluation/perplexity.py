@@ -4,7 +4,9 @@ port of ``keystone_tpu/evaluation/perplexity.py``.
 Non-overlapping (S+1)-token windows slide over a held-out stream; the
 model's next-token CE runs batch by batch under ``torch.inference_mode``
 and the standard aggregates are reported (for byte-level corpora,
-bits_per_token is bits-per-byte).
+bits_per_token is bits-per-byte). A tensor-parallel model scores through
+its vocab-sharded CE; a ring or Ulysses model over a mesh across processes
+scores every window on every rank, the attention split over the ranks.
 """
 
 from __future__ import annotations
@@ -14,22 +16,13 @@ import math
 import numpy as np
 import torch
 
-from keystone_tpu_torch.models.lm.losses import (
-    chunked_token_cross_entropy,
-    token_cross_entropy,
-)
+from keystone_tpu_torch.models.lm.losses import model_cross_entropy
 
 
 def _ce(model, toks, logit_chunk: int = 0) -> torch.Tensor:
     """Pure cross-entropy: without the MoE load-balance aux, which is a
     training regularizer, not model quality."""
-    if logit_chunk:
-        x, _ = model.backbone(toks[:, :-1])
-        return chunked_token_cross_entropy(
-            x, model.embed, toks[:, 1:], model.cdt, logit_chunk
-        )
-    logits, _ = model.forward_with_aux(toks[:, :-1])
-    return token_cross_entropy(logits, toks[:, 1:])
+    return model_cross_entropy(model, toks, logit_chunk)[0]
 
 
 def evaluate_perplexity(

@@ -3,9 +3,10 @@
 
 - :mod:`.model` — TransformerLM / LMBlock;
 - :mod:`.losses` — next-token CE, dense and logit-chunked;
-- :mod:`.train` — optax-exact AdamW, the train step and loop, the
-  synthetic corpus;
-- :mod:`.sharding` — ``shard_params``, the identity on one card;
+- :mod:`.train` — optax-exact AdamW, the train step, the
+  pipeline-parallel step and the loop, the synthetic corpus;
+- :mod:`.sharding` — ``shard_params``, the Megatron-style tensor-parallel
+  layout, and its inverse;
 - :mod:`.decode` — KV-cache serving: prefill, decode, sampling,
   weight-only int8 quantization.
 """
@@ -23,10 +24,13 @@ from keystone_tpu_torch.models.lm.losses import (
     token_cross_entropy,
 )
 from keystone_tpu_torch.models.lm.model import LMBlock, TransformerLM, train_step_flops
-from keystone_tpu_torch.models.lm.sharding import shard_params
+from keystone_tpu_torch.models.lm.sharding import shard_params, unshard_params
 from keystone_tpu_torch.models.lm.train import (
     make_optimizer,
+    make_pp_train_step,
     make_train_step,
+    next_token_loss_pp,
+    pp_forward,
     synthetic_corpus,
     train,
 )
@@ -39,8 +43,11 @@ __all__ = [
     "decode_step",
     "generate",
     "make_optimizer",
+    "make_pp_train_step",
     "make_train_step",
     "next_token_loss",
+    "next_token_loss_pp",
+    "pp_forward",
     "prefill",
     "quantize_for_decode",
     "shard_params",
@@ -48,4 +55,5 @@ __all__ = [
     "token_cross_entropy",
     "train",
     "train_step_flops",
+    "unshard_params",
 ]

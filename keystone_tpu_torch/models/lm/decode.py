@@ -54,6 +54,14 @@ def _tokens(x, device) -> torch.Tensor:
     return torch.as_tensor(x, device=device).long()
 
 
+def _refuse_sharded(model) -> None:
+    if model.tp is not None:
+        raise NotImplementedError(
+            "prefill/decode of a tensor-parallel model: serving a sharded model is "
+            "ROADMAP A6 part 3 (unshard_params gives the whole model)"
+        )
+
+
 @torch.inference_mode()
 def prefill(model: TransformerLM, tokens, s_max: int,
             kv_dtype: str | None = None, lengths=None):
@@ -64,6 +72,7 @@ def prefill(model: TransformerLM, tokens, s_max: int,
     and the cache carries a per-row ``pos``."""
     if model.seq_mode != "local":
         raise ValueError("prefill/decode require seq_mode='local'")
+    _refuse_sharded(model)
     if kv_dtype not in (None, "int8"):
         raise ValueError(f"kv_dtype={kv_dtype!r}; expected None|'int8'")
     cdt = model.cdt
@@ -123,6 +132,7 @@ def decode_step(model: TransformerLM, token, cache: KVCache):
     logits, the cache with ``pos + 1``). The cache's buffers are written in
     place. Attention reads the whole cache with positions past ``pos``
     masked. A row at or past the cache's capacity gets NaN logits."""
+    _refuse_sharded(model)
     cdt = model.cdt
     d = model.embed.shape[-1]
     h = model.num_heads

@@ -14,6 +14,16 @@ over ``seq_axis`` of ``mesh`` (:mod:`keystone_tpu_torch.ops.attention`):
 the ring's hops are kernel K3 on the card, Ulysses' local attention K2.
 A model built with no mesh takes the ambient one of ``use_mesh``.
 
+``tp`` (set by :func:`keystone_tpu_torch.models.lm.sharding.shard_params`)
+runs the model tensor-parallel over a mesh's ``model`` axis, Megatron
+style: each position computes its heads (K2 at (B, H/n, S, D)) and its
+columns of the MLP, the row-parallel products' partial sums are added over
+the axis (two collectives a block, one around the attention and one around
+the MLP), the embedding lookup over a vocab shard is masked and summed,
+the tied logits stay vocab-sharded for the loss
+(:mod:`~keystone_tpu_torch.models.lm.losses`), and a MoE layer runs its
+own experts on the dispatch the whole router computed.
+
 Float weights are ``nn.Parameter``s made without ``requires_grad``;
 training (``models/lm/train.py``'s step) turns it on for every float
 leaf. ``remat`` recomputes each block in the backward under
@@ -133,20 +143,27 @@ def _rope(x, positions, base: float = 10_000.0):
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
 
 
-def _block_apply(x, blk: LMBlock, cdt, attn, moe=None, mm_fn=mm):
+def _mlp(y, w1, w2, cdt, mm_fn=mm):
+    """The dense FFN (or one position's columns of it). The GELU is the
+    tanh approximation, ``jax.nn.gelu``'s default."""
+    return mm_fn(F.gelu(mm_fn(y, w1, cdt), approximate="tanh"), w2, cdt)
+
+
+def _block_apply(x, blk: LMBlock, cdt, attn, moe=None, mm_fn=mm, ffn=None):
     """Pre-LN residual block shared by the forward, prefill and decode:
     ``attn(y, blk) -> (attention output (N, S, d), aux)``. ``moe``, when
-    given, replaces the dense FFN. Returns (x, attn aux, MoE aux loss —
-    None for a dense FFN, where the JAX package returns a constant 0). The
-    GELU is the tanh approximation, ``jax.nn.gelu``'s default."""
+    given, replaces the dense FFN; ``ffn(y, blk)``, when given, computes
+    it (the tensor-parallel one). Returns (x, attn aux, MoE aux loss —
+    None for a dense FFN, where the JAX package returns a constant 0)."""
     a, aux = attn(_ln(x, cdt), blk)
     x = x + a
     y = _ln(x, cdt)
     if moe is not None:
         f, moe_aux = moe(y)
         return x + f, aux, moe_aux
-    hdn = mm_fn(y, blk.w1, cdt)
-    return x + mm_fn(F.gelu(hdn, approximate="tanh"), blk.w2, cdt), aux, None
+    if ffn is not None:
+        return x + ffn(y, blk), aux, None
+    return x + _mlp(y, blk.w1, blk.w2, cdt, mm_fn), aux, None
 
 
 def _gather_embed(embed, tokens):
@@ -157,11 +174,31 @@ def _gather_embed(embed, tokens):
     return embed[tokens]
 
 
+def _gather_embed_tp(model, tokens):
+    """Embedding rows for ``tokens`` from a vocab-sharded table: each
+    position gathers the tokens in its rows and zeros for the rest, and the
+    sum over the model axis holds each token's row once."""
+    tp = model.tp
+    parts = []
+    for pos, dev in zip(tp.comm.positions, tp.comm.devices):
+        e = tp.part(model.embed, 0, pos, dev)
+        lo, vl = pos * e.shape[0], e.shape[0]
+        t = tokens.to(dev)
+        rows = e[(t - lo).clamp(0, vl - 1)]
+        live = ((t >= lo) & (t < lo + vl))[..., None]
+        parts.append(torch.where(live, rows, torch.zeros((), dtype=rows.dtype, device=dev)))
+    return tp.comm.psum(parts, device=tokens.device)
+
+
 def _embed(model, tokens, cdt):
     """Token embedding (× √d) plus learned positions, in the compute
     dtype."""
     d = model.embed.shape[-1]
-    x = _gather_embed(model.embed, tokens) * math.sqrt(d)
+    tp = getattr(model, "tp", None)
+    if tp is not None and tp.vocab:
+        x = _gather_embed_tp(model, tokens) * math.sqrt(d)
+    else:
+        x = _gather_embed(model.embed, tokens) * math.sqrt(d)
     if model.pos_encoding == "learned":
         x = x + model.pos_embed[: tokens.shape[1]]
     return x.to(cdt)
@@ -212,6 +249,7 @@ class TransformerLM(nn.Module):
         pos_encoding: str = "learned",
         num_kv_heads: int = 0,
         int8_kernel: str = "mm",
+        tp=None,
     ):
         super().__init__()
         if moe_layers and len(moe_layers) != len(blocks):
@@ -248,6 +286,8 @@ class TransformerLM(nn.Module):
         self.pos_encoding = pos_encoding
         self.num_kv_heads = num_kv_heads
         self.int8_kernel = int8_kernel
+        # the tensor-parallel layout (models/lm/sharding.TensorParallel)
+        self.tp = tp
 
     def replace(self, **changes) -> "TransformerLM":
         """A model sharing this one's tensors, with ``changes`` applied
@@ -259,7 +299,7 @@ class TransformerLM(nn.Module):
             compute_dtype=self.compute_dtype, moe_layers=self.moe_layers,
             moe_aux_weight=self.moe_aux_weight, pos_encoding=self.pos_encoding,
             num_kv_heads=self.num_kv_heads,
-            int8_kernel=self.int8_kernel,
+            int8_kernel=self.int8_kernel, tp=self.tp,
         )
         kw.update(changes)
         embed, pos_embed, blocks = kw.pop("embed"), kw.pop("pos_embed"), kw.pop("blocks")
@@ -280,10 +320,13 @@ class TransformerLM(nn.Module):
     def _qkv_heads(self, x, blk: LMBlock, positions=None):
         """(q with H heads, k/v with KV heads, rope applied). ``positions``
         defaults to 0..S-1; decode passes its token's global position."""
+        return self._qkv(x, blk.wq, blk.wk, blk.wv, self.num_heads, self.kv_heads, positions)
+
+    def _qkv(self, x, wq, wk, wv, h: int, kvh: int, positions=None):
         mm_fn = model_mm(self)
-        q = _split_heads(x, blk.wq, self.num_heads, mm_fn)
-        k = _split_heads(x, blk.wk, self.kv_heads, mm_fn)
-        v = _split_heads(x, blk.wv, self.kv_heads, mm_fn)
+        q = _split_heads(x, wq, h, mm_fn)
+        k = _split_heads(x, wk, kvh, mm_fn)
+        v = _split_heads(x, wv, kvh, mm_fn)
         if self.pos_encoding == "rope":
             if positions is None:
                 positions = torch.arange(x.shape[1], device=x.device)
@@ -291,37 +334,83 @@ class TransformerLM(nn.Module):
             k = _rope(k, positions)
         return q, k, v
 
-    def _attention(self, x, blk: LMBlock, return_kv: bool = False):
-        n, s, d = x.shape
-        h = self.num_heads
-        # x is the full sequence here: the sequence-parallel modes shard it
-        # inside ring/ulysses_attention
-        q, k, v = self._qkv_heads(x, blk)
-        kv_raw = (k, v)  # pre-broadcast: what the decode cache stores
-        if self.kv_heads != h:
-            g = h // self.kv_heads
+    def _attend(self, q, k, v):
+        """Causal attention of (N, h, S, hd) queries over (N, kvh, S, hd)
+        keys and values (broadcast to h heads) in the model's mode."""
+        if k.shape[1] != q.shape[1]:
+            g = q.shape[1] // k.shape[1]
             k = k.repeat_interleave(g, dim=1)
             v = v.repeat_interleave(g, dim=1)
         if self.seq_mode == "ring":
-            out = ring_attention(
+            return ring_attention(
                 q, k, v, self.mesh, seq_axis=self.seq_axis, causal=True, trainable=True
             )
-        elif self.seq_mode == "ulysses":
-            out = ulysses_attention(
+        if self.seq_mode == "ulysses":
+            return ulysses_attention(
                 q, k, v, self.mesh, seq_axis=self.seq_axis, causal=True, trainable=True
             )
-        elif _use_flash(x):
-            out = flash_attention_trainable(
+        if _use_flash(q):
+            return flash_attention_trainable(
                 q.contiguous(), k.contiguous(), v.contiguous(), True
             )
-        else:
-            out = dense_attention(q, k, v, causal=True)
+        return dense_attention(q, k, v, causal=True)
+
+    def _attention(self, x, blk: LMBlock, return_kv: bool = False):
+        n, s, d = x.shape
+        if self.tp is not None and self.tp.attn:
+            return self._attention_tp(x, blk)
+        # x is the full sequence here: the sequence-parallel modes shard it
+        # inside ring/ulysses_attention
+        q, k, v = self._qkv_heads(x, blk)
+        out = self._attend(q, k, v)
         proj = model_mm(self)(
             out.transpose(1, 2).reshape(n, s, d).to(x.dtype), blk.wo, x.dtype
         )
         if return_kv:
-            return proj, kv_raw
+            return proj, (k, v)
         return proj
+
+    def _attention_tp(self, x, blk: LMBlock):
+        """Head-parallel attention: each position of the model axis runs
+        its H/n query heads and KV/n key/value heads (columns of wq, wk and
+        wv) and its rows of wo; the partial projections add up over the
+        axis."""
+        tp = self.tp
+        n, s, d = x.shape
+        h, kvh = self.num_heads // tp.n, self.kv_heads // tp.n
+        mm_fn = model_mm(self)
+        parts = []
+        for pos, y in zip(tp.comm.positions, tp.comm.enter(x)):
+            w = functools.partial(tp.part, pos=pos, device=y.device)
+            q, k, v = self._qkv(y, w(blk.wq, 1), w(blk.wk, 1), w(blk.wv, 1), h, kvh)
+            out = self._attend(q, k, v)
+            parts.append(mm_fn(out.transpose(1, 2).reshape(n, s, d // tp.n).to(y.dtype),
+                               w(blk.wo, 0), y.dtype))
+        return tp.comm.psum(parts, device=x.device)
+
+    def _ffn_tp(self, y, blk: LMBlock):
+        """The MLP column-parallel then row-parallel over the model axis."""
+        tp = self.tp
+        mm_fn = model_mm(self)
+        parts = [
+            _mlp(yy, tp.part(blk.w1, 1, pos, yy.device), tp.part(blk.w2, 0, pos, yy.device),
+                 self.cdt, mm_fn)
+            for pos, yy in zip(tp.comm.positions, tp.comm.enter(y))
+        ]
+        return tp.comm.psum(parts, device=y.device)
+
+    def logit_parts(self, x) -> list:
+        """The tied logits of final hidden states x (B, S, d) as the
+        model axis holds them: one (B, S, V/n) f32 block a position under
+        a vocab-sharded ``tp``, else the whole (B, S, V) in a list."""
+        tp = self.tp
+        if tp is None or not tp.vocab:
+            return [_tied_logits(x, self.embed, self.cdt)]
+        a = _ln(x, self.cdt).to(torch.float32)
+        return [
+            aa @ tp.part(self.embed, 0, pos, aa.device).T.to(self.cdt).to(torch.float32)
+            for pos, aa in zip(tp.comm.positions, tp.comm.enter(a))
+        ]
 
     def _moe(self, i: int):
         return self.moe_layers[i] if self.moe_layers else None
@@ -337,11 +426,15 @@ class TransformerLM(nn.Module):
         tokens = torch.as_tensor(tokens, device=self.device).long()
         x = _embed(self, tokens, cdt)
         mm_fn = model_mm(self)
+        tp = self.tp
+        ffn = self._ffn_tp if tp is not None and tp.ffn else None
 
         def block_fn(x, blk, moe):
+            if moe is not None and tp is not None and tp.experts:
+                moe = functools.partial(moe, tp=tp)
             out, _, moe_aux = _block_apply(
                 x, blk, cdt, lambda y, b: (self._attention(y, b), None), moe=moe,
-                mm_fn=mm_fn,
+                mm_fn=mm_fn, ffn=ffn,
             )
             return out, moe_aux
 
@@ -355,9 +448,17 @@ class TransformerLM(nn.Module):
         return x, aux
 
     def forward_with_aux(self, tokens):
-        """(logits (B, S, V) f32, the total MoE load-balance aux loss)."""
+        """(logits (B, S, V) f32, the total MoE load-balance aux loss).
+        Vocab-sharded logits are gathered over the model axis."""
         x, aux = self.backbone(tokens)
-        return _tied_logits(x, self.embed, self.cdt), aux
+        return self.logits(x), aux
+
+    def logits(self, x):
+        """The whole (B, S, V) f32 logits of final hidden states x."""
+        parts = self.logit_parts(x)
+        if self.tp is None or not self.tp.vocab:
+            return parts[0]
+        return self.tp.comm.gather(parts, -1, device=x.device)
 
     @staticmethod
     def create(
@@ -457,7 +558,12 @@ class TransformerLM(nn.Module):
 
     def num_params(self) -> int:
         """Number of stored values, a QTensor's codes and scales both
-        counted (as the JAX package counts its leaves)."""
+        counted (as the JAX package counts its leaves); a model sharded
+        across processes counts its whole leaves."""
+        if self.tp is not None and self.tp.local:
+            from keystone_tpu_torch.models.lm.sharding import whole_shapes
+
+            return sum(math.prod(shape) for shape in whole_shapes(self))
         total = 0
         for leaf in self.leaves():
             if isinstance(leaf, QTensor):

@@ -1,5 +1,6 @@
 """LM training — port of ``keystone_tpu/models/lm/train.py``: the
-optimizer, the train step, the loop and the synthetic corpus.
+optimizer, the train step, the pipeline-parallel step, the loop and the
+synthetic corpus.
 
 - :func:`make_optimizer` is optax's ``adamw`` (optionally behind
   ``clip_by_global_norm``, with a constant or warmup-cosine rate) written
@@ -33,7 +34,16 @@ the gradients (in buckets) and the loss to their global means before the
 clip and AdamW, and the parameters stay the same on every process. In one
 process, a mesh whose data axis names several cards trains the batch on
 the axis's first card: data parallelism across cards is a process per
-card. The pipeline-parallel steps are ROADMAP A6 part 2 and raise.
+card.
+
+A tensor-parallel model (``shard_params`` over a mesh whose model axis
+spans processes) trains dp × tp: the ranks of one data row take the same
+row block, and the gradients are all-reduced over the data axis only. A
+ring or Ulysses model in a group takes the whole batch on every rank, as
+the reference does for a non-local ``seq_mode``, with no gradient
+all-reduce. :func:`pp_forward`, :func:`next_token_loss_pp` and
+:func:`make_pp_train_step` run the block chain as GPipe stages
+(:func:`keystone_tpu_torch.parallel.pipeline_parallel.gpipe`).
 """
 
 from __future__ import annotations
@@ -51,8 +61,20 @@ import numpy as np
 import torch
 
 from keystone_tpu_torch.core.logging import get_logger
-from keystone_tpu_torch.models.lm.losses import next_token_loss
-from keystone_tpu_torch.models.lm.model import TransformerLM, has_quantized_leaves
+from keystone_tpu_torch.models.lm.losses import next_token_loss, token_cross_entropy
+from keystone_tpu_torch.models.lm.model import (
+    TransformerLM,
+    _block_apply,
+    _embed,
+    has_quantized_leaves,
+    remat_wrap,
+)
+from keystone_tpu_torch.models.lm.sharding import (
+    gather_leaf,
+    leaf_dims,
+    local_leaf,
+    whole_shapes,
+)
 
 logger = get_logger("keystone_tpu_torch.models.lm_transformer")
 
@@ -102,6 +124,147 @@ def warmup_cosine_decay_schedule(
     return lambda count: warm(count) if count < warmup_steps else decay(count - warmup_steps)
 
 
+def pp_forward(model: TransformerLM, tokens, mesh, *, n_micro: int,
+               axis: str = "model", data_axis: str | None = None):
+    """Pipeline-parallel forward: the block chain runs as GPipe stages
+    over the mesh ``axis`` (one group of ``depth/n_stages`` blocks per
+    position, microbatches streamed —
+    :func:`keystone_tpu_torch.parallel.pipeline_parallel.gpipe`), the
+    embedding and the tied logits outside the pipe on every position.
+    Dense blocks only (MoE routing wants the expert axis, not the stage
+    axis); the parameters stay whole on every position — pp here
+    parallelizes compute. A tensor-parallel layout over the mesh's
+    ``model`` axis runs inside the stages (pp × dp × tp on a 3-axis
+    mesh)."""
+    if any(m is not None for m in model.moe_layers):
+        raise ValueError(
+            "pipeline-parallel path supports dense blocks only (route "
+            "experts over the model axis with moe_every instead)"
+        )
+    if model.seq_mode != "local":
+        raise ValueError(
+            "pipeline-parallel path requires seq_mode='local': the "
+            f"{model.seq_mode!r} attention opens its own shard_map, which "
+            "cannot nest inside the pipeline's"
+        )
+    n_stages = mesh.shape[axis]
+    depth = len(model.blocks)
+    if depth % n_stages:
+        raise ValueError(
+            f"depth {depth} not divisible by {n_stages} pipeline stages"
+        )
+    tokens = torch.as_tensor(tokens, device=model.device).long()
+    b = tokens.shape[0]
+    if b % n_micro:
+        raise ValueError(
+            f"batch {b} not divisible by n_micro={n_micro}"
+        )
+    per = depth // n_stages
+    cdt = model.cdt
+    x = _embed(model, tokens, cdt)
+    # pre-split microbatches here: gpipe's n_micro reshape heuristic is
+    # ambiguous when B == n_micro
+    x = x.reshape(n_micro, b // n_micro, *x.shape[1:])
+    # the per-block leaves stacked: leading axis depth → (stages, per)
+    stacked = {
+        name: torch.stack([getattr(blk, name) for blk in model.blocks]).reshape(
+            n_stages, per, *getattr(model.blocks[0], name).shape)
+        for name in ("wq", "wk", "wv", "wo", "w1", "w2")
+    }
+    ffn = model._ffn_tp if model.tp is not None and model.tp.ffn else None
+
+    def stage_fn(stage_params, act):
+        for j in range(per):
+            blk = _StageBlock(**{k: v[j] for k, v in stage_params.items()})
+            act = _block_apply(
+                act, blk, cdt, lambda y, bb: (model._attention(y, bb), None), ffn=ffn,
+            )[0]
+        return act
+
+    if model.remat:
+        stage_fn = remat_wrap(stage_fn, model.remat_policy)
+    from keystone_tpu_torch.parallel.pipeline_parallel import gpipe
+
+    out = gpipe(stage_fn, stacked, x, mesh, axis=axis, data_axis=data_axis)
+    return model.logits(out.reshape(b, *out.shape[2:]))
+
+
+@dataclasses.dataclass
+class _StageBlock:
+    """One block's matrices inside a pipeline stage."""
+
+    wq: torch.Tensor
+    wk: torch.Tensor
+    wv: torch.Tensor
+    wo: torch.Tensor
+    w1: torch.Tensor
+    w2: torch.Tensor
+
+
+def next_token_loss_pp(model: TransformerLM, tokens, mesh, *,
+                       n_micro: int, axis: str = "model",
+                       data_axis: str | None = None):
+    """Next-token CE through the GPipe forward; its backward is the
+    reverse pipeline schedule."""
+    tokens = torch.as_tensor(tokens, device=model.device)
+    logits = pp_forward(
+        model, tokens[:, :-1], mesh, n_micro=n_micro, axis=axis,
+        data_axis=data_axis,
+    )
+    return token_cross_entropy(logits, tokens[:, 1:])
+
+
+def make_pp_train_step(optimizer, mesh, *, n_micro: int,
+                       axis: str = "model",
+                       data_axis: str | None = None):
+    """``step(model, opt_state, tokens) -> (model, opt_state, loss)``: the
+    pipeline-parallel loss, the gradient of every float leaf and the
+    optimizer's update, the model updated in place. ``data_axis`` composes
+    dp × pp: each data row of positions pipelines its own batch slice, and
+    every parameter's gradient comes out whole on every position."""
+
+    def step(model: TransformerLM, opt_state, tokens):
+        params = model.leaves()
+        for p in params:
+            p.requires_grad_(True)
+        loss = next_token_loss_pp(model, tokens, mesh, n_micro=n_micro, axis=axis,
+                                  data_axis=data_axis)
+        grads = _grads(loss, params)
+        optimizer.update(grads, opt_state, params, sq_norm=_sq_norm_fn(model))
+        return model, opt_state, loss.detach()
+
+    return step
+
+
+def _grads(loss, params) -> list:
+    """Every leaf's gradient of ``loss``; a leaf the loss never reads
+    (rope's empty position table) has a zero gradient."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+
+
+def _sq_norm_fn(model: TransformerLM):
+    """The squared global gradient norm for the clip when the leaves hold
+    shards across processes (a split leaf's squares summed over the model
+    axis, a whole leaf's counted once), else None (every leaf is whole)."""
+    tp = model.tp
+    if tp is None or not tp.local:
+        return None
+    from keystone_tpu_torch.models.lm.sharding import leaf_dims
+    from keystone_tpu_torch.parallel.collectives import all_reduce
+
+    dims = leaf_dims(model)
+
+    def sq_norm(grads):
+        split = sum(torch.sum(g * g) for g, d in zip(grads, dims) if d is not None)
+        whole = sum(torch.sum(g * g) for g, d in zip(grads, dims) if d is None)
+        split = all_reduce(torch.as_tensor(split, device=grads[0].device).reshape(1),
+                           tp.comm.group)[0]
+        return split + whole
+
+    return sq_norm
+
+
 @dataclasses.dataclass
 class AdamWState:
     """optax's ``ScaleByAdamState``: the update count and the two moments
@@ -129,16 +292,20 @@ class AdamW:
         return AdamWState(count=0, mu=zeros, nu=[torch.zeros_like(z) for z in zeros])
 
     def _direction(self, grads, mu, nu, params, inv_bc1, inv_bc2, neg_lr, *,
-                   in_place: bool) -> tuple[list, list, list]:
+                   in_place: bool, sq_norm=None) -> tuple[list, list, list]:
         """The one AdamW body both updates share: clip, advance the moments
         (``mu`` and ``nu`` themselves with ``in_place``, else new lists),
         and return ``(mu, nu, upd)`` with upd = −lr·(mu_hat / (sqrt(nu_hat)
         + eps) + wd·p). The bias corrections come as their reciprocals and
-        the rate negated, host floats or 0-dim device tensors."""
+        the rate negated, host floats or 0-dim device tensors. ``sq_norm``
+        gives the clip's squared global norm when the leaves hold shards."""
         grads = list(grads)
         if self.grad_clip > 0.0:
             # optax.global_norm: sqrt of the sum over leaves of Σx²
-            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            if sq_norm is not None:
+                g_norm = torch.sqrt(sq_norm(grads))
+            else:
+                g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
             keep = g_norm < self.grad_clip
             grads = [torch.where(keep, g, (g / g_norm) * self.grad_clip) for g in grads]
         b1, b2 = _B1, _B2
@@ -163,14 +330,14 @@ class AdamW:
         return mu, nu, upd
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params) -> AdamWState:
+    def update(self, grads, state: AdamWState, params, sq_norm=None) -> AdamWState:
         params = list(params)
         count_inc = state.count + 1
         bc1 = float(_F32(1) - np.power(_F32(_B1), _F32(count_inc), dtype=_F32))
         bc2 = float(_F32(1) - np.power(_F32(_B2), _F32(count_inc), dtype=_F32))
         lr = self.lr(state.count) if callable(self.lr) else self.lr
         _, _, upd = self._direction(grads, state.mu, state.nu, params, 1.0 / bc1, 1.0 / bc2,
-                                    -float(_F32(lr)), in_place=True)
+                                    -float(_F32(lr)), in_place=True, sq_norm=sq_norm)
         torch._foreach_add_(params, upd)
         state.count = count_inc
         return state
@@ -189,7 +356,7 @@ class AdamW:
 
     @torch.no_grad()
     def update_guarded(self, grads, state: AdamWState, params, ok: torch.Tensor,
-                       tables: tuple[torch.Tensor, ...]) -> AdamWState:
+                       tables: tuple[torch.Tensor, ...], sq_norm=None) -> AdamWState:
         """:meth:`update` where ``ok`` (a 0-dim device bool) holds, and no
         change at all where it does not: the parameters, both moments and
         the count keep their bits, NaN gradients or not. The count is a
@@ -204,7 +371,7 @@ class AdamW:
         at = state.count.reshape(1)
         inv_bc1, inv_bc2, neg_lr = (t.index_select(0, at).reshape(()) for t in tables)
         mu, nu, upd = self._direction(grads, state.mu, state.nu, params, inv_bc1, inv_bc2,
-                                      neg_lr, in_place=False)
+                                      neg_lr, in_place=False, sq_norm=sq_norm)
         new_params = torch._foreach_add(params, upd)
         del upd
         from keystone_tpu_torch.resilience.guards import guarded_update
@@ -250,23 +417,32 @@ def make_optimizer(
 _BUCKET_BYTES = 64 << 20
 
 
-def allreduce_mean_(grads: list, loss: torch.Tensor) -> torch.Tensor:
+def allreduce_mean_(grads: list, loss: torch.Tensor, group=None) -> torch.Tensor:
     """The data-parallel reduction: every gradient (in place, in flat
     buckets of at most ``_BUCKET_BYTES`` of one dtype) and the loss become
-    their means over the process group. Each process's loss and gradients
-    are means over its own equal share of the batch, so these means are
-    the global batch's. Returns the reduced loss."""
+    their means over the process group (``group``, an
+    :class:`~keystone_tpu_torch.parallel.collectives.AxisGroup`, when the
+    data axis is a part of it). Each process's loss and gradients are means
+    over its own equal share of the batch, so these means are the global
+    batch's. Returns the reduced loss."""
     from keystone_tpu_torch.parallel import multihost
+    from keystone_tpu_torch.parallel.collectives import all_reduce
 
-    world = multihost.process_count()
+    world = multihost.process_count() if group is None else group.size
     if world == 1:
         return loss
+
+    def reduce_(t):
+        if group is None:
+            return multihost.all_reduce_(t)
+        return t.copy_(all_reduce(t, group))
+
     bucket: list = []
     size = 0
 
     def flush():
         flat = torch.cat([g.reshape(-1) for g in bucket])
-        multihost.all_reduce_(flat).div_(world)
+        reduce_(flat).div_(world)
         off = 0
         for g in bucket:
             g.copy_(flat[off : off + g.numel()].view_as(g))
@@ -282,7 +458,7 @@ def allreduce_mean_(grads: list, loss: torch.Tensor) -> torch.Tensor:
     if bucket:
         flush()
     loss = loss.reshape(1).clone()
-    return multihost.all_reduce_(loss).div_(world).reshape(())
+    return reduce_(loss).div_(world).reshape(())
 
 
 def make_train_step(optimizer: AdamW, *, logit_chunk: int = 0, guarded: bool = False,
@@ -310,18 +486,15 @@ def make_train_step(optimizer: AdamW, *, logit_chunk: int = 0, guarded: bool = F
         loss = next_token_loss(model, tokens, logit_chunk=logit_chunk)
         if poison:
             loss = loss * float("nan")
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        # a leaf the loss never reads (rope's empty position table) has a
-        # zero gradient
-        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+        grads = _grads(loss, params)
         loss = loss.detach()
         if data_parallel:
-            loss = allreduce_mean_(grads, loss)
+            loss = allreduce_mean_(grads, loss, _data_group(model))
         return params, grads, loss
 
     def step(model: TransformerLM, opt_state: AdamWState, tokens):
         params, grads, loss = grads_of(model, tokens)
-        optimizer.update(grads, opt_state, params)
+        optimizer.update(grads, opt_state, params, sq_norm=_sq_norm_fn(model))
         return model, opt_state, loss
 
     if not guarded:
@@ -333,7 +506,7 @@ def make_train_step(optimizer: AdamW, *, logit_chunk: int = 0, guarded: bool = F
     def guarded_step(model: TransformerLM, opt_state: AdamWState, tokens, poison: bool):
         params, grads, loss = grads_of(model, tokens, poison)
         if not skip_nonfinite:
-            optimizer.update(grads, opt_state, params)
+            optimizer.update(grads, opt_state, params, sq_norm=_sq_norm_fn(model))
             return model, opt_state, loss
         if not isinstance(opt_state.count, torch.Tensor):
             opt_state.count = torch.tensor(opt_state.count, dtype=torch.int64, device=loss.device)
@@ -342,7 +515,8 @@ def make_train_step(optimizer: AdamW, *, logit_chunk: int = 0, guarded: bool = F
         seen["bound"] += 1
         if seen["tables"] is None or len(seen["tables"][0]) < seen["bound"]:
             seen["tables"] = optimizer.count_tables(loss.device, max(64, 2 * seen["bound"]))
-        optimizer.update_guarded(grads, opt_state, params, torch.isfinite(loss), seen["tables"])
+        optimizer.update_guarded(grads, opt_state, params, torch.isfinite(loss), seen["tables"],
+                                 sq_norm=_sq_norm_fn(model))
         return model, opt_state, loss
 
     return guarded_step
@@ -357,11 +531,23 @@ def _step_batch(corpus, seed: int, i: int, batch: int, seq: int):
     return np.stack([corpus[s : s + seq + 1] for s in starts])
 
 
+def _data_group(model: TransformerLM):
+    """The group a data-parallel step reduces over: the data axis of a
+    tensor-parallel model's mesh across processes, else None (every
+    process)."""
+    tp = model.tp
+    if tp is None or not tp.local:
+        return None
+    return tp.mesh.axis_group("data")
+
+
 def _data_parallel(*, model, batch, mesh) -> tuple[int, int] | None:
     """This process's rows ``(lo, hi)`` of each global batch when training
-    is data-parallel across processes, else None. In one process, a mesh
-    whose data axis would shard a local model's batch trains it on the
-    axis's first card, and says so once."""
+    is data-parallel across processes, else None. A ring or Ulysses model
+    in a group takes the whole batch on every rank; a tensor-parallel
+    model takes its data row's block, the whole batch on a mesh with one
+    data row. In one process, a mesh whose data axis would shard a local
+    model's batch trains it on the axis's first card, and says so once."""
     from keystone_tpu_torch.parallel import multihost
     from keystone_tpu_torch.resilience.cluster import process_count
 
@@ -374,10 +560,16 @@ def _data_parallel(*, model, batch, mesh) -> tuple[int, int] | None:
         )
     if world > 1:
         if model.seq_mode != "local":
-            raise NotImplementedError(
-                f"train() of a {model.seq_mode!r} model across processes: sequence "
-                "parallelism over processes is ROADMAP A6 part 2"
-            )
+            # the sequence is the split axis: the batch is replicated
+            return None
+        tp = model.tp
+        if tp is not None and tp.local:
+            n_data = tp.mesh.shape.get("data", 1)
+            if n_data == 1:
+                return None
+            if batch % n_data:
+                raise ValueError(f"batch {batch} does not split over {n_data} data rows")
+            return multihost.row_block(batch, tp.mesh.coords()["data"], n_data)
         if batch % world:
             raise ValueError(f"batch {batch} does not split over {world} processes")
         return multihost.row_block(batch)
@@ -398,6 +590,21 @@ def _data_parallel(*, model, batch, mesh) -> tuple[int, int] | None:
 
 
 _warned = {"one_card": False}
+
+
+def _broadcast_replicas(model: TransformerLM) -> None:
+    """Every data-parallel replica's parameters made process 0's (the
+    first data row's, for each model-axis shard)."""
+    from keystone_tpu_torch.parallel import multihost
+    from keystone_tpu_torch.parallel.collectives import broadcast
+
+    group = _data_group(model)
+    with torch.no_grad():
+        for p in model.leaves():
+            if group is None:
+                multihost.broadcast_(p)
+            else:
+                p.copy_(broadcast(p, group, 0))
 
 
 def _run_identity(model: TransformerLM, corpus, *, batch, seq, lr, seed, schedule,
@@ -432,7 +639,7 @@ def _run_identity(model: TransformerLM, corpus, *, batch, seq, lr, seed, schedul
         "moe_capacity": [None if m is None else m.capacity_factor for m in model.moe_layers],
         "corpus_len": int(len(corpus)),
         "corpus_head_sha": hashlib.sha256(corpus_head.tobytes()).hexdigest()[:16],
-        "param_shapes": [list(map(int, leaf.shape)) for leaf in model.leaves()],
+        "param_shapes": [list(map(int, shape)) for shape in whole_shapes(model)],
     }
 
 
@@ -452,15 +659,40 @@ def _legacy_defaults(model: TransformerLM) -> dict:
 
 def _train_state(model: TransformerLM, opt_state: AdamWState) -> dict:
     """The checkpointed state: every parameter, both moments and the
-    update count (a host int, saved as a tensor)."""
+    update count (a host int, saved as a tensor). A leaf split over
+    processes is gathered whole over the model axis, so a sharded run
+    writes the format an unsharded one does (:func:`_restore_shards` puts
+    a restored whole state back into the shards)."""
+    if model.tp is not None and model.tp.local:
+        dims = leaf_dims(model)
+        whole = lambda ts: [gather_leaf(model, t, d).clone() for t, d in zip(ts, dims)]  # noqa: E731
+        return {"params": whole(model.leaves()), "mu": whole(opt_state.mu),
+                "nu": whole(opt_state.nu), "count": _count_tensor(opt_state)}
     return {
         "params": model.leaves(),
         "mu": opt_state.mu,
         "nu": opt_state.nu,
-        # the guarded step's count is a device tensor, restored in place
-        "count": (opt_state.count if isinstance(opt_state.count, torch.Tensor)
-                  else torch.tensor(opt_state.count, dtype=torch.int64)),
+        "count": _count_tensor(opt_state),
     }
+
+
+def _count_tensor(opt_state: AdamWState) -> torch.Tensor:
+    # the guarded step's count is a device tensor, restored in place
+    if isinstance(opt_state.count, torch.Tensor):
+        return opt_state.count
+    return torch.tensor(opt_state.count, dtype=torch.int64)
+
+
+def _restore_shards(model: TransformerLM, opt_state: AdamWState, state: dict) -> None:
+    """Copy this rank's shards of a restored whole state (from
+    :func:`_train_state` of a model split over processes) into the model
+    and the optimizer state."""
+    if model.tp is None or not model.tp.local:
+        return
+    with torch.no_grad():
+        for key, dst in (("params", model.leaves()), ("mu", opt_state.mu), ("nu", opt_state.nu)):
+            for t, whole, d in zip(dst, state[key], leaf_dims(model)):
+                t.copy_(local_leaf(model, whole, d))
 
 
 def _emit_resilience(action: str, **fields) -> None:
@@ -528,8 +760,11 @@ def train(
     each process takes its row block of every step's batch, the gradients
     and the loss are all-reduced to their global means, the parameters
     start from process 0's, and a checkpoint is written once, by process
-    0, between two barriers. In one process a ``mesh`` whose data axis
-    would shard a local model's batch trains it on the model's card."""
+    0, between two barriers. A tensor-parallel model reduces over its
+    mesh's data axis only, and its checkpoint holds whole leaves gathered
+    over the model axis; a ring or Ulysses model takes the whole batch on
+    every rank. In one process a ``mesh`` whose data axis would shard a
+    local model's batch trains it on the model's card."""
     from keystone_tpu_torch.resilience import cluster as _cluster
     from keystone_tpu_torch.resilience import faults as _faults
     from keystone_tpu_torch.resilience.guards import (
@@ -648,6 +883,7 @@ def train(
     try:
         if ckpt is not None:
             state, start = ckpt.restore(_train_state(model, opt_state))
+            _restore_shards(model, opt_state, state)
             if not isinstance(opt_state.count, torch.Tensor):
                 opt_state.count = int(state["count"])
             if start > steps:
@@ -658,12 +894,9 @@ def train(
                 )
         completed = last_saved = start
         if rows is not None:
-            # every replica starts from process 0's parameters
-            from keystone_tpu_torch.parallel import multihost
-
-            with torch.no_grad():
-                for p in model.leaves():
-                    multihost.broadcast_(p)
+            # every replica starts from the parameters of its data axis's
+            # first process
+            _broadcast_replicas(model)
         for i in range(start, steps):
             if tracer is not None:
                 tracer.step(i)
@@ -763,7 +996,8 @@ def train(
         _emit_resilience("guard_halt", step=completed, error=repr(e))
         if ckpt is None:
             raise
-        _, restored = ckpt.restore(_train_state(model, opt_state))
+        state, restored = ckpt.restore(_train_state(model, opt_state))
+        _restore_shards(model, opt_state, state)
         if restored == 0:
             # nothing was ever checkpointed: there is no "last good" state
             raise

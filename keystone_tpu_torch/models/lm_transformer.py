@@ -93,7 +93,11 @@ def run(conf: LMConfig, mesh=None, device=None) -> dict:
     """Build, train and (with ``--corpus``) score the LM on ``device``
     (default: the card). In a process group of several processes (the
     launcher's ``--multihost``), the model lives on this process's card
-    and trains data-parallel over the group's mesh. With no ``mesh`` and
+    and trains data-parallel over the group's mesh; with ``--seq-mode
+    ring`` or ``ulysses`` its attention runs sequence-parallel over the
+    processes instead, every rank on the whole batch. A ``mesh`` whose
+    model axis is wider than 1 shards the weights (``shard_params``),
+    as the JAX package's ``run`` does. With no ``mesh`` and
     more than one card visible in one process, the JAX package's default
     mesh over every card is built, and a local model trains its batch on
     the first card (``train`` says so once)."""

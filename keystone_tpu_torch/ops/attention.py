@@ -14,13 +14,22 @@
   heads→seq back.
 
 The JAX package runs the per-position bodies under ``shard_map``, one
-program on every device. The port is single-controller as JAX is: one
-process loops over the positions of :class:`Mesh` in turn, and a
-collective becomes copies between the positions' devices — ``ppermute``
-is ``tensor.to(next_device)``, the tiled ``all_to_all`` is splits and
-concatenations. Where two positions name the same device (a mesh of one
-card named n times) the copy is no copy. Both are exact (equal to dense
-attention up to summation order).
+program on every device, whose boundary takes and returns whole,
+replicated tensors. The port keeps that boundary and runs the positions
+through :class:`~keystone_tpu_torch.parallel.collectives.AxisComm`:
+
+- on a one-process mesh, one process loops over the positions in turn,
+  and a collective becomes copies between the positions' devices —
+  ``ppermute`` is ``tensor.to(next_device)``, the tiled ``all_to_all`` is
+  splits and concatenations. Where two positions name the same device (a
+  mesh of one card named n times) the copy is no copy;
+- on a mesh across processes, each rank takes its sequence shard of the
+  replicated q, k and v, a ring hop is a send and a receive between cards
+  (``batch_isend_irecv``), Ulysses' reshardings are ``all_to_all``s, and
+  the output is all-gathered; the backward all-gathers dq, dk and dv, so
+  the parameter gradients come out the same on every rank.
+
+Both are exact (equal to dense attention up to summation order).
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from keystone_tpu_torch.ops.flash_attention import (
     flash_attention_step,
     flash_attention_trainable,
 )
+from keystone_tpu_torch.parallel.collectives import AxisComm
 from keystone_tpu_torch.parallel.mesh import current_mesh
 
 
@@ -71,11 +81,6 @@ def _resolve_mesh(mesh):
     mesh = mesh if mesh is not None else current_mesh()
     if mesh is None:
         raise ValueError("no mesh: pass mesh=... or install one with use_mesh(...)")
-    if mesh.spans_processes:
-        raise NotImplementedError(
-            "ring and Ulysses attention over a mesh across processes: sequence "
-            "parallelism over processes is ROADMAP A6 part 2"
-        )
     return mesh
 
 
@@ -86,31 +91,18 @@ def _flash_default(devices) -> bool:
     return any(torch.device(d).type == "cuda" for d in devices)
 
 
-def _shards(x, devices) -> list:
-    """``x`` split along the sequence axis, shard j contiguous on
-    ``devices[j]``."""
-    return [
-        c.to(dev).contiguous() for c, dev in zip(x.chunk(len(devices), dim=2), devices)
-    ]
-
-
-def _ring_hop(blocks, devices) -> list:
-    """``ppermute`` with ``perm j → j+1``: position j receives what
-    position j−1 held."""
-    n = len(devices)
-    return [blocks[(j - 1) % n].to(devices[j], non_blocking=True) for j in range(n)]
-
-
-def _ring_fwd_state(qs, ks, vs, devices, *, causal: bool, use_flash: bool):
-    """Ring forward over per-position shards. Returns ([out_j], [lse_j]):
-    lse is the row logsumexp of the full masked score matrix, (B, H,
-    S_local) f32; fully masked rows carry −1e30.
+def _ring_fwd_state(qs, ks, vs, comm: AxisComm, *, causal: bool, use_flash: bool):
+    """Ring forward over the shards of ``comm``'s positions. Returns
+    ([out_j], [lse_j]): lse is the row logsumexp of the full masked score
+    matrix, (B, H, S_local) f32; fully masked rows carry −1e30.
 
     Positions run one after another at each hop, in hop order, so every
     position's step of a hop is queued before the K/V blocks move on. With
     the fused kernel a causal hop whose block comes from a later position
-    is not launched: n(n+1)/2 steps instead of n², the same state."""
-    n = len(devices)
+    is not launched: n(n+1)/2 steps over the ring instead of n², the same
+    state."""
+    n = comm.n
+    devices = comm.devices
     b, h, s_local, d = qs[0].shape
     f32 = torch.float32
 
@@ -125,18 +117,18 @@ def _ring_fwd_state(qs, ks, vs, devices, *, causal: bool, use_flash: bool):
         ]
         k_blk, v_blk = ks, vs
         for step in range(n):
-            for j in range(n):
+            for i, j in enumerate(comm.positions):
                 owner = (j - step) % n
                 if causal and owner > j:
                     # the block lies wholly after this q window: no live
                     # key, and K3 would return the state bit for bit
                     continue
-                state[j] = flash_attention_step(
-                    qs[j], k_blk[j], v_blk[j], *state[j],
+                state[i] = flash_attention_step(
+                    qs[i], k_blk[i], v_blk[i], *state[i],
                     q_offset=j * s_local, k_offset=owner * s_local, causal=causal,
                 )
             if step + 1 < n:
-                k_blk, v_blk = _ring_hop(k_blk, devices), _ring_hop(v_blk, devices)
+                k_blk, v_blk = comm.hop(k_blk, v_blk)
         outs, lses = [], []
         for q, (m, l, acc) in zip(qs, state):
             den = torch.clamp_min(l, 1e-30)
@@ -156,11 +148,11 @@ def _ring_fwd_state(qs, ks, vs, devices, *, causal: bool, use_flash: bool):
     ]
     k_blk, v_blk = ks, vs
     for step in range(n):
-        for j in range(n):
+        for i, j in enumerate(comm.positions):
             owner = (j - step) % n
-            m, l, acc = state[j]
-            dev = devices[j]
-            scores = (qs[j].to(f32) @ k_blk[j].to(f32).transpose(-1, -2)) * scale
+            m, l, acc = state[i]
+            dev = devices[i]
+            scores = (qs[i].to(f32) @ k_blk[i].to(f32).transpose(-1, -2)) * scale
             if causal:
                 q_pos = j * s_local + torch.arange(s_local, device=dev)
                 k_pos = owner * s_local + torch.arange(s_local, device=dev)
@@ -172,10 +164,10 @@ def _ring_fwd_state(qs, ks, vs, devices, *, causal: bool, use_flash: bool):
             p = torch.where(torch.isfinite(scores), p, 0.0)
             alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
             l = l * alpha + p.sum(dim=-1, keepdim=True)
-            pv = p.to(v_blk[j].dtype).to(f32) @ v_blk[j].to(f32)
-            state[j] = (m_new, l, acc * alpha + pv)
+            pv = p.to(v_blk[i].dtype).to(f32) @ v_blk[i].to(f32)
+            state[i] = (m_new, l, acc * alpha + pv)
         if step + 1 < n:
-            k_blk, v_blk = _ring_hop(k_blk, devices), _ring_hop(v_blk, devices)
+            k_blk, v_blk = comm.hop(k_blk, v_blk)
     outs, lses = [], []
     for q, (m, l, acc) in zip(qs, state):
         outs.append((acc / torch.clamp_min(l, 1e-30)).to(q.dtype))
@@ -186,17 +178,17 @@ def _ring_fwd_state(qs, ks, vs, devices, *, causal: bool, use_flash: bool):
     return outs, lses
 
 
-def _ring_forward(q, k, v, devices, causal: bool, use_flash: bool):
-    """(out, lse) of the ring over ``devices``, both on q's device."""
+def _ring_forward(q, k, v, comm: AxisComm, causal: bool, use_flash: bool):
+    """(out, lse) of the ring over ``comm``'s positions, both on q's
+    device. q, k and v are this process's part of the sequence: whole in
+    one process, the rank's shard across processes."""
     outs, lses = _ring_fwd_state(
-        _shards(q, devices), _shards(k, devices), _shards(v, devices), devices,
-        causal=causal, use_flash=use_flash,
+        *(comm.split_local(x, 2) for x in (q, k, v)), comm, causal=causal, use_flash=use_flash,
     )
-    return (torch.cat([o.to(q.device) for o in outs], dim=2),
-            torch.cat([x.to(q.device) for x in lses], dim=2))
+    return comm.join_local(outs, 2, q.device), comm.join_local(lses, 2, q.device)
 
 
-def _ring_backward(q, k, v, out, lse, g, devices, causal: bool):
+def _ring_backward(q, k, v, out, lse, g, comm: AxisComm, causal: bool):
     """The JAX package's ring backward. Each position keeps its q, out, g
     and lse shards; every K/V shard travels the ring once more with its
     f32 dk/dv accumulators. Per hop a position recomputes that rectangle's
@@ -204,10 +196,11 @@ def _ring_backward(q, k, v, out, lse, g, devices, causal: bool):
     locally and dk/dv into the travelling accumulators; a causal hop whose
     block comes from a later position has no live key and is skipped. One
     last rotation brings every accumulator home. Returns (dq, dk, dv) in
-    the inputs' dtypes, on q's device."""
-    n = len(devices)
-    qs, ks, vs, outs, gs = (_shards(x, devices) for x in (q, k, v, out, g))
-    lses = [c.to(dev).contiguous() for c, dev in zip(lse.chunk(n, dim=2), devices)]
+    the inputs' dtypes, on q's device, over this process's part of the
+    sequence."""
+    n = comm.n
+    devices = comm.devices
+    qs, ks, vs, outs, gs, lses = (comm.split_local(x, 2) for x in (q, k, v, out, g, lse))
     b, h, s_local, d = qs[0].shape
     f32 = torch.float32
     qf = [x.to(f32) for x in qs]
@@ -222,28 +215,27 @@ def _ring_backward(q, k, v, out, lse, g, devices, causal: bool):
     dv_blk = [torch.zeros_like(x) for x in dq]
     k_blk, v_blk = ks, vs
     for step in range(n):
-        for j in range(n):
+        for i, j in enumerate(comm.positions):
             owner = (j - step) % n
             if causal and owner > j:
                 continue
             k_off = owner * s_local
-            kp = torch.nn.functional.pad(k_blk[j].to(f32), (0, 0, 0, pad))
-            vp = torch.nn.functional.pad(v_blk[j].to(f32), (0, 0, 0, pad))
+            kp = torch.nn.functional.pad(k_blk[i].to(f32), (0, 0, 0, pad))
+            vp = torch.nn.functional.pad(v_blk[i].to(f32), (0, 0, 0, pad))
             dq_c, dk_c, dv_c = _grads_rect(
-                qf[j], kp, vp, gf[j], delta[j], lses[j], j * s_local, k_off + s_local,
+                qf[i], kp, vp, gf[i], delta[i], lses[i], j * s_local, k_off + s_local,
                 causal, blk, k_off=k_off,
             )
-            dq[j] += dq_c
-            dk_blk[j] += dk_c[:, :, :s_local]
-            dv_blk[j] += dv_c[:, :, :s_local]
+            dq[i] += dq_c
+            dk_blk[i] += dk_c[:, :, :s_local]
+            dv_blk[i] += dv_c[:, :, :s_local]
         if step + 1 < n:
-            k_blk, v_blk = _ring_hop(k_blk, devices), _ring_hop(v_blk, devices)
-            dk_blk, dv_blk = _ring_hop(dk_blk, devices), _ring_hop(dv_blk, devices)
+            k_blk, v_blk, dk_blk, dv_blk = comm.hop(k_blk, v_blk, dk_blk, dv_blk)
     # after n − 1 rotations shard s (with its gradients) sits on position
     # s − 1; one more brings every accumulator home
-    dk_blk, dv_blk = _ring_hop(dk_blk, devices), _ring_hop(dv_blk, devices)
+    dk_blk, dv_blk = comm.hop(dk_blk, dv_blk)
     return tuple(
-        torch.cat([x.to(ref.device) for x in parts], dim=2).to(ref.dtype)
+        comm.join_local(parts, 2, ref.device).to(ref.dtype)
         for parts, ref in ((dq, q), (dk_blk, k), (dv_blk, v))
     )
 
@@ -254,17 +246,17 @@ class _RingTrainable(torch.autograd.Function):
     tensor."""
 
     @staticmethod
-    def forward(ctx, q, k, v, devices, causal, use_flash):
-        out, lse = _ring_forward(q, k, v, devices, causal, use_flash)
+    def forward(ctx, q, k, v, comm, causal, use_flash):
+        out, lse = _ring_forward(q, k, v, comm, causal, use_flash)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.devices, ctx.causal = devices, causal
+        ctx.comm, ctx.causal = comm, causal
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        grads = _ring_backward(q, k, v, out, lse, g, ctx.devices, ctx.causal)
+        grads = _ring_backward(q, k, v, out, lse, g.contiguous(), ctx.comm, ctx.causal)
         return (*grads, None, None, None)
 
 
@@ -289,41 +281,30 @@ def ring_attention(
     ring backward (dk/dv accumulators travelling the ring), the forward
     unchanged. Returns (B, H, S, D) in q's dtype, on q's device."""
     mesh = _resolve_mesh(mesh)
-    devices = mesh.axis_devices(seq_axis)
+    comm = AxisComm.of(mesh, seq_axis)
     if use_flash is None:
-        use_flash = _flash_default(devices)
+        use_flash = _flash_default(comm.devices)
     _check_seq_divisible(q, mesh, seq_axis)
+    if comm.across:
+        # the shard_map boundary: this rank's shard in, the whole out
+        q, k, v = (comm.scatter(x, 2)[0] for x in (q, k, v))
     if trainable:
-        return _RingTrainable.apply(q, k, v, devices, causal, use_flash)
-    return _ring_forward(q, k, v, devices, causal, use_flash)[0]
+        out = _RingTrainable.apply(q, k, v, comm, causal, use_flash)
+    else:
+        out = _ring_forward(q, k, v, comm, causal, use_flash)[0]
+    return comm.gather([out], 2) if comm.across else out
 
 
-def _ulysses_shard(qs, ks, vs, devices, *, causal: bool, use_flash: bool,
+def _ulysses_shard(qs, ks, vs, comm: AxisComm, *, causal: bool, use_flash: bool,
                    trainable: bool = False) -> list:
     """All-to-all sequence↔head resharding (DeepSpeed-Ulysses style).
 
-    In: shard j (B, H, S/n, D) on devices[j] → seq_to_heads → (B, H/n, S,
-    D): heads j·H/n.. over the full sequence → local attention (K2 with
-    ``use_flash``, dense otherwise) → heads_to_seq back to (B, H, S/n, D)."""
-    n = len(devices)
-
-    def seq_to_heads(xs):
-        # the tiled all_to_all(split_axis=1, concat_axis=2): position j
-        # gathers head chunk j of every position, in position order
-        return [
-            torch.cat([x.chunk(n, dim=1)[j].to(dev) for x in xs], dim=2).contiguous()
-            for j, dev in enumerate(devices)
-        ]
-
-    def heads_to_seq(xs):
-        # all_to_all(split_axis=2, concat_axis=1): position j gathers
-        # sequence chunk j of every position's heads
-        return [
-            torch.cat([x.chunk(n, dim=2)[j].to(dev) for x in xs], dim=1)
-            for j, dev in enumerate(devices)
-        ]
-
-    qh, kh, vh = seq_to_heads(qs), seq_to_heads(ks), seq_to_heads(vs)
+    In: shard j (B, H, S/n, D) at position j → seq_to_heads, the tiled
+    ``all_to_all(split_axis=1, concat_axis=2)`` → (B, H/n, S, D): heads
+    j·H/n.. over the full sequence → local attention (K2 with
+    ``use_flash``, dense otherwise) → heads_to_seq, ``all_to_all(split
+    2, concat 1)``, back to (B, H, S/n, D)."""
+    qh, kh, vh = (comm.all_to_all(x, 1, 2) for x in (qs, ks, vs))
     outs = []
     for q, k, v in zip(qh, kh, vh):
         if use_flash and trainable:
@@ -332,7 +313,7 @@ def _ulysses_shard(qs, ks, vs, devices, *, causal: bool, use_flash: bool,
             outs.append(flash_attention(q, k, v, causal=causal))
         else:
             outs.append(dense_attention(q, k, v, causal=causal))
-    return heads_to_seq(outs)
+    return comm.all_to_all(outs, 2, 1)
 
 
 def ulysses_attention(
@@ -352,15 +333,15 @@ def ulysses_attention(
     card); ``trainable`` takes the flash trainable wrapper. Returns (B, H,
     S, D) in q's dtype, on q's device."""
     mesh = _resolve_mesh(mesh)
-    devices = mesh.axis_devices(seq_axis)
+    comm = AxisComm.of(mesh, seq_axis)
     if use_flash is None:
-        use_flash = _flash_default(devices)
+        use_flash = _flash_default(comm.devices)
     n = mesh.shape[seq_axis]
     if q.shape[1] % n:
         raise ValueError(f"heads ({q.shape[1]}) not divisible by axis ({n})")
     _check_seq_divisible(q, mesh, seq_axis)
     outs = _ulysses_shard(
-        _shards(q, devices), _shards(k, devices), _shards(v, devices), devices,
+        *(comm.scatter(x, 2) for x in (q, k, v)), comm,
         causal=causal, use_flash=use_flash, trainable=trainable,
     )
-    return torch.cat([o.to(q.device) for o in outs], dim=2)
+    return comm.gather(outs, 2, device=q.device)

@@ -7,6 +7,11 @@ value read back to the host, and a decode step through the layer can be
 captured in a CUDA graph. Tokens over an expert's capacity are dropped
 (they add zero; the residual stream carries them).
 
+Expert-parallel over a mesh's model axis (``tp``, from the LM's
+``shard_params``), tokens stay whole at every position: each position runs
+its own experts on the dispatch that the whole router computed, and the
+partial combines add up over the axis. Capacity and routing do not change.
+
 Tokens route within groups of ``group_size``; the last group is padded
 with dummies that claim no capacity. The JAX package maps ``_route_group``
 over the groups with ``jax.vmap``; here the groups are a leading axis of
@@ -90,8 +95,9 @@ class MoELayer(nn.Module):
         cap = int(math.ceil(2 * num_tokens * self.capacity_factor / self.num_experts))
         return max(cap, 1)
 
-    def forward(self, x):
-        """x: (B, S, d) → (out (B, S, d), aux loss: an f32 scalar)."""
+    def forward(self, x, tp=None):
+        """x: (B, S, d) → (out (B, S, d), aux loss: an f32 scalar).
+        ``tp`` runs the experts expert-parallel over its model axis."""
         b, s, d = x.shape
         g_tot = b * s
         xf = x.reshape(g_tot, d)
@@ -100,18 +106,20 @@ class MoELayer(nn.Module):
         xp = F.pad(xf, (0, 0, 0, ng * gs - g_tot))
         valid = (torch.arange(ng * gs, device=x.device) < g_tot).reshape(ng, gs)
         outs, auxs, counts = self._route_groups(
-            xp.reshape(ng, gs, d), valid, self._capacity(gs)
+            xp.reshape(ng, gs, d), valid, self._capacity(gs), tp
         )
         out = outs.reshape(ng * gs, d)[:g_tot]
         # each group's aux weighted by its real token count
         aux = torch.sum(auxs * counts) / torch.clamp(torch.sum(counts), min=1.0)
         return out.reshape(b, s, d), aux
 
-    def _route_groups(self, xf, valid, c: int):
+    def _route_groups(self, xf, valid, c: int, tp=None):
         """Route every group at once. xf: (G, gs, d); valid: (G, gs) bool
         marks real tokens (padding claims no capacity and emits zero).
         Returns (out (G, gs, d), aux (G,), real count (G,))."""
         combine, dispatch, aux, counts = self.dispatch_weights(xf, valid, c)
+        if tp is not None:
+            return self.experts_parallel(xf, combine, dispatch, tp), aux, counts
         return self.experts(xf, combine, dispatch), aux, counts
 
     def dispatch_weights(self, xf, valid, c: int):
@@ -157,13 +165,32 @@ class MoELayer(nn.Module):
         dispatch = (combine > 0.0).to(xf.dtype)
         return combine, dispatch, aux, torch.sum(vmask, dim=(1, 2))
 
-    def experts(self, xf, combine, dispatch):
+    def experts(self, xf, combine, dispatch, w1=None, w2=None):
         """Dispatch → the expert products → combine, in x's dtype:
-        (G, gs, d) → (G, gs, d)."""
+        (G, gs, d) → (G, gs, d). ``w1`` and ``w2`` default to every expert's;
+        ``combine`` and ``dispatch`` cover the same experts."""
         dt = xf.dtype
+        w1 = self.w1 if w1 is None else w1
+        w2 = self.w2 if w2 is None else w2
         expert_in = torch.einsum("tgec,tgd->tecd", dispatch, xf)  # (G, E, C, d)
         h = F.gelu(
-            torch.einsum("tecd,edf->tecf", expert_in, self.w1.to(dt)), approximate="tanh"
+            torch.einsum("tecd,edf->tecf", expert_in, w1.to(dt)), approximate="tanh"
         )
-        expert_out = torch.einsum("tecf,efd->tecd", h, self.w2.to(dt))
+        expert_out = torch.einsum("tecf,efd->tecd", h, w2.to(dt))
         return torch.einsum("tgec,tecd->tgd", combine.to(dt), expert_out)
+
+    def experts_parallel(self, xf, combine, dispatch, tp):
+        """:meth:`experts` with the experts split over ``tp``'s model axis:
+        each position takes the tokens, the combine weights and the dispatch
+        of its E/n experts, and the partial combines add up over the
+        axis."""
+        comm = tp.comm
+        e_local = self.num_experts // tp.n
+        parts = []
+        for pos, x, cw in zip(comm.positions, comm.enter(xf), comm.enter(combine)):
+            sl = slice(pos * e_local, (pos + 1) * e_local)
+            parts.append(self.experts(
+                x, cw[:, :, sl], dispatch[:, :, sl].to(x.device),
+                tp.part(self.w1, 0, pos, x.device), tp.part(self.w2, 0, pos, x.device),
+            ))
+        return comm.psum(parts, device=xf.device)

@@ -1,5 +1,7 @@
-"""Device meshes for the sequence-parallel paths, the data-parallel
-placement helpers and the multi-process layer (:mod:`.multihost`)."""
+"""Device meshes, the data-parallel placement helpers, the multi-process
+layer (:mod:`.multihost`), the collectives of tensor and sequence
+parallelism (:mod:`.collectives`) and GPipe pipeline parallelism
+(:mod:`.pipeline_parallel`)."""
 
 from keystone_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -10,6 +12,7 @@ from keystone_tpu_torch.parallel.mesh import (
     data_axis_size,
     data_sharding,
     data_sharding_fn,
+    model_sharding,
     pad_batch,
     replicated_sharding,
     shard_batch,
@@ -17,6 +20,7 @@ from keystone_tpu_torch.parallel.mesh import (
     use_mesh,
 )
 from keystone_tpu_torch.parallel.multihost import GlobalRows, global_batch_from_local
+from keystone_tpu_torch.parallel.pipeline_parallel import gpipe
 
 __all__ = [
     "GlobalRows",
@@ -29,6 +33,8 @@ __all__ = [
     "data_sharding",
     "data_sharding_fn",
     "global_batch_from_local",
+    "gpipe",
+    "model_sharding",
     "pad_batch",
     "replicated_sharding",
     "shard_batch",

@@ -1,20 +1,27 @@
 """Device mesh — port of ``keystone_tpu/parallel/mesh.py``.
 
 The JAX package is single-controller within a process: one process drives
-every device of its mesh. A :class:`Mesh` here is a (data, model) grid of
-``torch.device``s in one of two layouts:
+every device of its mesh. A :class:`Mesh` here is a grid of
+``torch.device``s over named axes — ("data", "model") by default, or any
+names, as the reference's 3-axis ``("pipe", "data", "model")`` — in one of
+two layouts:
 
 - **one process.** Every position is driven by this process. Ring and
-  Ulysses attention move shards between the positions along one axis with
-  ``tensor.to(device)`` — a peer copy between two cards, and no copy at
-  all when two positions name the same device. A batch is placed whole on
-  the data axis's first device: all its rows sit on one card.
+  Ulysses attention, the tensor-parallel block and the pipeline move
+  values between the positions along one axis with ``tensor.to(device)``
+  — a peer copy between two cards, and no copy at all when two positions
+  name the same device. A batch is placed whole on the data axis's first
+  device: all its rows sit on one card.
 - **across processes.** After :func:`keystone_tpu_torch.parallel.multihost.initialize`,
-  :func:`create_mesh` gives a data axis with one position per process,
-  each naming that process's card (``ranks`` holds the rank of each
-  position). :func:`shard_batch` then gives this process its row block of
-  the padded global batch, on its own card, as a
-  :class:`~keystone_tpu_torch.parallel.multihost.GlobalRows`.
+  :func:`create_mesh` gives a (data, model) grid with one position per
+  process, each naming that process's card (``ranks`` holds the rank at
+  each position): rank ``r`` sits at ``(r // model, r % model)``, with the
+  ranks of one host kept together so the model axis stays within a host
+  (the reference's hybrid mesh keeps DCN on the data axis only). Every
+  rank builds one process group per axis and position of the other axes,
+  all in the same order (:meth:`Mesh.axis_group`). :func:`shard_batch`
+  gives this process its row block of the padded global batch, on its own
+  card, as a :class:`~keystone_tpu_torch.parallel.multihost.GlobalRows`.
 
 A device may appear more than once in a one-process mesh. That is the
 counterpart of the JAX package's forced host devices (its tests run an
@@ -42,38 +49,154 @@ MODEL_AXIS = "model"
 _state = threading.local()
 
 
+def _nested(grid, fn) -> tuple:
+    """``grid`` (nested sequences or a numpy array) as nested tuples of
+    ``fn(leaf)``."""
+    if isinstance(grid, np.ndarray):
+        grid = grid.tolist()
+    if isinstance(grid, (list, tuple)):
+        return tuple(_nested(g, fn) for g in grid)
+    return fn(grid)
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A (data, model) grid of devices. ``devices[i][j]`` is the device at
-    data index i, model index j; ``shape`` maps each axis name to its size,
-    as ``jax.sharding.Mesh.shape`` does."""
+    """A grid of devices over named axes. ``devices`` nests one level per
+    axis (``devices[i][j]`` is the device at data index i, model index j of
+    the default mesh); ``shape`` maps each axis name to its size, as
+    ``jax.sharding.Mesh.shape`` does. ``devices`` may be given as nested
+    lists or a numpy array of devices or device strings."""
 
-    devices: tuple  # tuple of tuples of torch.device
+    devices: tuple  # nested tuples of torch.device, one level per axis
     axis_names: tuple = (DATA_AXIS, MODEL_AXIS)
-    # the process rank at each data position when the data axis spans
-    # processes; None for a mesh this process drives alone
+    # the process rank at each position (nested like ``devices``) when the
+    # mesh spans processes; None for a mesh this process drives alone
     ranks: tuple | None = None
+    # axis name -> the process group of this rank's line along it
+    _groups: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "devices", _nested(self.devices, torch.device))
+        object.__setattr__(self, "axis_names", tuple(self.axis_names))
+        if self.ranks is not None:
+            object.__setattr__(self, "ranks", _nested(self.ranks, int))
+        if self.grid.ndim != len(self.axis_names):
+            raise ValueError(f"a device grid of {self.grid.ndim} dims for axes {self.axis_names}")
+
+    @property
+    def grid(self) -> np.ndarray:
+        """The devices as a numpy object array, one dim per axis."""
+        return _grid(self.devices, len(self.axis_names))
+
+    @property
+    def rank_grid(self) -> np.ndarray | None:
+        return None if self.ranks is None else _grid(self.ranks, len(self.axis_names))
 
     @property
     def spans_processes(self) -> bool:
-        return self.ranks is not None and len(self.ranks) > 1
+        return self.ranks is not None and self.rank_grid.size > 1
 
     @property
     def shape(self) -> dict:
-        return {
-            self.axis_names[0]: len(self.devices),
-            self.axis_names[1]: len(self.devices[0]),
-        }
+        return dict(zip(self.axis_names, self.grid.shape))
+
+    def _axis(self, axis: str) -> int:
+        if axis not in self.axis_names:
+            raise ValueError(f"mesh has no axis {axis!r}; axes are {self.axis_names}")
+        return self.axis_names.index(axis)
 
     def axis_devices(self, axis: str) -> list:
-        """The devices along ``axis`` at index 0 of the other axis — the
+        """The devices along ``axis`` at index 0 of the other axes — the
         positions a sequence-parallel body runs on (``shard_map``
-        replicates over the other axis)."""
-        if axis == self.axis_names[0]:
-            return [row[0] for row in self.devices]
-        if axis == self.axis_names[1]:
-            return list(self.devices[0])
-        raise ValueError(f"mesh has no axis {axis!r}; axes are {self.axis_names}")
+        replicates over the other axes)."""
+        a = self._axis(axis)
+        index = [0] * len(self.axis_names)
+        index[a] = slice(None)
+        return list(self.grid[tuple(index)])
+
+    def coords(self, rank: int | None = None) -> dict:
+        """``{axis: index}`` of the position process ``rank`` (default:
+        this one) holds on a mesh across processes."""
+        from keystone_tpu_torch.parallel import multihost
+
+        rank = multihost.process_index() if rank is None else rank
+        where = np.argwhere(self.rank_grid == rank)
+        if len(where) != 1:
+            raise ValueError(f"rank {rank} holds {len(where)} positions of {self.ranks}")
+        return dict(zip(self.axis_names, (int(i) for i in where[0])))
+
+    def axis_group(self, axis: str):
+        """The :class:`~keystone_tpu_torch.parallel.collectives.AxisGroup` of
+        this process's line along ``axis`` on a mesh across processes (its
+        ranks in axis order and this rank's index there), or None when the
+        axis has one position. Built for every axis when the mesh is."""
+        self._axis(axis)
+        return self._groups.get(axis)
+
+
+def _grid(nested, ndim: int) -> np.ndarray:
+    """Nested tuples as an object array of up to ``ndim`` dims."""
+    shape = []
+    level = nested
+    while len(shape) < ndim and isinstance(level, tuple):
+        shape.append(len(level))
+        level = level[0]
+    out = np.empty(shape, dtype=object)
+    for index in np.ndindex(*shape):
+        v = nested
+        for i in index:
+            v = v[i]
+        out[index] = v
+    return out
+
+
+def build_groups(mesh: Mesh) -> Mesh:
+    """Make ``mesh``'s process groups: one per axis and position of the
+    other axes, every rank creating every group in the same order
+    (``torch.distributed.new_group`` requires it). A line of all ranks in
+    rank order is the default group; an axis of one position gets none."""
+    from keystone_tpu_torch.parallel import multihost
+    from keystone_tpu_torch.parallel.collectives import AxisGroup
+
+    ranks = mesh.rank_grid
+    me = multihost.process_index()
+    world = multihost.process_count()
+    for a, axis in enumerate(mesh.axis_names):
+        if ranks.shape[a] == 1:
+            continue
+        moved = np.moveaxis(ranks, a, -1).reshape(-1, ranks.shape[a])
+        for line in moved:
+            members = tuple(int(r) for r in line)
+            if members == tuple(range(world)):
+                pg = None
+            else:
+                import torch.distributed as dist
+
+                pg = dist.new_group(list(members))
+            if me in members:
+                mesh._groups[axis] = AxisGroup(pg, members, members.index(me))
+    return mesh
+
+
+def host_groups(hosts: Sequence[str]) -> dict:
+    """The ranks of each host, hosts in order of first appearance — the
+    counterpart of the reference's ``_slice_groups`` (its DCN slices are
+    the port's hosts)."""
+    groups: dict = {}
+    for rank, host in enumerate(hosts):
+        groups.setdefault(host, []).append(rank)
+    return groups
+
+
+def mesh_order(hosts: Sequence[str], model: int) -> list:
+    """The ranks in the order :func:`create_mesh` lays them on a (data,
+    model) grid: host by host when every host holds a whole number of
+    model lines (so each model line stays within a host and only the data
+    axis crosses hosts), else rank order."""
+    groups = host_groups(hosts)
+    if len(groups) > 1 and all(len(g) % model == 0 for g in groups.values()):
+        return [r for g in groups.values() for r in g]
+    return list(range(len(hosts)))
 
 
 def create_mesh(
@@ -88,22 +211,29 @@ def create_mesh(
     device several times (see the module docstring).
 
     In a process group of several processes and without ``devices``, the
-    data axis spans the processes: one position per rank, each naming
-    that rank's card. A model axis across processes is ROADMAP A6 part 2."""
+    mesh spans the processes, one position per rank, each naming that
+    rank's card: rank ``r`` at ``(r // model, r % model)`` of the order
+    :func:`mesh_order` gives, and one process group per axis line."""
     from keystone_tpu_torch.parallel import multihost
 
+    if model < 1:
+        raise ValueError(f"model axis size must be >= 1, got {model}")
     if devices is None and multihost.process_count() > 1:
         world = multihost.process_count()
-        if model != 1:
-            raise NotImplementedError(
-                f"create_mesh(model={model}) across processes: a model axis over "
-                "processes is tensor parallelism (ROADMAP A6 part 2)"
+        if data is None:
+            if world % model:
+                raise ValueError(f"{world} processes not divisible by model={model}")
+            data = world // model
+        if data * model != world:
+            raise ValueError(
+                f"a mesh across {world} processes has data x model = {world}, "
+                f"got {data}x{model}"
             )
-        if data not in (None, world):
-            raise ValueError(f"a mesh across {world} processes has data={world}, got {data}")
-        return Mesh(
-            tuple((d,) for d in multihost.group_devices()), ranks=tuple(range(world))
-        )
+        order = mesh_order(multihost.group_hosts(), model)
+        devs = multihost.group_devices()
+        ranks = tuple(tuple(order[i * model + j] for j in range(model)) for i in range(data))
+        grid = tuple(tuple(devs[r] for r in row) for row in ranks)
+        return build_groups(Mesh(grid, ranks=ranks))
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -112,8 +242,6 @@ def create_mesh(
             )
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     devs = [torch.device(d) for d in devices]
-    if model < 1:
-        raise ValueError(f"model axis size must be >= 1, got {model}")
     if data is None:
         if len(devs) % model:
             raise ValueError(f"{len(devs)} devices not divisible by model={model}")
@@ -156,16 +284,28 @@ def data_sharding(mesh: Mesh | None = None, ndim: int = 2) -> torch.device | Non
     if mesh is None:
         return None
     if mesh.spans_processes:
-        return mesh.devices[local_position(mesh)][0]
+        from keystone_tpu_torch.parallel import multihost
+
+        return multihost.local_device()
     return mesh.axis_devices(mesh.axis_names[0])[0]
 
 
 def local_position(mesh: Mesh) -> int:
     """This process's position on the data axis of a mesh across
     processes."""
-    from keystone_tpu_torch.parallel import multihost
+    return mesh.coords().get(DATA_AXIS, 0)
 
-    return mesh.ranks.index(multihost.process_index())
+
+def model_sharding(mesh: Mesh | None = None, ndim: int = 2) -> tuple | None:
+    """The layout of a weight or feature-block matrix whose last axis is
+    split over "model": a partition spec, one entry per dim (the axis name
+    or None), as the reference's ``P(None, ..., "model")``; None without a
+    mesh. :func:`keystone_tpu_torch.models.lm.sharding.shard_params` lays
+    the LM's weights out by such specs."""
+    mesh = mesh or current_mesh()
+    if mesh is None:
+        return None
+    return (None,) * (ndim - 1) + (MODEL_AXIS,)
 
 
 def local_block(x, mesh: Mesh) -> tuple:
@@ -174,6 +314,17 @@ def local_block(x, mesh: Mesh) -> tuple:
     lo)``, ``lo`` the global index of its first row."""
     from keystone_tpu_torch.parallel import multihost
 
+    others = {a: n for a, n in mesh.shape.items() if a != DATA_AXIS and n > 1}
+    if others:
+        # the fits and the evaluator merge every process's rows over the
+        # whole group: two processes of one data row would count its rows
+        # twice
+        raise NotImplementedError(
+            f"row blocks over a mesh across processes with axes {others} beside "
+            "'data': the fits take one process a data position (create_mesh() with "
+            "model=1); a model axis across processes is the LM's tensor parallelism "
+            "(shard_params, train)"
+        )
     n_data = data_axis_size(mesh)
     placed, _ = pad_batch(x, n_data)
     lo, hi = multihost.row_block(int(placed.shape[0]), local_position(mesh), n_data)

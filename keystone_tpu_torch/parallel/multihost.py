@@ -61,15 +61,16 @@ _ENV_NUM_PROCESSES = "KEYSTONE_NUM_PROCESSES"
 @dataclasses.dataclass
 class _Group:
     """This process's membership: its rank, the world, the backend, its
-    device, every rank's device in rank order, and the store client the
-    key-value exchanges and barriers use (``server`` is the store itself
-    when this process hosts it)."""
+    device, every rank's device and host name in rank order, and the store
+    client the key-value exchanges and barriers use (``server`` is the
+    store itself when this process hosts it)."""
 
     rank: int
     world: int
     backend: str
     device: torch.device
     devices: tuple
+    hosts: tuple
     store: Any
     prefix: str
     server: Any = None
@@ -162,7 +163,7 @@ def initialize(
         raise _init_error(coordinator_address, init_timeout_s, process_id, num_processes, e) from e
     restart = os.environ.get(cluster.ENV_RESTART, "0") or "0"
     prefix = f"keystone/pg/{restart}/"
-    devices = _exchange_devices(
+    devices, hosts = _exchange_devices(
         store, prefix, device, backend, process_id, num_processes, init_timeout_s
     )
     if device.type == "cuda":
@@ -183,6 +184,7 @@ def initialize(
         backend=backend,
         device=device,
         devices=devices,
+        hosts=hosts,
         store=store,
         prefix=prefix,
         server=server,
@@ -243,10 +245,11 @@ def _card_identity(device: torch.device) -> str:
 
 
 def _exchange_devices(store, prefix, device, backend, rank, world, timeout_s) -> tuple:
-    """Every rank's device, in rank order, traded over the store; under
-    NCCL, raises when two ranks hold one card."""
+    """Every rank's device and host name, in rank order, traded over the
+    store; under NCCL, raises when two ranks hold one card."""
     key = f"{prefix}device/"
-    store.set(f"{key}{rank}", json.dumps({"device": str(device), "card": _card_identity(device)}))
+    store.set(f"{key}{rank}", json.dumps({"device": str(device), "card": _card_identity(device),
+                                          "host": socket.gethostname()}))
     keys = [f"{key}{r}" for r in range(world)]
     store.wait(keys, datetime.timedelta(seconds=max(timeout_s, 1.0)))
     infos = [json.loads(store.get(k)) for k in keys]
@@ -261,7 +264,8 @@ def _exchange_devices(store, prefix, device, backend, rank, world, timeout_s) ->
                     "or give each rank a card of its own."
                 )
             seen[info["card"]] = r
-    return tuple(torch.device(info["device"]) for info in infos)
+    return (tuple(torch.device(info["device"]) for info in infos),
+            tuple(info["host"] for info in infos))
 
 
 def _answers(addr: str) -> bool:
@@ -356,6 +360,11 @@ def local_device() -> torch.device | None:
 def group_devices() -> tuple:
     """Every rank's device in rank order (empty outside a group)."""
     return _group.devices if _group is not None else ()
+
+
+def group_hosts() -> tuple:
+    """Every rank's host name in rank order (empty outside a group)."""
+    return _group.hosts if _group is not None else ()
 
 
 def _require_group() -> _Group:

@@ -472,10 +472,10 @@ def fit_stream(plan: Plan, data: Any, labels: Any, *, n_valid=None, init_state=N
     n_ok = int(n_valid) if n_valid is not None else n
     if plan.shard:
         from keystone_tpu_torch.parallel import multihost
-        from keystone_tpu_torch.parallel.mesh import local_position
+        from keystone_tpu_torch.parallel.mesh import data_axis_size, local_position
 
         rank = local_position(plan.mesh)
-        lo, hi = multihost.row_block(n, rank, len(plan.mesh.ranks))
+        lo, hi = multihost.row_block(n, rank, data_axis_size(plan.mesh))
         lo, hi = min(lo, n), min(hi, n)
         data, labels, n, n_ok = data[lo:hi], labels[lo:hi], hi - lo, max(0, min(n_ok - lo, hi - lo))
         if init_state is not None and rank != 0:

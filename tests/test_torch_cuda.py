@@ -1920,3 +1920,121 @@ def test_two_process_gloo_fit_on_card_launches_k1_per_rank(card, tmp_path, monke
     one = mnist_random_fft.main(list(_MH_ARGV))
     agree = float(np.mean(np.asarray(recs[0]["pred"]) == one["test_predictions"]))
     assert agree >= 0.995, agree
+
+
+# -- tensor, pipeline and sequence parallelism on the card
+
+
+def _card_lm(card, depth=2, **kw):
+    from keystone_tpu_torch.models.lm import TransformerLM
+
+    return TransformerLM.create(vocab=1024, max_seq=256, dim=256, depth=depth, num_heads=8,
+                                device=card, generator=torch.Generator(device=card).manual_seed(0),
+                                **kw)
+
+
+def _leaf_grads(model, loss):
+    params = model.leaves()
+    for p in params:
+        p.requires_grad_(True)
+    grads = torch.autograd.grad(loss(model), params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+
+
+def test_tp_step_on_card_named_four_times_matches_unsharded(card):
+    """A tensor-parallel f32 model over a model axis naming the card four
+    times: K2 once a block a position at (B, H/4, S, D), and the loss and
+    every leaf's gradient within 1e-5 of the unsharded model's."""
+    from keystone_tpu_torch.models.lm import next_token_loss, shard_params
+    from keystone_tpu_torch.ops import flash_attention as fa
+    from keystone_tpu_torch.parallel import create_mesh
+
+    toks = torch.randint(0, 1024, (4, 257), device=card,
+                         generator=torch.Generator(device=card).manual_seed(1))
+    plain = _card_lm(card)
+    want_loss = next_token_loss(plain, toks)
+    want = _leaf_grads(plain, lambda m: next_token_loss(m, toks))
+    tp = shard_params(_card_lm(card), create_mesh(data=1, model=4, devices=[card] * 4))
+    assert tp.tp.attn and tp.tp.ffn and tp.tp.vocab
+    before = fa.FLASH_ATTENTION.launches
+    loss = next_token_loss(tp, toks)
+    torch.cuda.synchronize()
+    assert fa.FLASH_ATTENTION.launches - before == 2 * 4
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    for g, w in zip(_leaf_grads(tp, lambda m: next_token_loss(m, toks)), want):
+        assert float((g - w).abs().max()) <= 1e-5 * max(float(w.abs().max()), 1e-30)
+
+
+def test_gpipe_on_card_named_four_times_matches_local(card):
+    """The LM's GPipe forward over four stages naming the card four
+    times: K2 once a block a microbatch, logits within 1e-5 of max|logit|
+    of the plain forward."""
+    from keystone_tpu_torch.models.lm import pp_forward
+    from keystone_tpu_torch.ops import flash_attention as fa
+    from keystone_tpu_torch.parallel import create_mesh
+
+    model = _card_lm(card, depth=4)
+    toks = torch.randint(0, 1024, (8, 256), device=card,
+                         generator=torch.Generator(device=card).manual_seed(2))
+    with torch.no_grad():
+        want = model(toks)
+        before = fa.FLASH_ATTENTION.launches
+        got = pp_forward(model, toks, create_mesh(data=1, model=4, devices=[card] * 4), n_micro=4)
+        torch.cuda.synchronize()
+    assert fa.FLASH_ATTENTION.launches - before == 4 * 4
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+_SP_SCRIPT = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from keystone_tpu_torch.ops import attention, flash_attention as fa
+from keystone_tpu_torch.parallel import create_mesh, multihost
+
+rank, port, out = int(sys.argv[2]), sys.argv[3], sys.argv[4]
+device = multihost.initialize(f"127.0.0.1:{port}", 2, rank, init_timeout_s=60, backend="gloo",
+                              device="cuda:0")
+gen = torch.Generator(device=device).manual_seed(0)
+q, k, v = (torch.randn((2, 4, 1024, 64), generator=gen, device=device) for _ in range(3))
+before = fa.FLASH_ATTENTION_STEP.launches
+ring = attention.ring_attention(q, k, v, create_mesh(), causal=True)
+torch.cuda.synchronize()
+k3 = fa.FLASH_ATTENTION_STEP.launches - before
+full = fa.flash_attention(q, k, v, causal=True)
+err = float((ring - full).abs().max() / full.abs().max())
+with open(f"{out}/rank{rank}.json", "w") as f:
+    json.dump({"k3": k3, "err": err}, f)
+multihost.shutdown()
+"""
+
+
+def test_two_process_gloo_ring_on_card_counts_k3(card, tmp_path):
+    """Two processes on card 0 over gloo run the causal ring across the
+    process boundary: K3 once a live hop on each rank (rank r: r + 1), the
+    output within 1e-5 of max|out| of full-sequence K2."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = str(Path(__file__).resolve().parent.parent)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("KEYSTONE_")}
+    procs = [subprocess.Popen([sys.executable, "-c", _SP_SCRIPT, root, str(r), str(port),
+                               str(tmp_path)], env=env, text=True, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        outs = [(p.communicate(timeout=240)[0], p.returncode) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for out, rc in outs:
+        assert rc == 0, out
+    for r in range(2):
+        rec = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert rec["k3"] == r + 1 and rec["err"] <= 1e-5, rec

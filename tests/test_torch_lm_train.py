@@ -341,11 +341,12 @@ def test_step_batch_and_flops_match_jax():
 
 
 def test_unported_train_options_raise(monkeypatch, tmp_path):
-    """None of train's options outside the port is ignored: each raises
-    and names the ROADMAP step that brings it (tensor parallelism, A6 part
-    2). ``checkpoint_dir`` is ported (tests/test_torch_lm_resume.py holds
-    the resume), and so are the guard, the step watchdog and data
-    parallelism across processes."""
+    """None of train's options is ignored. ``checkpoint_dir`` is ported
+    (tests/test_torch_lm_resume.py holds the resume), and so are the
+    guard, the step watchdog, data parallelism across processes and tensor
+    parallelism: a model sharded over a model axis trains as the whole
+    model does (tests/test_torch_tensor_parallel.py holds it against the
+    JAX package's sharded train)."""
     pm = port_of(_tiny())
     corpus = lm.synthetic_corpus(500, VOCAB)
     kw = dict(steps=1, batch=4, seq=SEQ)
@@ -371,8 +372,10 @@ def test_unported_train_options_raise(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="multihost.initialize"):
         train(pm, corpus, **kw)
     monkeypatch.delenv("KEYSTONE_NUM_PROCESSES")
-    with pytest.raises(NotImplementedError, match="A6 part 2"):
-        lm.shard_params(pm, create_mesh(data=1, model=2, devices=["cpu"] * 2))
+    sharded = lm.shard_params(port_of(_tiny()), create_mesh(data=1, model=2, devices=["cpu"] * 2))
+    assert sharded.tp is not None and sharded.tp.attn and sharded.tp.ffn
+    _, tp_losses = train(sharded, corpus, **kw)
+    np.testing.assert_allclose(tp_losses, alone, rtol=LOSS_RTOL)
     assert lm.shard_params(pm, create_mesh(data=2, devices=["cpu"] * 2)) is pm
     # --moe-every trains a MoE model with the JAX package's parameter count
     moe_argv = ["--moe-every", "2", "--num-experts", "4", "--steps", "2", "--batch", "2",

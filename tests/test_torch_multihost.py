@@ -1,5 +1,6 @@
 """keystone_tpu_torch's multi-process layer against the JAX package's,
-over gloo on the CPU.
+over gloo on the CPU: data parallelism, and tensor, pipeline and sequence
+parallelism across processes.
 
 Two processes of the port form a ``torch.distributed`` group through
 ``parallel.multihost.initialize``, each holding its half of the rows, and
@@ -10,10 +11,23 @@ flagship train step and ``train`` (losses within 1e-5, weights within
 fit-state merge (1e-6 relative), ``assemble_global``, the metrics roll-up
 and ``merge_metric_dumps`` (exact).
 
+Four processes (``tp``) hold dp × tp on a (2, 2) mesh and TP on (1, 4)
+against the JAX package's unsharded ``build_tp()`` run
+(``tests/test_multihost.py:182``: losses 1e-5, ``wq`` and ``embed``
+5e-5), the dp × pp forward against the plain chain (2e-4), a dp × pp train
+step against the local step (loss 1e-5, weights 5e-4,
+``tests/test_lm_transformer.py:449``) and a TP model's perplexity. Two
+processes (``sp``) hold ring and Ulysses attention, causal and not,
+against dense attention (2e-4, ``tests/test_multihost.py:102``), ring and
+Ulysses train steps against the JAX local step (as ``:182``), their
+perplexity, and a TP run stopped after two checkpointed steps and resumed
+to four against the JAX package's four (5e-5).
+
 The worker is this file: ``python test_torch_multihost.py <mode> <rank>
 <world> <port> <out>`` imports only torch and the port. The JAX reference
-runs in the test process. Each spawned pair has its own time limit, after
-which every child is killed and the test fails.
+runs in the test process. Each spawned group has its own time limit, after
+which every child is killed and the test fails. One group a mode runs
+every layout: spawning the processes is the cost.
 """
 
 import json
@@ -36,6 +50,10 @@ MNIST_ARGV = ["--synthetic", "600", "--num-ffts", "2", "--block-size", "512"]
 # are the same
 MNIST_FIT_CHUNK = 150
 MERGE_ROWS = (40, 25)
+TP_PROCS = 4
+# held-out scoring (tests/test_torch_perplexity.py's shape, the LM's vocab)
+EVAL_SEQ, EVAL_BATCH, EVAL_CHUNK = 32, 2, 16
+ATTN_SHAPE = (2, 4, 128, 16)
 
 
 def _fit_data():
@@ -171,10 +189,10 @@ def _finalized():
     return ctx()
 
 
-def _lm_model(out: Path):
+def _lm_model(out: Path, name: str = "lm_in.npz", **kw):
     from keystone_tpu_torch import convert
 
-    z = np.load(out / "lm_in.npz")
+    z = np.load(out / name)
     meta = json.loads(str(z["meta"]))
     leaves = {
         "embed": z["embed"],
@@ -184,7 +202,169 @@ def _lm_model(out: Path):
             for i in range(meta["depth"])
         ],
     }
-    return convert.transformer_lm(leaves, num_heads=meta["num_heads"], device="cpu")
+    return convert.transformer_lm(leaves, num_heads=meta["num_heads"], device="cpu", **kw)
+
+
+def _held_out():
+    from keystone_tpu_torch.models.lm.train import synthetic_corpus
+
+    return synthetic_corpus(5 * (EVAL_SEQ + 1), LM_VOCAB, seed=7)
+
+
+def _replicas_equal(tensors) -> bool:
+    """True when ``tensors`` hash the same on every rank."""
+    import hashlib
+
+    import torch
+
+    from keystone_tpu_torch.parallel import multihost
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    mine = torch.tensor([int.from_bytes(h.digest()[:7], "little")], dtype=torch.int64)
+    return all(torch.equal(mine, o) for o in multihost.all_gather(mine))
+
+
+def _lm_steps(model, step, state, rows=slice(None), steps: int = LM_STEPS) -> tuple:
+    import torch
+
+    from keystone_tpu_torch.models.lm.train import _step_batch, synthetic_corpus
+
+    corpus = synthetic_corpus(20_000, LM_VOCAB, seed=0)
+    losses = []
+    for i in range(steps):
+        toks = np.ascontiguousarray(_step_batch(corpus, 0, i, LM_BATCH, LM_SEQ)[rows])
+        model, state, loss = step(model, state, torch.from_numpy(toks))
+        losses.append(float(loss))
+    return model, losses
+
+
+def _w_tp(rank, world, out: Path) -> None:
+    """Four processes: dp × tp on (2, 2) and TP on (1, 4), three steps
+    each; the dp × pp forward and one dp × pp train step on (2, 2); a TP
+    model's perplexity; every replica's hash and the gather of the
+    shards."""
+    import torch
+
+    from keystone_tpu_torch.evaluation import evaluate_perplexity
+    from keystone_tpu_torch.models.lm import (
+        make_optimizer,
+        make_pp_train_step,
+        make_train_step,
+        pp_forward,
+        shard_params,
+        unshard_params,
+    )
+    from keystone_tpu_torch.models.lm.sharding import gather_leaf, leaf_dims, local_leaf
+    from keystone_tpu_torch.models.lm.train import _step_batch, synthetic_corpus
+    from keystone_tpu_torch.parallel import create_mesh, multihost, shard_batch
+
+    res: dict = {}
+    for tag, (n_data, n_model) in (("dptp", (2, 2)), ("tp4", (1, 4))):
+        mesh = create_mesh(data=n_data, model=n_model)
+        coords = mesh.coords()
+        try:
+            shard_batch(np.zeros((8, 2), np.float32), mesh)
+            res[f"{tag}_rows_refused"] = False
+        except NotImplementedError:
+            res[f"{tag}_rows_refused"] = True
+        res[f"{tag}_coords"] = np.array([coords["data"], coords["model"]])
+        model = shard_params(_lm_model(out, "lm_tp_in.npz"), mesh)
+        dims = leaf_dims(model)
+        res[f"{tag}_roundtrip"] = all(
+            torch.equal(local_leaf(model, gather_leaf(model, w, d), d), w)
+            for w, d in zip(model.leaves(), dims))
+        optimizer = make_optimizer(LM_LR, weight_decay=1e-4)
+        step = make_train_step(optimizer, data_parallel=n_data > 1)
+        rows = slice(*multihost.row_block(LM_BATCH, coords["data"], n_data))
+        model, losses = _lm_steps(model, step, optimizer.init(model.leaves()), rows)
+        whole = unshard_params(model)
+        res[f"{tag}_losses"] = np.asarray(losses)
+        res[f"{tag}_wq"] = whole.blocks[0].wq.detach().numpy()
+        res[f"{tag}_embed"] = whole.embed.detach().numpy()
+        res[f"{tag}_equal"] = _replicas_equal(whole.leaves())
+        if tag == "tp4":
+            fresh = shard_params(_lm_model(out, "lm_tp_in.npz"), mesh)
+            res["tp4_ppl"] = np.array([
+                evaluate_perplexity(fresh, _held_out(), seq=EVAL_SEQ, batch=EVAL_BATCH,
+                                    logit_chunk=chunk)["loss"] for chunk in (0, EVAL_CHUNK)])
+
+    mesh = create_mesh(data=2, model=2)
+    corpus = synthetic_corpus(20_000, LM_VOCAB, seed=0)
+    toks_pp = _step_batch(corpus, 0, 99, LM_BATCH, LM_SEQ)[:, :LM_SEQ]
+    with torch.no_grad():
+        res["pp"] = pp_forward(_lm_model(out, "lm_tp_in.npz"), torch.from_numpy(toks_pp), mesh,
+                               n_micro=2, axis="model", data_axis="data").numpy()
+    optimizer = make_optimizer(LM_LR, weight_decay=1e-4)
+    model = _lm_model(out, "lm_tp_in.npz")
+    step = make_pp_train_step(optimizer, mesh, n_micro=2, data_axis="data")
+    model, losses = _lm_steps(model, step, optimizer.init(model.leaves()), steps=1)
+    res["pp_step_loss"] = np.asarray(losses)
+    res["pp_step_leaves"] = np.concatenate([t.detach().reshape(-1).numpy()
+                                            for t in model.leaves()])
+    res["pp_step_equal"] = _replicas_equal(model.leaves())
+    _save(out, rank, res)
+
+
+def _w_sp(rank, world, out: Path, ckdir: str) -> None:
+    """Two processes: ring and Ulysses attention against dense; ring and
+    Ulysses train steps and perplexity on the whole batch; a TP run on
+    (1, 2) checkpointed and stopped after two steps, then resumed to
+    four."""
+    import torch
+
+    from keystone_tpu_torch.core.checkpoint import read_step
+    from keystone_tpu_torch.evaluation import evaluate_perplexity
+    from keystone_tpu_torch.models.lm import (
+        make_optimizer,
+        make_train_step,
+        shard_params,
+        train,
+        unshard_params,
+    )
+    from keystone_tpu_torch.models.lm.train import synthetic_corpus
+    from keystone_tpu_torch.ops.attention import ring_attention, ulysses_attention
+    from keystone_tpu_torch.parallel import create_mesh
+
+    res: dict = {}
+    mesh = create_mesh()
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.normal(size=ATTN_SHAPE).astype(np.float32))
+               for _ in range(3))
+    for causal in (False, True):
+        res[f"ring_causal{causal}"] = ring_attention(q, k, v, mesh, causal=causal).numpy()
+        res[f"ulysses_causal{causal}"] = ulysses_attention(q, k, v, mesh, causal=causal).numpy()
+
+    for mode in ("ring", "ulysses"):
+        model = _lm_model(out, seq_mode=mode, mesh=mesh)
+        res[f"{mode}_ppl"] = np.array([
+            evaluate_perplexity(model, _held_out(), seq=EVAL_SEQ, batch=EVAL_BATCH,
+                                logit_chunk=chunk)["loss"] for chunk in (0, EVAL_CHUNK)])
+        optimizer = make_optimizer(LM_LR, weight_decay=1e-4)
+        model, losses = _lm_steps(model, make_train_step(optimizer),
+                                  optimizer.init(model.leaves()))
+        res[f"{mode}_losses"] = np.asarray(losses)
+        res[f"{mode}_wq"] = model.blocks[0].wq.detach().numpy()
+        res[f"{mode}_embed"] = model.embed.detach().numpy()
+        res[f"{mode}_equal"] = _replicas_equal(model.leaves())
+
+    corpus = synthetic_corpus(20_000, LM_VOCAB, seed=0)
+    tp_mesh = create_mesh(data=1, model=2)
+    kw = dict(batch=LM_BATCH, seq=LM_SEQ, lr=LM_LR, seed=TRAIN_SEED, checkpoint_dir=ckdir,
+              checkpoint_every=1)
+    _, first = train(shard_params(_lm_model(out), tp_mesh), corpus, steps=2, mesh=tp_mesh, **kw)
+    model, rest = train(shard_params(_lm_model(out), tp_mesh), corpus, steps=4, mesh=tp_mesh,
+                        **kw)
+    whole = unshard_params(model)
+    saved, step = read_step(ckdir)
+    res["ckpt_losses"] = np.asarray(first + rest)
+    res["ckpt_wq"] = whole.blocks[0].wq.detach().numpy()
+    res["ckpt_embed"] = whole.embed.detach().numpy()
+    res["ckpt_step"] = step
+    res["ckpt_whole_bits"] = all(torch.equal(a, b) for a, b in zip(saved, whole.leaves()))
+    res["ckpt_equal"] = _replicas_equal(whole.leaves())
+    _save(out, rank, res)
 
 
 def _w_lm(rank, world, out: Path) -> None:
@@ -275,6 +455,10 @@ def _worker(argv: list) -> int:
             _w_lm(rank, world, out)
         elif mode == "ckpt":
             _w_ckpt(rank, world, out, argv[5], argv[6])
+        elif mode == "tp":
+            _w_tp(rank, world, out)
+        elif mode == "sp":
+            _w_sp(rank, world, out, argv[5])
         else:
             raise SystemExit(f"unknown mode {mode!r}")
     finally:
@@ -313,22 +497,23 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _spawn(mode: str, out: Path, port: int, *extra) -> None:
-    """Run one worker pair; every child is killed and the test fails when
-    the pair outlives ``PAIR_LIMIT_S``."""
+def _spawn(mode: str, out: Path, port: int, *extra, procs: int = 2) -> None:
+    """Run one worker group of ``procs`` processes; every child is killed
+    and the test fails when the group outlives ``PAIR_LIMIT_S``."""
     env = dict(os.environ)
     for key in _ENV_KEYS + ("KEYSTONE_PLAN", "KEYSTONE_GRAM_OP", "KEYSTONE_FAULTS",
                             "KEYSTONE_OBSERVE_DIR"):
         env.pop(key, None)
     root = str(Path(__file__).resolve().parent.parent)
     env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
-    env["OMP_NUM_THREADS"] = "2"
+    env["OMP_NUM_THREADS"] = "2" if procs <= 2 else "1"
     procs = [
         subprocess.Popen(
-            [sys.executable, __file__, mode, str(r), "2", str(port), str(out), *map(str, extra)],
+            [sys.executable, __file__, mode, str(r), str(procs), str(port), str(out),
+             *map(str, extra)],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-        for r in range(2)
+        for r in range(procs)
     ]
     deadline = time.monotonic() + PAIR_LIMIT_S
     logs = []
@@ -361,13 +546,13 @@ def _jax_lm():
     return build()
 
 
-def _write_lm_in(out: Path, jm) -> None:
+def _write_lm_in(out: Path, jm, name: str = "lm_in.npz") -> None:
     arrays = {"embed": np.asarray(jm.embed), "pos_embed": np.asarray(jm.pos_embed)}
     for i, blk in enumerate(jm.blocks):
         for n in ("wq", "wk", "wv", "wo", "w1", "w2"):
             arrays[f"b{i}_{n}"] = np.asarray(getattr(blk, n))
     meta = {"depth": len(jm.blocks), "num_heads": jm.num_heads}
-    np.savez(out / "lm_in.npz", meta=json.dumps(meta), **arrays)
+    np.savez(out / name, meta=json.dumps(meta), **arrays)
 
 
 def _jax_steps(steps: int):
@@ -381,6 +566,33 @@ def _jax_steps(steps: int):
         model, opt_state, loss = step(model, opt_state, jnp.asarray(step_batch(corpus, i)))
         losses.append(float(loss))
     return model, losses
+
+
+@pytest.fixture(scope="module")
+def tp_run(tmp_path_factory):
+    from _lm_worker_common import build_tp
+
+    out = tmp_path_factory.mktemp("mh_tp")
+    _write_lm_in(out, build_tp()[0], "lm_tp_in.npz")
+    _spawn("tp", out, _free_port(), procs=TP_PROCS)
+    return dict(np.load(out / "rank0.npz"))
+
+
+@pytest.fixture(scope="module")
+def sp_run(tmp_path_factory):
+    out = tmp_path_factory.mktemp("mh_sp")
+    _write_lm_in(out, _jax_lm()[0])
+    _spawn("sp", out, _free_port(), out / "tp_ck")
+    return dict(np.load(out / "rank0.npz"))
+
+
+def _jax_ppl(jm):
+    """The JAX package's perplexity of ``jm`` on the held-out stream, dense
+    CE and chunked."""
+    from keystone_tpu.evaluation.perplexity import evaluate_perplexity as j_eval
+
+    return [j_eval(jm, _held_out(), seq=EVAL_SEQ, batch=EVAL_BATCH, logit_chunk=c)["loss"]
+            for c in (0, EVAL_CHUNK)]
 
 
 @pytest.fixture(scope="module")
@@ -638,3 +850,116 @@ def test_multihost_flag_runs_a_pipeline_under_supervise(tmp_path):
     (merged,) = [json.loads(p.read_text()) for p in obs.glob("*/metrics_cluster.json")]
     assert merged["hosts"] == 2
     assert merged["metrics"]["cluster_events{action=monitor_start}"] == 2
+
+
+# -- tensor, pipeline and sequence parallelism across processes
+
+
+def test_four_process_tp_and_pp_across_processes(tp_run):
+    """dp × tp on (2, 2) and TP on (1, 4) across four processes against the
+    JAX package's one-process training on the same batches, and the dp × pp
+    forward against the plain block chain (``tests/test_multihost.py:182``).
+    Rank r sits at (r // model, r % model); every replica ends equal; the
+    fits' row blocks refuse a mesh with a model axis across processes."""
+    from _lm_worker_common import SEQ, build_tp, step_batch
+
+    model, optimizer, step, corpus = build_tp()
+    opt_state = optimizer.init(model)
+    losses = []
+    for i in range(LM_STEPS):
+        model, opt_state, loss = step(model, opt_state, jnp.asarray(step_batch(corpus, i)))
+        losses.append(float(loss))
+    for tag in ("dptp", "tp4"):
+        np.testing.assert_array_equal(tp_run[f"{tag}_coords"], [0, 0])
+        np.testing.assert_allclose(tp_run[f"{tag}_losses"], losses, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(tp_run[f"{tag}_wq"], np.asarray(model.blocks[0].wq), atol=5e-5)
+        np.testing.assert_allclose(tp_run[f"{tag}_embed"], np.asarray(model.embed), atol=5e-5)
+        assert bool(tp_run[f"{tag}_equal"]) and bool(tp_run[f"{tag}_roundtrip"]), tag
+        # the fits' row blocks take one process a data position
+        assert bool(tp_run[f"{tag}_rows_refused"]), tag
+    model2, _, _, _ = build_tp()
+    toks_pp = step_batch(corpus, 99)[:, :SEQ].astype(np.int32)
+    np.testing.assert_allclose(tp_run["pp"], np.asarray(model2(jnp.asarray(toks_pp))), atol=2e-4)
+
+
+def test_four_process_pp_train_step_matches_local(tp_run):
+    """One dp × pp train step across four processes (two stages, two data
+    rows, the reverse schedule over gloo) against the JAX package's local
+    step (``tests/test_lm_transformer.py:449``'s bars)."""
+    import jax
+
+    from _lm_worker_common import build_tp, step_batch
+
+    model, optimizer, step, corpus = build_tp()
+    model, _, loss = step(model, optimizer.init(model), jnp.asarray(step_batch(corpus, 0)))
+    np.testing.assert_allclose(tp_run["pp_step_loss"], [float(loss)], atol=1e-5)
+    want = np.concatenate([np.asarray(x).reshape(-1) for x in jax.tree_util.tree_leaves(model)])
+    np.testing.assert_allclose(tp_run["pp_step_leaves"], want, atol=5e-4)
+    assert bool(tp_run["pp_step_equal"])
+
+
+def test_four_process_tp_perplexity_matches_jax(tp_run):
+    """``evaluate_perplexity`` of a model sharded over four processes
+    (vocab-sharded CE, dense and chunked) against the JAX package's."""
+    from _lm_worker_common import build_tp
+
+    np.testing.assert_allclose(tp_run["tp4_ppl"], _jax_ppl(build_tp()[0]), rtol=1e-5)
+
+
+def test_two_process_ring_and_ulysses_match_dense(sp_run):
+    """Ring hops and Ulysses all_to_alls across two processes, causal and
+    not, against dense attention (``tests/test_multihost.py:102``)."""
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.normal(size=ATTN_SHAPE).astype(np.float32) for _ in range(3))
+
+    def dense(causal):
+        s = q.shape[2]
+        logits = np.einsum("bhqd,bhkd->bhqk", q, k) / np.sqrt(q.shape[-1])
+        if causal:
+            logits = np.where(np.tril(np.ones((s, s), bool)), logits, -np.inf)
+        w = np.exp(logits - logits.max(-1, keepdims=True))
+        w /= w.sum(-1, keepdims=True)
+        return np.einsum("bhqk,bhkd->bhqd", w, v)
+
+    for causal in (False, True):
+        want = dense(causal)
+        for name in ("ring", "ulysses"):
+            np.testing.assert_allclose(sp_run[f"{name}_causal{causal}"], want, atol=2e-4,
+                                       err_msg=f"{name} causal={causal}")
+
+
+@pytest.mark.parametrize("mode", ["ring", "ulysses"])
+def test_two_process_sequence_parallel_train_matches_jax(sp_run, mode):
+    """Three train steps of a ring or Ulysses model across two processes,
+    every rank on the whole batch, against the JAX package's local steps
+    (``tests/test_multihost.py:182``'s bars); the replicas stay equal with
+    no gradient all-reduce."""
+    model, losses = _jax_steps(LM_STEPS)
+    np.testing.assert_allclose(sp_run[f"{mode}_losses"], losses, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(sp_run[f"{mode}_wq"], np.asarray(model.blocks[0].wq), atol=5e-5)
+    np.testing.assert_allclose(sp_run[f"{mode}_embed"], np.asarray(model.embed), atol=5e-5)
+    assert bool(sp_run[f"{mode}_equal"])
+
+
+@pytest.mark.parametrize("mode", ["ring", "ulysses"])
+def test_two_process_sequence_parallel_perplexity(sp_run, mode):
+    """``evaluate_perplexity`` of a ring or Ulysses model across two
+    processes against the JAX package's local model."""
+    np.testing.assert_allclose(sp_run[f"{mode}_ppl"], _jax_ppl(_jax_lm()[0]), rtol=1e-5)
+
+
+def test_two_process_tp_checkpoint_resume(sp_run):
+    """A TP model over two processes trains two checkpointed steps and
+    stops; a second run restores the whole leaves into fresh shards and
+    finishes four, against the JAX package's uninterrupted ``train``. The
+    last checkpoint holds the whole leaves, bit for bit."""
+    from keystone_tpu.models.lm.train import train as j_train
+
+    jm, _, _, corpus = _jax_lm()
+    jm, j_losses = j_train(jm, corpus, steps=4, batch=LM_BATCH, seq=LM_SEQ, lr=LM_LR,
+                           seed=TRAIN_SEED)
+    np.testing.assert_allclose(sp_run["ckpt_losses"], j_losses, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(sp_run["ckpt_wq"], np.asarray(jm.blocks[0].wq), atol=5e-5)
+    np.testing.assert_allclose(sp_run["ckpt_embed"], np.asarray(jm.embed), atol=5e-5)
+    assert int(sp_run["ckpt_step"]) == 4
+    assert bool(sp_run["ckpt_whole_bits"]) and bool(sp_run["ckpt_equal"])
