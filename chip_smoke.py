@@ -8,9 +8,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    versions;
 2. build: every kernel of the main path compiled from ``csrc/``, one
    ``nvcc`` each, all at once; a ptxas report of the Hopper kernels (K1's
-   transpose and Gram kernels, K2's and K3's attention mainloop, K4's
-   variants: registers, spills, stack, shared memory), which must show no
-   spill;
+   transpose and Gram kernels, K2's and K3's attention mainloop, K2's
+   two f32 kernels, K4's variants: registers, spills, stack, shared
+   memory), which must show no spill;
 3. K1 held against its plain version on the card bit for bit, at the main
    path's chunk and ragged shapes (and against the exact integer Gram on
    the CPU at the ragged ones), its result exactly symmetric; timed beside
@@ -30,7 +30,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain versions, a PyTorch library call and their bounds; K4 replayed
    three times from a CUDA graph gives its eager bits; K2 also at the
    scoring path's shapes (2, 16, 8,192, 64) and (2, 4, 8,192, 64) and at
-   a tensor-parallel position's (8, 4, 2,048, 64);
+   a tensor-parallel position's (8, 4, 2,048, 64); K2's tiled f32 kernel,
+   causal, at (8, 16, 2,048, 64) and (8, 4, 2,048, 64), timed beside its
+   plain version, SDPA f32 and its f32 bound;
 8. LM main path: the bench's decode model (vocab 32,768, dim 1,024,
    depth 8, 16 heads, bf16, batch 8, 128-token prompts, 256 new tokens)
    made by ``TransformerLM.create`` on the card, in three legs — float,
@@ -158,9 +160,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    warm; ``cifar_linear_pixels.main`` at the same size, test error ≤ 5 %;
    ViT features on the card within 1e-4 of max|f| of the CPU's on 512
    images;
-26. K2's f32 path at ViT's shape (512, 4, 16, 32), non-causal, within
-   1e-5 of its plain version, timed beside it, SDPA on the same f32
-   tensors and its bound.
+26. K2's f32 short-key kernel at ViT's shapes (512, 4, 16, 32) and the
+   last train chunk's (336, 4, 16, 32), non-causal: out within 1e-5 of
+   max|plain| and the lse within 1e-5 of its plain version's, timed beside
+   it, SDPA on the same f32 tensors and its bound.
 
 27. the conv CIFAR workloads on 50,000 + 10,000 synthetic images at the
    bench's 256 filters (2,048 features; patch 6, pool 14 / 13, α 0.25,
@@ -527,6 +530,19 @@ def _kernel_label(kernel, name: str):
         return (f"{state}<D {dmax}, {cons} consumer warpgroups"
                 + {"I13__nv_bfloat16": ", bf16 out", "If": ", f32 out"}.get(out, "") + ">",
                 fn(int(dmax)))
+    t = (re.search(r"flash_fwd_f32_shortILi(\d+)ELi(\d+)ELb(\d)E", name)
+         or re.search(r"flash_fwd_f32ILi(\d+)EE", name))
+    if t:
+        fn = lib.keystone_flash_attention_f32_smem_bytes
+        fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * 5
+        if t.lastindex == 1:
+            dt = int(t.group(1))
+            return f"K2 f32 tiled<D {dt}>", fn(1, 64, 65, dt, 1)
+        dt, kmax, vec = map(int, t.groups())
+        # its block at S_q = S_k = the key tile, D = DT (ViT's, at D 32, 16 keys)
+        return (f"K2 f32 short-key<D {dt}, {kmax} keys"
+                f"{', 16-byte loads' if vec else ', 4-byte loads'}>",
+                fn(4, kmax, kmax, dt if vec else dt - 1, vec))
     if "gram_kernel" in name:
         fn = lib.keystone_int8_gram_smem_bytes
         fn.restype, fn.argtypes = ctypes.c_int, []
@@ -589,7 +605,8 @@ def phase_build(kernels) -> dict:
         regs = [ln.strip() for ln in k.ptxas_info.splitlines() if "registers" in ln]
         print(f"  {k.name}: {'; '.join(regs) or 'cached build'}")
     report = [r for k in kernels for r in ptxas_report(k)]
-    print("ptxas, Hopper kernels (K1, K2/K3 mainloop, K4): " + json.dumps(report))
+    print("ptxas, Hopper kernels (K1, K2/K3 mainloop, K2's f32 kernels, K4): "
+          + json.dumps(report))
     spilled = [r["kernel"] for r in report if r["spill_store_bytes"] or r["spill_load_bytes"]]
     check(not spilled, f"a Hopper kernel spills: {spilled}")
     return {"build_s": build_s, "ptxas": report}
@@ -712,6 +729,8 @@ def phase_k2(device) -> dict:
     position's call at the train step (8, 4, 2,048, 64), and ragged f32
     cases with offsets (non-causal, and causal with fully masked rows) and
     the lse. Timed at those five shapes, each beside SDPA and its
+    bound; and the tiled f32 kernel, causal, at (8, 16, 2,048, 64) and
+    (8, 4, 2,048, 64) beside its plain version, SDPA f32 and its f32
     bound."""
     import torch.nn.functional as F
 
@@ -793,6 +812,36 @@ def phase_k2(device) -> dict:
         check(lse_err <= K2_LSE_TOL, f"K2 {shape} lse disagrees ({lse_err:.3e})")
         at_train[name] = {"shape": list(shape), "max_rel_err": err, "lse_max_abs_err": lse_err}
         del q, k, v, out, lse, ref, ref_lse
+    # the tiled f32 kernel (S_k > 64), causal, at the f32 equivalence legs'
+    # shapes (phases 9, 18, 44): on CUDA cores, so bounded by the f32 peak
+    f32_tiled = {}
+    for name, shape in (("flagship", (8, 16, 2048, 64)),
+                        ("tp_position", (TRAIN_BATCH, TRAIN_CONF["num_heads"] // PAR_N,
+                                         TRAIN_SEQ, 64))):
+        b, h, s, d = shape
+        q, k, v = qkv(b, h, s, s, d, torch.float32)
+        out = fa.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_plain(q, k, v, causal=True)
+        err = _rel(out, ref)
+        check(err <= K2_F32_TOL, f"K2 {shape} f32 causal disagrees with its plain version ({err:.3e})")
+        kernel_ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=True), reps=5)
+        plain_ms = device_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), reps=1)
+        library_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+                               reps=5)
+        ops = 4.0 * b * h * d * s * (s + 1) / 2  # the causal triangle
+        traffic = 4.0 * b * h * s * d * 4  # q, k, v read once, o written once, f32
+        ops_ms, bytes_ms = 1e3 * ops / F32_PEAK_OPS, 1e3 * traffic / HBM_BYTES_PER_S
+        f32_tiled[name] = {
+            "shape": list(shape), "max_rel_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library": "scaled_dot_product_attention, f32",
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        }
+        print(f"K2 {shape} f32 causal (tiled kernel): max|kernel-plain| / max|plain| = {err:.3e}; "
+              f"device times kernel {kernel_ms} ms, plain {plain_ms} ms, sdpa {library_ms} ms, "
+              f"bound {max(ops_ms, bytes_ms):.4f} ms")
+        del q, k, v, out, ref
     main = timed["prefill"]
     return {
         "name": "flash_attention",
@@ -816,6 +865,7 @@ def phase_k2(device) -> dict:
         "at_tp_position": timed["tp_position"],
         "ragged_f32": ragged,
         "at_train_shapes_with_lse": at_train,
+        "f32_tiled": f32_tiled,
     }
 
 
@@ -2542,6 +2592,7 @@ VIT_K2_LAUNCHES = (-(-VIT_TRAIN // VIT_CHUNK) - (-VIT_TEST // VIT_CHUNK)) * VIT_
 VIT_MAX_TEST_ERROR = 0.05
 VIT_FEAT_TOL = 1e-4  # of max|f|, features on the card against the CPU
 VIT_K2_SHAPE = (VIT_CHUNK, 4, 16, 32)  # (B, H, S, D) of K2's call in a ViT block
+VIT_K2_LAST_SHAPE = (VIT_TRAIN % VIT_CHUNK, 4, 16, 32)  # the last train chunk's call
 
 
 # --- conv CIFAR path (phases 27-28): the configs' defaults (patch 6, pool
@@ -2996,35 +3047,44 @@ def phase_vit(device) -> dict:
 
 
 def phase_k2_vit(device) -> dict:
-    """Phase 26: K2's f32 path at ViT's shape, non-causal: against its
-    plain version, timed beside it and SDPA on the same tensors."""
+    """Phase 26: K2's f32 short-key kernel at ViT's shapes, non-causal, a
+    full chunk (512, 4, 16, 32) and the last train chunk (336, 4, 16, 32):
+    out and lse against its plain version, timed beside it, SDPA on the
+    same f32 tensors and its bound."""
     import torch.nn.functional as F
 
     from keystone_tpu_torch.ops import flash_attention as fa
 
-    b, h, s, d = VIT_K2_SHAPE
     gen = torch.Generator(device=device).manual_seed(26)
-    q, k, v = (torch.randn(VIT_K2_SHAPE, generator=gen, device=device) for _ in range(3))
-    out = fa.flash_attention(q, k, v)
-    torch.cuda.synchronize()
-    ref = fa.flash_attention_plain(q, k, v)
-    err = _rel(out, ref)
-    max_abs = float((out - ref).abs().max())
-    check(err <= K2_F32_TOL, f"K2 at ViT's shape disagrees with its plain version ({err:.3e})")
-    kernel_ms = device_ms(lambda: fa.flash_attention(q, k, v))
-    plain_ms = device_ms(lambda: fa.flash_attention_plain(q, k, v))
-    library_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-    ops = 4.0 * b * h * s * s * d
-    traffic = 4.0 * b * h * s * d * 4  # q, k, v read once, o written once, f32
-    ops_ms, bytes_ms = 1e3 * ops / F32_PEAK_OPS, 1e3 * traffic / HBM_BYTES_PER_S
-    print(f"K2 {VIT_K2_SHAPE} f32 non-causal: max|kernel-plain| / max|plain| = {err:.3e}; device "
-          f"times kernel {kernel_ms} ms, plain {plain_ms} ms, sdpa {library_ms} ms, bound "
-          f"{max(ops_ms, bytes_ms):.5f} ms")
-    return {"shape": list(VIT_K2_SHAPE), "dtype": "float32", "causal": False,
-            "max_abs_err": max_abs, "max_rel_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "library": "scaled_dot_product_attention, f32",
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    res = {}
+    for name, shape in (("chunk", VIT_K2_SHAPE), ("last_train_chunk", VIT_K2_LAST_SHAPE)):
+        b, h, s, d = shape
+        q, k, v = (torch.randn(shape, generator=gen, device=device) for _ in range(3))
+        out, lse = fa.flash_attention(q, k, v, return_lse=True)
+        torch.cuda.synchronize()
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, return_lse=True)
+        err, lse_err = _rel(out, ref), float((lse - ref_lse).abs().max())
+        max_abs = float((out - ref).abs().max())
+        check(err <= K2_F32_TOL, f"K2 at {shape} disagrees with its plain version ({err:.3e})")
+        check(lse_err <= K2_LSE_TOL, f"K2's lse at {shape} disagrees ({lse_err:.3e})")
+        kernel_ms = device_ms(lambda: fa.flash_attention(q, k, v))
+        plain_ms = device_ms(lambda: fa.flash_attention_plain(q, k, v))
+        library_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        ops = 4.0 * b * h * s * s * d
+        traffic = 4.0 * b * h * s * d * 4  # q, k, v read once, o written once, f32
+        ops_ms, bytes_ms = 1e3 * ops / F32_PEAK_OPS, 1e3 * traffic / HBM_BYTES_PER_S
+        bound_ms = max(ops_ms, bytes_ms)
+        print(f"K2 {shape} f32 non-causal (short-key kernel): max|kernel-plain| / max|plain| = "
+              f"{err:.3e}, lse {lse_err:.3e}; device times kernel {kernel_ms} ms, plain "
+              f"{plain_ms} ms, sdpa {library_ms} ms, bound {bound_ms:.5f} ms"
+              + (f" ({bound_ms / kernel_ms:.1%} of it)" if kernel_ms else ""))
+        res[name] = {"shape": list(shape), "dtype": "float32", "causal": False,
+                     "max_abs_err": max_abs, "max_rel_err": err, "lse_max_abs_err": lse_err,
+                     "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "library": "scaled_dot_product_attention, f32", "bound_ms": bound_ms,
+                     "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+        del q, k, v, out, lse, ref, ref_lse
+    return {**res["chunk"], "last_train_chunk": res["last_train_chunk"]}
 
 
 def _rows(res: dict) -> dict:
@@ -6213,7 +6273,7 @@ def main() -> None:
 
     k2 = phase_k2(device)
     k1["ptxas"] = [r for r in build["ptxas"] if r["kernel"].startswith("K1")]
-    k2["ptxas"] = [r for r in build["ptxas"] if r["kernel"].startswith("K2State")]
+    k2["ptxas"] = [r for r in build["ptxas"] if r["kernel"].startswith(("K2State", "K2 "))]
     k4 = phase_k4(device)
     lm = phase_lm(device)
     k2["launches"] = lm["kernel_leg_launches"]["flash_attention"]

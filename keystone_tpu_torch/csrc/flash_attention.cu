@@ -30,8 +30,10 @@
 // starts each row fresh, scales q in shared memory (rounded to bf16)
 // before the product, rounds p to bf16 (one P pass), and writes out (in
 // 16-byte chunks) and lse. The f32 path stays on CUDA cores (FMAs, never
-// TF32, so f32 stays f32): 256 threads, four per q row, the S tile through
-// shared memory; it serves the f32 equivalence checks.
+// TF32, so f32 stays f32), in two kernels: S_k ≤ 64 (one key tile, ViT's
+// call) takes flash_fwd_f32_short, written for the bytes (below); longer
+// keys take flash_fwd_f32, 256 threads, four per q row, the S tile through
+// shared memory, which serves the f32 equivalence checks.
 //
 // Left for later: ping-pong scheduling of the consumer warpgroups (one's
 // softmax against the other's products), the output through shared
@@ -269,25 +271,336 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// Opt `kernel` in to `bytes` of dynamic shared memory on the current
+// device, once per device: the attribute is the device's, so a process
+// that launches on a second card sets it there too.
+template <class Kernel>
+cudaError_t opt_in_smem(bool (&configured)[sm90::kMaxDevices], Kernel kernel,
+                        int bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < sm90::kMaxDevices && configured[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < sm90::kMaxDevices) configured[dev] = true;
+  return err;
+}
+
 template <int DMAX>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
                float* lse, int bh, int s_q, int s_k, int d, int q_offset,
                int k_offset, int causal, float scale, cudaStream_t s) {
   const int smem = static_cast<int>(sizeof(F32Smem<DMAX>));
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_f32<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
+  static bool configured[sm90::kMaxDevices] = {};
+  const cudaError_t err = opt_in_smem(configured, flash_fwd_f32<DMAX>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int q_tiles = (s_q + kBQ - 1) / kBQ;
   flash_fwd_f32<DMAX><<<static_cast<unsigned>(bh) * q_tiles, 256, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), lse, s_q, s_k,
       d, q_tiles, q_offset, k_offset, causal, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------ f32, short keys
+//
+// K2's f32 calls whose keys fit one 64-key tile (S_k ≤ 64), the same
+// Pallas flash_attention's: ViT's (B·H 2,048, S 16, D 32) call, once a
+// block, 472 times a `vit_ridge` run. With one tile the online softmax is
+// a plain one: m the row max, p = exp(s − m) (0 where masked), l = Σp,
+// out = (Σ p·v) / max(l, 1e-30), lse = m + log(max(l, 1e-30)).
+//
+// What bounds it: q, k, v read once and out written once, 16.8 MB at
+// ViT's shape, 5.0 µs at the H100's 3.35 TB/s; its 67 MFLOP take 1.0 µs
+// at 67 TFLOP/s of f32 FMAs. So it has to move bytes well: a block takes
+// the heads of a contiguous range of each tensor (a head's q, k and v are
+// S·D slabs) into shared memory by 16-byte cp.async, every copy of the
+// block in flight at once, and about four blocks of 128 threads land on
+// each SM (about 100 KB of loads in flight an SM at ViT's shape). A warp
+// takes R = 32 / T q rows of one head, T = S_k-tile / 8 lanes a row, so
+// each lane holds the scores of 8 keys (t, t + T, …) in registers; the row
+// max and sum are warp shuffles, and P·V takes each p from its lane by a
+// shuffle, so p never passes through shared memory. A lane then owns D / T
+// output columns in 4-column chunks (t, t + T, …): the T lanes of a row
+// write T · 16 contiguous bytes a store. q and k rows sit D + 4 floats
+// apart in shared memory, so the rows a warp reads at once fall on
+// different banks. D is a template parameter, exact at 32, 64 and 128 and
+// rounded up from the others (loops stop at D); the key tile is 16, 32 or
+// 64 keys. Rows that are not 16-byte aligned (D % 4 ≠ 0, or a base off
+// 16 bytes) take 4-byte copies, loads and stores, at D ≤ 128 and 64 keys.
+// FMAs on CUDA cores, never TF32. On an NVIDIA H100 80GB HBM3 at 700 W it
+// takes 9.0–9.5 µs at ViT's shape (chip_smoke.py, phase 26), 53–56 % of
+// the bound; at (1,344 heads, 16, 32), 3.3 µs of bytes, it still takes
+// 8.0–8.7 µs, so a launch's fixed latency (the first loads' round trip,
+// the last block's products and stores) is most of the rest.
+
+constexpr int kShortWarps = 4;
+constexpr int kShortThreads = 32 * kShortWarps;
+constexpr int kShortQTile = 64;  // q rows of a head a block takes at most
+constexpr int kKeysPerLane = 8;
+// the largest block: one head of 64 q rows against 64 keys at D = 128
+constexpr int kShortSmemCap = 4 * kShortQTile * (3 * 128 + 8);
+
+// A launch's blocking: heads a block (whole heads, q_rows = S_q, when more
+// than one), q rows of a head a block, shared memory.
+struct ShortPlan {
+  int heads, q_rows, q_tiles, smem;
+};
+
+inline ShortPlan short_plan(int dt, int kmax, int bh, int s_q, int s_k) {
+  const int rows_a_warp = 32 / (kmax / kKeysPerLane);
+  ShortPlan p;
+  p.q_rows = s_q < kShortQTile ? s_q : kShortQTile;
+  p.q_tiles = (s_q + p.q_rows - 1) / p.q_rows;
+  const int groups = (p.q_rows + rows_a_warp - 1) / rows_a_warp;
+  const int head_bytes = 4 * (p.q_rows * (dt + 4) + s_k * (2 * dt + 4));
+  int heads = kShortWarps / groups;  // a warp a row group
+  if (heads > kShortSmemCap / head_bytes) heads = kShortSmemCap / head_bytes;
+  if (heads > bh) heads = bh;
+  p.heads = heads < 1 ? 1 : heads;
+  p.smem = p.heads * head_bytes;
+  return p;
+}
+
+// W floats: one 16-byte access, or one 4-byte one
+template <int W>
+__device__ __forceinline__ void lds(float (&x)[W], const float* p) {
+  if constexpr (W == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    x[0] = f.x, x[1] = f.y, x[2] = f.z, x[3] = f.w;
+  } else {
+    x[0] = *p;
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void stg(float* p, const float (&x)[W]) {
+  if constexpr (W == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+    *p = x[0];
+  }
+}
+
+// `rows` rows of d floats, contiguous at src, to rows `pitch` floats apart
+// at dst, W floats a cp.async; the row and column of each copy are carried
+// from one copy to the next, so no copy divides.
+template <int W>
+__device__ __forceinline__ void copy_rows(float* dst, int pitch, const float* src,
+                                          int rows, int d) {
+  const int w = d / W;  // copies a row
+  const int n = rows * w;
+  int i = threadIdx.x;
+  int row = i / w, c = i - row * w;
+  const int dr = kShortThreads / w, dc = kShortThreads - dr * w;
+  for (; i < n; i += kShortThreads) {
+    const uint32_t s = sm90::smem_u32(dst + row * pitch + c * W);
+    const float* g = src + static_cast<size_t>(i) * W;
+    if constexpr (W == 4) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(g) : "memory");
+    } else {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(g) : "memory");
+    }
+    row += dr;
+    c += dc;
+    if (c >= w) {
+      c -= w;
+      ++row;
+    }
+  }
+}
+
+// DT: D rounded up (32, 64, 128); KMAX: S_k rounded up (16, 32, 64); VEC:
+// every row 16-byte aligned (D % 4 == 0 and the four bases aligned).
+template <int DT, int KMAX, bool VEC>
+__global__ void __launch_bounds__(kShortThreads)
+    flash_fwd_f32_short(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ out,
+                        float* __restrict__ lse, int bh, int s_q, int s_k, int d,
+                        int heads, int q_rows, int q_tiles, int q_offset,
+                        int k_offset, int causal, float scale) {
+  constexpr int T = KMAX / kKeysPerLane;  // lanes a q row
+  constexpr int R = 32 / T;               // q rows a warp
+  constexpr int W = VEC ? 4 : 1;          // floats an access
+  constexpr int P = DT + 4;               // q and k row pitch in shared memory
+  constexpr int NCOL = DT / (W * T);      // output accesses a lane
+  extern __shared__ __align__(16) float smem[];
+
+  const int tile = blockIdx.x / q_tiles;
+  const int head0 = tile * heads;
+  const int q0 = (blockIdx.x - tile * q_tiles) * q_rows;
+  const int nh = min(heads, bh - head0);
+  const int nq = min(q_rows, s_q - q0);
+  float* qs = smem;
+  float* ks = qs + heads * q_rows * P;
+  float* vs = ks + heads * s_k * P;
+  // one contiguous range of each tensor (several heads a block only take
+  // whole heads: q_rows = S_q, q0 = 0)
+  copy_rows<W>(qs, P, q + (static_cast<size_t>(head0) * s_q + q0) * d, (nh - 1) * s_q + nq, d);
+  copy_rows<W>(ks, P, k + static_cast<size_t>(head0) * s_k * d, nh * s_k, d);
+  copy_rows<W>(vs, DT, v + static_cast<size_t>(head0) * s_k * d, nh * s_k, d);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r = lane / T, t = lane % T;
+  const int groups = (nq + R - 1) / R;
+  for (int item = warp; item < nh * groups; item += kShortWarps) {
+    const int hh = item / groups, g = item - hh * groups;
+    const bool live = g * R + r < nq;
+    const int row = live ? g * R + r : nq - 1;  // a row past the tile repeats the last
+    const float* qrow = qs + (hh * q_rows + row) * P;
+    const float* kh = ks + hh * s_k * P;
+    const float* vh = vs + hh * s_k * DT;
+
+    // scores of keys t + T·x, q·scale rounded to f32 first
+    float sc[kKeysPerLane];
+#pragma unroll
+    for (int x = 0; x < kKeysPerLane; ++x) sc[x] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < DT; c += W) {
+      if (c >= d) break;
+      float qv[W];
+      lds<W>(qv, qrow + c);
+#pragma unroll
+      for (int e = 0; e < W; ++e) qv[e] *= scale;
+#pragma unroll
+      for (int x = 0; x < kKeysPerLane; ++x) {
+        if (t + T * x < s_k) {
+          float kv[W];
+          lds<W>(kv, kh + (t + T * x) * P + c);
+#pragma unroll
+          for (int e = 0; e < W; ++e) sc[x] = fmaf(qv[e], kv[e], sc[x]);
+        }
+      }
+    }
+
+    const long long qi = static_cast<long long>(q0) + row;
+    bool valid[kKeysPerLane];
+    float m = kNeg;
+#pragma unroll
+    for (int x = 0; x < kKeysPerLane; ++x) {
+      valid[x] = key_valid(causal, qi, t + T * x, s_k, q_offset, k_offset);
+      if (!valid[x]) sc[x] = kNeg;
+      m = fmaxf(m, sc[x]);
+    }
+#pragma unroll
+    for (int o = 1; o < T; o <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float l = 0.f;
+#pragma unroll
+    for (int x = 0; x < kKeysPerLane; ++x) {
+      sc[x] = valid[x] ? expf(sc[x] - m) : 0.f;  // p
+      l += sc[x];
+    }
+#pragma unroll
+    for (int o = 1; o < T; o <<= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+
+    // P·V: key j's p comes from lane (r, j % T); columns (t + T·cc)·W
+    float acc[NCOL][W];
+#pragma unroll
+    for (int cc = 0; cc < NCOL; ++cc) {
+#pragma unroll
+      for (int e = 0; e < W; ++e) acc[cc][e] = 0.f;
+    }
+    const int base = lane & ~(T - 1);
+#pragma unroll
+    for (int x = 0; x < kKeysPerLane; ++x) {
+#pragma unroll
+      for (int u = 0; u < T; ++u) {
+        const int j = T * x + u;
+        if (j < s_k) {  // the same key on every lane
+          const float pj = __shfl_sync(0xffffffffu, sc[x], base | u);
+          const float* vrow = vh + j * DT;
+#pragma unroll
+          for (int cc = 0; cc < NCOL; ++cc) {
+            const int col = (t + T * cc) * W;
+            if (col < d) {
+              float vv[W];
+              lds<W>(vv, vrow + col);
+#pragma unroll
+              for (int e = 0; e < W; ++e) acc[cc][e] = fmaf(pj, vv[e], acc[cc][e]);
+            }
+          }
+        }
+      }
+    }
+
+    if (live) {
+      const float den = fmaxf(l, 1e-30f);
+      const size_t orow = static_cast<size_t>(head0 + hh) * s_q + qi;
+#pragma unroll
+      for (int cc = 0; cc < NCOL; ++cc) {
+        const int col = (t + T * cc) * W;
+        if (col < d) {
+          float o[W];
+#pragma unroll
+          for (int e = 0; e < W; ++e) o[e] = acc[cc][e] / den;
+          stg<W>(out + orow * d + col, o);
+        }
+      }
+      if (lse != nullptr && t == 0) lse[orow] = m + logf(den);
+    }
+  }
+}
+
+template <int DT, int KMAX, bool VEC>
+int launch_short(const void* q, const void* k, const void* v, void* out,
+                 float* lse, int bh, int s_q, int s_k, int d, int q_offset,
+                 int k_offset, int causal, float scale, cudaStream_t s) {
+  static bool configured[sm90::kMaxDevices] = {};
+  const cudaError_t err =
+      opt_in_smem(configured, flash_fwd_f32_short<DT, KMAX, VEC>, kShortSmemCap);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const ShortPlan p = short_plan(DT, KMAX, bh, s_q, s_k);
+  const unsigned blocks = static_cast<unsigned>((bh + p.heads - 1) / p.heads) * p.q_tiles;
+  flash_fwd_f32_short<DT, KMAX, VEC><<<blocks, kShortThreads, p.smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, bh, s_q, s_k,
+      d, p.heads, p.q_rows, p.q_tiles, q_offset, k_offset, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DT>
+int launch_short_keys(const void* q, const void* k, const void* v, void* out,
+                      float* lse, int bh, int s_q, int s_k, int d, int q_offset,
+                      int k_offset, int causal, float scale, cudaStream_t s) {
+  if (s_k <= 16) {
+    return launch_short<DT, 16, true>(q, k, v, out, lse, bh, s_q, s_k, d, q_offset,
+                                      k_offset, causal, scale, s);
+  }
+  if (s_k <= 32) {
+    return launch_short<DT, 32, true>(q, k, v, out, lse, bh, s_q, s_k, d, q_offset,
+                                      k_offset, causal, scale, s);
+  }
+  return launch_short<DT, 64, true>(q, k, v, out, lse, bh, s_q, s_k, d, q_offset,
+                                    k_offset, causal, scale, s);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Rows 16-byte aligned: D % 4 == 0 and every base aligned.
+bool rows_aligned(const void* q, const void* k, const void* v, const void* out, int d) {
+  return d % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out);
+}
+
+// S_k ≤ 64: the short-key kernel at D rounded up to 32, 64 or 128.
+int launch_f32_short(const void* q, const void* k, const void* v, void* out,
+                     float* lse, int bh, int s_q, int s_k, int d, int q_offset,
+                     int k_offset, int causal, float scale, cudaStream_t s) {
+  if (!rows_aligned(q, k, v, out, d)) {
+    return launch_short<128, 64, false>(q, k, v, out, lse, bh, s_q, s_k, d,
+                                        q_offset, k_offset, causal, scale, s);
+  }
+  if (d <= 32) {
+    return launch_short_keys<32>(q, k, v, out, lse, bh, s_q, s_k, d, q_offset,
+                                 k_offset, causal, scale, s);
+  }
+  if (d <= 64) {
+    return launch_short_keys<64>(q, k, v, out, lse, bh, s_q, s_k, d, q_offset,
+                                 k_offset, causal, scale, s);
+  }
+  return launch_short_keys<128>(q, k, v, out, lse, bh, s_q, s_k, d, q_offset,
+                                k_offset, causal, scale, s);
 }
 
 }  // namespace
@@ -313,6 +626,10 @@ extern "C" int keystone_flash_attention(const void* q, const void* k,
   const auto s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (in_dtype == 0 && out_dtype == 0 && d_in == d) {
+    if (s_k <= kBK) {
+      return launch_f32_short(q, k, v, out, l, bh, s_q, s_k, d, q_offset,
+                              k_offset, causal, scale, s);
+    }
     return d <= 64 ? launch_f32<64>(q, k, v, out, l, bh, s_q, s_k, d,
                                     q_offset, k_offset, causal, scale, s)
                    : launch_f32<128>(q, k, v, out, l, bh, s_q, s_k, d,
@@ -335,6 +652,19 @@ extern "C" int keystone_flash_attention(const void* q, const void* k,
 extern "C" int keystone_flash_attention_smem_bytes(int d_in) {
   return d_in <= 64 ? sm90::smem_bytes<64, K2State<__nv_bfloat16>>()
                     : sm90::smem_bytes<128, K2State<__nv_bfloat16>>();
+}
+
+// Dynamic shared memory a block of the f32 kernel that (bh, s_q, s_k, d)
+// takes: the short-key kernel, its rows 16-byte aligned (vec) or not, or
+// the tiled one past 64 keys.
+extern "C" int keystone_flash_attention_f32_smem_bytes(int bh, int s_q, int s_k,
+                                                       int d, int vec) {
+  if (s_k > kBK) {
+    return static_cast<int>(d <= 64 ? sizeof(F32Smem<64>) : sizeof(F32Smem<128>));
+  }
+  const int dt = !vec ? 128 : d <= 32 ? 32 : d <= 64 ? 64 : 128;
+  const int kmax = !vec ? 64 : s_k <= 16 ? 16 : s_k <= 32 ? 32 : 64;
+  return short_plan(dt, kmax, bh, s_q, s_k).smem;
 }
 
 extern "C" const char* keystone_cuda_error_string(int code) {

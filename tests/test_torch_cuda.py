@@ -149,6 +149,16 @@ def _qkv(card, seed, b, h, s_q, s_k, d, dtype):
         ((2, 2, 257, 257, 128), torch.bfloat16, True, (5, 69)),  # D = 128, causal
         ((1, 3, 150, 97, 36), torch.bfloat16, False, (3, 1)),  # D padded to 40
         ((1, 2, 70, 90, 100), torch.bfloat16, True, (0, 0)),  # D padded to 104
+        # f32 with every key in one 64-key tile: the short-key kernel
+        ((512, 4, 16, 16, 32), torch.float32, False, (0, 0)),  # ViT's call
+        ((336, 4, 16, 16, 32), torch.float32, False, (0, 0)),  # ViT's last train chunk
+        ((1, 1, 1, 1, 8), torch.float32, False, (0, 0)),
+        ((2, 3, 17, 64, 40), torch.float32, True, (3, 40)),  # every row fully masked
+        ((3, 5, 70, 20, 32), torch.float32, False, (0, 0)),  # S_q > 64: two q tiles
+        ((1, 2, 64, 64, 128), torch.float32, False, (0, 0)),
+        ((1, 2, 16, 65, 32), torch.float32, False, (0, 0)),  # the first shape past it
+        ((7, 1, 16, 16, 32), torch.float32, False, (0, 0)),  # B·H not a multiple of a block's heads
+        ((3, 3, 5, 7, 33), torch.float32, True, (2, 0)),  # rows not 16-byte aligned
     ],
 )
 def test_k2_matches_plain(card, shape, dtype, causal, offsets):
@@ -166,7 +176,10 @@ def test_k2_matches_plain(card, shape, dtype, causal, offsets):
     tol = K2_F32_TOL if dtype == torch.float32 else K2_BF16_TOL
     assert _rel(out, ref) <= tol
     # the lse is f32 in both dtypes, from scores of the same rounded q, k
-    assert float((lse - ref_lse).abs().max()) <= 1e-5 * max(1.0, float(ref_lse[ref_lse > -1e29].abs().max()))
+    live = ref_lse > -1e29
+    scale = max(1.0, float(ref_lse[live].abs().max())) if bool(live.any()) else 1.0
+    assert float((lse - ref_lse).abs().max()) <= 1e-5 * scale
+    assert torch.all(out[~live] == 0)
 
 
 def test_k2_bf16_in_f32_out(card):
@@ -202,6 +215,26 @@ def test_k2_bf16_in_f32_out_with_lse_and_masked_rows(card, d):
     assert torch.all(out[:, :, dead] == 0) and torch.all(lse[:, :, dead] <= -1e29)
     live = ref_lse[:, :, ~dead]
     assert float((lse[:, :, ~dead] - live).abs().max()) <= 1e-5 * max(1.0, float(live.abs().max()))
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 64, 128), (1, 2, 200, 64)], ids=["short_keys", "tiled"])
+def test_k2_f32_launches_on_a_second_card(card, shape):
+    """Both f32 kernels opt in to more than 48 KB of shared memory (about
+    100 KB and 66 KB at these shapes) on each card they launch on: a
+    process that launched on card 0 launches on card 1 too, and each
+    card's result is its plain version's."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards in one process")
+    from keystone_tpu_torch.ops import flash_attention as fa
+
+    for index in (0, 1):
+        dev = torch.device("cuda", index)
+        q, k, v = _qkv(dev, index, *shape[:3], shape[2], shape[3], torch.float32)
+        before = fa.FLASH_ATTENTION.launches
+        out = fa.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize(dev)
+        assert fa.FLASH_ATTENTION.launches == before + 1 and out.device == dev
+        assert _rel(out, fa.flash_attention_plain(q, k, v, causal=True)) <= K2_F32_TOL
 
 
 def test_k2_wrapper_rejects_bad_inputs(card):
@@ -779,18 +812,21 @@ def test_sampled_graph_replays_draw_fresh_numbers(card):
     assert len({tuple(o) for o in outs}) > 1
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_k2_graph_replays_give_the_eager_bits(card, dtype):
+@pytest.mark.parametrize("dtype,shape,causal", [
+    (torch.bfloat16, (1, 16, 128, 64), True),
+    (torch.float32, (1, 16, 128, 64), True),
+    (torch.float32, (512, 4, 16, 32), False),  # ViT's call: the short-key kernel
+])
+def test_k2_graph_replays_give_the_eager_bits(card, dtype, shape, causal):
     from keystone_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=card).manual_seed(9)
-    q, k, v = (torch.randn((1, 16, 128, 64), device=card, generator=gen).to(dtype)
-               for _ in range(3))
-    eager = fa.flash_attention(q, k, v, causal=True)
+    q, k, v = (torch.randn(shape, device=card, generator=gen).to(dtype) for _ in range(3))
+    eager = fa.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out = fa.flash_attention(q, k, v, causal=True)
+        out = fa.flash_attention(q, k, v, causal=causal)
     for _ in range(3):
         graph.replay()
         torch.cuda.synchronize()

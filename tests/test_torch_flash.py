@@ -99,6 +99,97 @@ def test_flash_matches_jax_f32(shape, causal, offsets):
     np.testing.assert_allclose(got.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
 
 
+# every key in one 64-key tile: the calls K2's short-key f32 kernel takes
+SHORT_KEY_CASES = [
+    ((16, 4, 16, 16, 32), False, (0, 0)),  # ViT's heads at a small batch
+    ((1, 1, 1, 1, 8), False, (0, 0)),
+    ((2, 3, 17, 64, 40), True, (3, 40)),  # every row fully masked
+    ((1, 2, 70, 20, 32), False, (0, 0)),  # S_q > 64
+    ((1, 2, 64, 64, 128), False, (0, 0)),
+]
+
+
+def _assert_lse_close(got, want):
+    """lse within F32_TOL on live rows; −1e30 rows the same bits."""
+    dead = want <= -1e29
+    np.testing.assert_array_equal(got[dead], want[dead])
+    np.testing.assert_allclose(got[~dead], want[~dead], rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("shape,causal,offsets", SHORT_KEY_CASES)
+def test_flash_short_keys_matches_jax_f32(shape, causal, offsets):
+    b, h, s_q, s_k, d = shape
+    q, k, v = _qkv(sum(shape) + 1, b, h, s_q, s_k, d)
+    kw = dict(causal=causal, q_offset=offsets[0], k_offset=offsets[1], return_lse=True)
+    out, lse = _port(q, k, v, **kw)
+    assert flash.FLASH_ATTENTION.launches == 0
+    j_out, j_lse = _jax(q, k, v, **kw)
+    assert out.shape == (b, h, s_q, d) and lse.shape == (b, h, s_q)
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_out), rtol=F32_TOL, atol=F32_TOL)
+    _assert_lse_close(lse.numpy(), np.asarray(j_lse))
+    if offsets == (3, 40):
+        assert torch.all(out == 0) and torch.all(lse <= -1e29)
+
+
+def _k2_short_emulated(q, k, v, *, causal=False, q_offset=0, k_offset=0):
+    """K2's short-key f32 kernel (S_k ≤ 64) in its own order of sums: each
+    score an FMA chain over D of q·scale (rounded to f32) and k; the lanes
+    of a row (T = S_k's tile / 8: 2, 4 or 8) each sum p over keys t, t +
+    T, … and a butterfly adds their sums (xor 1, 2, 4); P·V an FMA chain
+    over the keys in order; out = acc / max(l, 1e-30), lse = m + log(max(l,
+    1e-30)). An FMA is the f64 product (exact for f32 factors) plus the f32
+    sum, rounded once to f32."""
+    f32, f64 = torch.float32, torch.float64
+    s_q, d = q.shape[2], q.shape[3]
+    s_k = k.shape[2]
+    aligned = d % 4 == 0
+    lanes = 8 if not aligned or s_k > 32 else 4 if s_k > 16 else 2
+    qs = q * flash._scale(d, f32)
+
+    def fma(a, b, c):
+        return (a.to(f64) * b.to(f64) + c.to(f64)).to(f32)
+
+    s = torch.zeros(q.shape[:3] + (s_k,), dtype=f32)
+    for c in range(d):
+        s = fma(qs[..., c : c + 1], k[..., c][..., None, :], s)
+    valid = torch.ones((s_q, s_k), dtype=torch.bool)
+    if causal:
+        valid = (q_offset + torch.arange(s_q))[:, None] >= (k_offset + torch.arange(s_k))[None, :]
+    s = torch.where(valid, s, -1e30)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    part = [p[..., t::lanes].sum(-1, keepdim=True) for t in range(lanes)]
+    while len(part) > 1:  # butterfly: neighbours first
+        part = [part[i] + part[i + 1] for i in range(0, len(part), 2)]
+    l = part[0]
+    acc = torch.zeros(q.shape, dtype=f32)
+    for jj in range(s_k):
+        acc = fma(p[..., jj : jj + 1], v[:, :, jj : jj + 1, :], acc)
+    den = torch.clamp_min(l, 1e-30)
+    return acc / den, (m + torch.log(den))[..., 0]
+
+
+@pytest.mark.parametrize("shape,causal,offsets", SHORT_KEY_CASES + [
+    ((2, 2, 16, 16, 32), True, (0, 0)),
+    ((1, 3, 24, 30, 36), True, (10, 0)),  # T = 4, D padded to 64
+    ((2, 1, 5, 7, 33), True, (2, 0)),  # rows not 16-byte aligned: T = 8
+])
+def test_k2_short_key_arithmetic_matches_plain_and_jax(shape, causal, offsets):
+    """The emulation of the short-key kernel's order of sums against K2's
+    plain version and the JAX package's flash_attention (Pallas, interpret
+    mode), within F32_TOL."""
+    b, h, s_q, s_k, d = shape
+    q, k, v = _qkv(sum(shape) + 2, b, h, s_q, s_k, d)
+    kw = dict(causal=causal, q_offset=offsets[0], k_offset=offsets[1])
+    got, got_lse = _k2_short_emulated(*(torch.from_numpy(x) for x in (q, k, v)), **kw)
+    plain, plain_lse = _port(q, k, v, return_lse=True, **kw)
+    j_out, j_lse = _jax(q, k, v, return_lse=True, **kw)
+    for want, want_lse in ((plain.numpy(), plain_lse.numpy()),
+                           (np.asarray(j_out), np.asarray(j_lse))):
+        np.testing.assert_allclose(got.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
+        _assert_lse_close(got_lse.numpy(), want_lse)
+
+
 def test_fully_masked_rows_are_zero_with_lse():
     """q rows whose position precedes every key (causal, k_offset ahead):
     the output is 0 and the lse −1e30, in both packages."""
