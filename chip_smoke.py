@@ -389,6 +389,9 @@ LM_BATCH, LM_PROMPT, LM_MAX_NEW = 8, 128, 256
 K2_BF16_TOL = 8e-3  # of max|plain|: one bf16 step after an f32 sum in another order
 K2_F32_TOL = 1e-5
 K2_LSE_TOL = 1e-5  # absolute
+# the trainer's default attention call (the JAX package's LMConfig: seq 256,
+# dim 256, 8 heads, f32), batch 8, causal: the tiled f32 kernel at D = 32
+TRAINER_DEFAULT_HEADS = (8, 8, 256, 32)
 K4_BF16_TOL = 8e-3
 K4_F32_TOL = 1e-5
 EQUIV_TOL = 1e-4  # of max|logit|, f32 kernel path vs plain path
@@ -531,13 +534,15 @@ def _kernel_label(kernel, name: str):
                 + {"I13__nv_bfloat16": ", bf16 out", "If": ", f32 out"}.get(out, "") + ">",
                 fn(int(dmax)))
     t = (re.search(r"flash_fwd_f32_shortILi(\d+)ELi(\d+)ELb(\d)E", name)
-         or re.search(r"flash_fwd_f32ILi(\d+)EE", name))
+         or re.search(r"flash_fwd_f32ILi(\d+)ELb(\d)E", name))
     if t:
         fn = lib.keystone_flash_attention_f32_smem_bytes
         fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * 5
-        if t.lastindex == 1:
-            dt = int(t.group(1))
-            return f"K2 f32 tiled<D {dt}>", fn(1, 64, 65, dt, 1)
+        if t.lastindex == 2:
+            dt, vec = map(int, t.groups())
+            # its block at S_k = 65, D = DT (DT − 1 for 4-byte loads)
+            return (f"K2 f32 tiled<D {dt}{', 16-byte loads' if vec else ', 4-byte loads'}>",
+                    fn(1, 128, 65, dt if vec else dt - 1, vec))
         dt, kmax, vec = map(int, t.groups())
         # its block at S_q = S_k = the key tile, D = DT (ViT's, at D 32, 16 keys)
         return (f"K2 f32 short-key<D {dt}, {kmax} keys"
@@ -729,9 +734,10 @@ def phase_k2(device) -> dict:
     position's call at the train step (8, 4, 2,048, 64), and ragged f32
     cases with offsets (non-causal, and causal with fully masked rows) and
     the lse. Timed at those five shapes, each beside SDPA and its
-    bound; and the tiled f32 kernel, causal, at (8, 16, 2,048, 64) and
-    (8, 4, 2,048, 64) beside its plain version, SDPA f32 and its f32
-    bound."""
+    bound; and the tiled f32 kernel, causal, at (8, 16, 2,048, 64), (8,
+    4, 2,048, 64), the trainer's default (8, 8, 256, 32) and (8, 16,
+    2,048, 64) with the lse, each beside its plain version, SDPA f32 and
+    its f32 bound."""
     import torch.nn.functional as F
 
     from keystone_tpu_torch.ops import flash_attention as fa
@@ -813,35 +819,49 @@ def phase_k2(device) -> dict:
         at_train[name] = {"shape": list(shape), "max_rel_err": err, "lse_max_abs_err": lse_err}
         del q, k, v, out, lse, ref, ref_lse
     # the tiled f32 kernel (S_k > 64), causal, at the f32 equivalence legs'
-    # shapes (phases 9, 18, 44): on CUDA cores, so bounded by the f32 peak
+    # shapes (phases 9, 18, 44), the trainer's default, and the flagship
+    # with the lse the blockwise backward reads: on CUDA cores, so bounded
+    # by the f32 peak
     f32_tiled = {}
-    for name, shape in (("flagship", (8, 16, 2048, 64)),
-                        ("tp_position", (TRAIN_BATCH, TRAIN_CONF["num_heads"] // PAR_N,
-                                         TRAIN_SEQ, 64))):
+    for name, shape, with_lse in (
+            ("flagship", (8, 16, 2048, 64), False),
+            ("tp_position", (TRAIN_BATCH, TRAIN_CONF["num_heads"] // PAR_N, TRAIN_SEQ, 64), False),
+            ("trainer_default", TRAINER_DEFAULT_HEADS, False),
+            ("flagship_with_lse", (8, 16, 2048, 64), True)):
         b, h, s, d = shape
         q, k, v = qkv(b, h, s, s, d, torch.float32)
-        out = fa.flash_attention(q, k, v, causal=True)
+        kw = dict(causal=True, return_lse=with_lse)
+        got = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
-        ref = fa.flash_attention_plain(q, k, v, causal=True)
-        err = _rel(out, ref)
+        ref = fa.flash_attention_plain(q, k, v, **kw)
+        out, ref_out = (got[0], ref[0]) if with_lse else (got, ref)
+        err = _rel(out, ref_out)
+        lse_err = float((got[1] - ref[1]).abs().max()) if with_lse else None
+        check(bool(torch.isfinite(out).all()), f"K2 {shape} f32 not finite")
         check(err <= K2_F32_TOL, f"K2 {shape} f32 causal disagrees with its plain version ({err:.3e})")
-        kernel_ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=True), reps=5)
-        plain_ms = device_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), reps=1)
+        check(lse_err is None or lse_err <= K2_LSE_TOL, f"K2 {shape} f32 lse disagrees ({lse_err})")
+        kernel_ms = device_ms(lambda: fa.flash_attention(q, k, v, **kw), reps=5)
+        plain_ms = device_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), reps=1)
         library_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
                                reps=5)
         ops = 4.0 * b * h * d * s * (s + 1) / 2  # the causal triangle
-        traffic = 4.0 * b * h * s * d * 4  # q, k, v read once, o written once, f32
+        # q, k, v read once, o (and the lse) written once, f32
+        traffic = 4.0 * b * h * s * (4 * d + (1 if with_lse else 0))
         ops_ms, bytes_ms = 1e3 * ops / F32_PEAK_OPS, 1e3 * traffic / HBM_BYTES_PER_S
+        bound_ms = max(ops_ms, bytes_ms)
         f32_tiled[name] = {
-            "shape": list(shape), "max_rel_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "shape": list(shape), "max_rel_err": err, "lse_max_abs_err": lse_err,
+            "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library": "scaled_dot_product_attention, f32",
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_ms": bound_ms, "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_share": bound_ms / kernel_ms if kernel_ms else None,
         }
-        print(f"K2 {shape} f32 causal (tiled kernel): max|kernel-plain| / max|plain| = {err:.3e}; "
-              f"device times kernel {kernel_ms} ms, plain {plain_ms} ms, sdpa {library_ms} ms, "
-              f"bound {max(ops_ms, bytes_ms):.4f} ms")
-        del q, k, v, out, ref
+        print(f"K2 {shape} f32 causal{' with lse' if with_lse else ''} (tiled kernel): "
+              f"max|kernel-plain| / max|plain| = {err:.3e}"
+              + ("" if lse_err is None else f", lse max abs {lse_err:.3e}")
+              + f"; device times kernel {kernel_ms} ms, plain {plain_ms} ms, sdpa "
+              f"{library_ms} ms, bound {bound_ms:.4f} ms ({bound_ms / kernel_ms:.1%})")
+        del q, k, v, got, ref, out, ref_out
     main = timed["prefill"]
     return {
         "name": "flash_attention",
@@ -1141,6 +1161,26 @@ def phase_lm(device) -> dict:
     }
 
 
+class tiled_f32_tally:
+    """Counts, while open, the launches of the tiled f32 kernel in this
+    process, as K2's C entry point counts them where it launches that
+    kernel: the route K2's f32 calls took, beside K2's own count of
+    both routes."""
+
+    def __enter__(self):
+        import ctypes
+
+        from keystone_tpu_torch.ops import flash_attention as fa
+
+        self._read = fa.FLASH_ATTENTION.lib().keystone_flash_attention_f32_tiled_launches
+        self._read.restype, self._read.argtypes = ctypes.c_longlong, []
+        self._start, self.launches = self._read(), 0
+        return self
+
+    def __exit__(self, *exc):
+        self.launches = self._read() - self._start
+
+
 def phase_equivalence(device, model) -> dict:
     """The same weights in f32, int8: prefill plus teacher-forced decode
     steps through the kernels and through the plain path."""
@@ -1164,7 +1204,8 @@ def phase_equivalence(device, model) -> dict:
         return torch.stack(out)
 
     _zero_counts()
-    kern = run(q32.replace(int8_kernel="kernel"))
+    with tiled_f32_tally() as tally:
+        kern = run(q32.replace(int8_kernel="kernel"))
     counts = _counts()
     os.environ["KST_LOCAL_ATTN"] = "dense"
     try:
@@ -1182,7 +1223,14 @@ def phase_equivalence(device, model) -> dict:
     check(bool(torch.isfinite(kern).all()), "equivalence: logits not finite")
     check(err <= EQUIV_TOL, f"equivalence: logits differ by {err:.3e} of max")
     check(agree >= EQUIV_ARGMAX, f"equivalence: argmax agreement {agree:.4%}")
-    return {"max_rel_err": err, "argmax_agreement": agree, "steps": EQUIV_STEPS}
+    check(tally.launches == LM_CONF["depth"], f"equivalence: {tally.launches} tiled f32 launches")
+    # the step that runs the tiled kernel: the f32 prefill, warm
+    k32 = q32.replace(int8_kernel="kernel")
+    prefill_ms = time_ms(lambda: decode.prefill(k32, toks[:, :LM_PROMPT], s_max), reps=3)
+    print(f"  f32 prefill ({LM_BATCH} x {LM_PROMPT} tokens): {prefill_ms:.3f} ms, "
+          f"{tally.launches} tiled f32 launches in the kernel path")
+    return {"max_rel_err": err, "argmax_agreement": agree, "steps": EQUIV_STEPS,
+            "tiled_f32_launches": tally.launches, "prefill_ms": prefill_ms}
 
 
 def _serve_requests():
@@ -2235,18 +2283,23 @@ def phase_train_equivalence(device) -> dict:
             os.environ["KST_FLASH_DENSE_BWD_MAX"] = env
         try:
             _zero_counts()
-            got = _leaf_grads(model, toks)
-            torch.cuda.synchronize()
+            with tiled_f32_tally() as tally:
+                got = _leaf_grads(model, toks)
+                torch.cuda.synchronize()
             counts = _counts()
+            step_ms = 1e3 * _wall(lambda: _leaf_grads(model, toks), 1)  # warm
         finally:
             os.environ.pop("KST_FLASH_DENSE_BWD_MAX", None)
         err = _grad_err(got, plain)
         del got
-        res[route] = {"max_rel_grad_err": err, "launches": counts}
+        res[route] = {"max_rel_grad_err": err, "launches": counts,
+                      "tiled_f32_launches": tally.launches, "ms": step_ms}
         print(f"train f32 equivalence [{route}]: every leaf's gradient within {err:.3e} of "
-              f"max|grad| of the plain path; launches {counts}")
+              f"max|grad| of the plain path; launches {counts}, {tally.launches} of them the "
+              f"tiled f32 kernel; {step_ms:.1f} ms a forward and backward")
         check(err <= GRAD_TOL, f"train equivalence [{route}]: {err:.3e}")
         check(counts["flash_attention"] == GRAD_DEPTH, f"train equivalence: launches {counts}")
+        check(tally.launches == GRAD_DEPTH, f"train equivalence: {tally.launches} tiled f32")
     del model, plain
     torch.cuda.empty_cache()
     return res
@@ -6118,6 +6171,51 @@ def sp_worker(out_dir: str) -> None:
     multihost.shutdown()
 
 
+def parallel_f32_legs(device) -> dict:
+    """Phase 44's f32 legs on one card: TP and pp × dp × tp at depth 2 and
+    GPipe at depth 4 against the unsharded step from the same weights, the
+    tiled f32 kernel's launches counted over them (the references' too)."""
+    torch.cuda.empty_cache()
+    res = {}
+    with tiled_f32_tally() as tally:
+        ref2, floor2 = par_reference(device, PAR_F32_DEPTH)
+        for name in ("tp", "pp_dp_tp"):
+            got = _par_leg(device, name, PAR_F32_DEPTH, _par_batches(PAR_STEPS))
+            res[name] = check_par_leg(f"{name} f32 depth {PAR_F32_DEPTH}", got, ref2, floor2)
+            del got
+        ref4, floor4 = par_reference(device, PP_F32_DEPTH)
+        got = _par_leg(device, "pp", PP_F32_DEPTH, _par_batches(PAR_STEPS))
+        res["pp"] = check_par_leg(f"GPipe f32 depth {PP_F32_DEPTH}, {PAR_N} stages, "
+                                  f"n_micro {PP_MICRO}", got, ref4, floor4)
+        del got, ref4, ref2
+    torch.cuda.empty_cache()
+    res["tiled_f32_launches"] = tally.launches
+    print(f"  phase 44's f32 legs: {tally.launches} tiled f32 launches")
+    return res
+
+
+def f32_legs_summary(equiv: dict, train_equiv: dict, par_f32: dict) -> dict:
+    """The tiled f32 kernel in the f32 legs: its launches and each leg's
+    step, in ms."""
+    legs = {"equivalence_prefill": (equiv["tiled_f32_launches"], equiv["prefill_ms"])}
+    for route in ("dense_route", "blockwise_route"):
+        r = train_equiv[route]
+        legs[f"train_equivalence_{route}"] = (r["tiled_f32_launches"], r["ms"])
+    for name in ("tp", "pp_dp_tp", "pp"):
+        legs[f"parallel_{name}_step"] = (None, par_f32[name]["ms_per_step"])
+    out = {"tiled_f32_launches": {"equivalence": equiv["tiled_f32_launches"],
+                                  "train_equivalence": sum(train_equiv[r]["tiled_f32_launches"]
+                                                           for r in ("dense_route",
+                                                                     "blockwise_route")),
+                                  "parallel": par_f32["tiled_f32_launches"]},
+           "ms": {name: ms for name, (_, ms) in legs.items()}}
+    for name, (launches, ms) in legs.items():
+        print(f"  {name}: {ms:.2f} ms"
+              + (f", {launches} tiled f32 launches" if launches is not None else ""))
+    print(f"tiled f32 launches in the f32 legs: {json.dumps(out['tiled_f32_launches'])}")
+    return out
+
+
 def phase_parallel(device) -> dict:
     """Phase 44: tensor, pipeline and sequence parallelism on one card.
     (a) One process, meshes naming the card 4 times (8 for the 3-axis one),
@@ -6134,19 +6232,7 @@ def phase_parallel(device) -> dict:
     from keystone_tpu_torch.parallel import create_mesh
 
     t_phase = time.perf_counter()
-    torch.cuda.empty_cache()
-    res: dict = {"f32": {}}
-    ref2, floor2 = par_reference(device, PAR_F32_DEPTH)
-    for name in ("tp", "pp_dp_tp"):
-        got = _par_leg(device, name, PAR_F32_DEPTH, _par_batches(PAR_STEPS))
-        res["f32"][name] = check_par_leg(f"{name} f32 depth {PAR_F32_DEPTH}", got, ref2, floor2)
-        del got
-    ref4, floor4 = par_reference(device, PP_F32_DEPTH)
-    got = _par_leg(device, "pp", PP_F32_DEPTH, _par_batches(PAR_STEPS))
-    res["f32"]["pp"] = check_par_leg(f"GPipe f32 depth {PP_F32_DEPTH}, {PAR_N} stages, "
-                                     f"n_micro {PP_MICRO}", got, ref4, floor4)
-    del got, ref4, ref2
-    torch.cuda.empty_cache()
+    res: dict = {"f32": parallel_f32_legs(device)}
 
     mesh = create_mesh(data=1, model=PAR_N, devices=[device] * PAR_N)
     bf16 = tp_bf16_leg(device, mesh)
@@ -6405,7 +6491,7 @@ def main() -> None:
     print(json.dumps({"two_process_path": {"card": smi, **dp_path}}))
     par_path = phase_parallel(device)
     k2["launches_parallel"] = {
-        "f32_per_step": {k: v["k2_per_step"] for k, v in par_path["f32"].items()},
+        "f32_per_step": {k: par_path["f32"][k]["k2_per_step"] for k in ("tp", "pp_dp_tp", "pp")},
         "tp_bf16_main": par_path["tp_bf16"]["launches"]["flash_attention"],
         "ulysses_pair_per_rank": [r["scoring"]["ulysses"]["launches"]["flash_attention"]
                                   for r in par_path["two_processes"]["ranks"]],
@@ -6417,6 +6503,9 @@ def main() -> None:
             "flash_attention_step"],
     }
     print(json.dumps({"parallel_path": {"card": smi, **par_path}}))
+    tiled_legs = f32_legs_summary(equiv, train_equiv, par_path["f32"])
+    k2["launches_tiled_f32"] = tiled_legs["tiled_f32_launches"]
+    print(json.dumps({"k2_tiled_f32_legs": {"card": smi, **tiled_legs}}))
 
     summary = {
         "card": smi,

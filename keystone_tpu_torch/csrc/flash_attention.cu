@@ -29,11 +29,25 @@
 // first, a persistent grid without causality. The K2 state policy below
 // starts each row fresh, scales q in shared memory (rounded to bf16)
 // before the product, rounds p to bf16 (one P pass), and writes out (in
-// 16-byte chunks) and lse. The f32 path stays on CUDA cores (FMAs, never
-// TF32, so f32 stays f32), in two kernels: S_k ≤ 64 (one key tile, ViT's
-// call) takes flash_fwd_f32_short, written for the bytes (below); longer
-// keys take flash_fwd_f32, 256 threads, four per q row, the S tile through
-// shared memory, which serves the f32 equivalence checks.
+// 16-byte chunks) and lse.
+//
+// The f32 path stays on CUDA cores (FMAs, never TF32, so f32 stays f32), in
+// two kernels: S_k ≤ 64 (one key tile, ViT's call) takes
+// flash_fwd_f32_short, written for the bytes (below); longer keys take the
+// tiled flash_fwd_f32 (below), the LM's f32 forwards. Its bound is the f32
+// FMA rate: 1.026 ms at (B·H 128, S 2,048, D 64) causal against 67 TFLOP/s,
+// 0.17 ms of bytes. An SM issues four warp-FMAs a clock but serves one
+// shared-memory wavefront, and a 16-byte load by a warp costs about 2.5
+// clocks when each quarter-warp reads at most four addresses and 4 when it
+// reads eight (tools/smem_loads.cu); so the FMAs set the
+// pace only when each lane keeps a register tile whose loads each feed many
+// FMAs. The first tiled kernel
+// read both operands of every FMA from shared memory (one wavefront for
+// half a warp-FMA: at most 1/8 of the peak; it reached 12.9 %). This one
+// keeps 8 × 8 scores and 8 × 8 outputs a lane at D = 64 (one 16-byte load
+// for 16 FMAs), lets its warps run apart on an mbarrier ring instead of a
+// block barrier, skips each warp's tiles past its own diagonal, and takes
+// its exponentials on the special-function unit.
 //
 // Left for later: ping-pong scheduling of the consumer warpgroups (one's
 // softmax against the other's products), the output through shared
@@ -42,27 +56,15 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 #include "attention_sm90.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;  // q rows per block
 constexpr int kBK = 64;  // keys per K/V tile
 constexpr float kNeg = -1e30f;
-
-__device__ __forceinline__ int num_live_tiles(int causal, long long q_row0,
-                                              int q_offset, int k_offset,
-                                              int s_k) {
-  const int num_k = (s_k + kBK - 1) / kBK;
-  if (!causal) return num_k;
-  // keys up to the tile's last q position: tiles past it are all masked
-  const long long span = q_offset + q_row0 + kBQ - k_offset;
-  if (span <= 0) return 0;
-  const long long live = (span + kBK - 1) / kBK;
-  return live < num_k ? static_cast<int>(live) : num_k;
-}
 
 __device__ __forceinline__ bool key_valid(int causal, long long qi, int kj,
                                           int s_k, int q_offset,
@@ -161,113 +163,436 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
                     : sm90::launch<128>(q, k, v, d_in, sh, st, s);
 }
 
-// ----------------------------------------------------------------- f32
+// ------------------------------------------------------------ f32, tiled
+//
+// K2's f32 calls past one key tile (S_k > 64): the LM's f32 prefill,
+// scoring and training forwards (the trainer's default (8, 8, 256, 32),
+// the f32 legs' (8, 16, 2,048, 64)). A block of 8 warps takes kBQ q rows
+// of one head, a warp kWarpRows of them, against the head's 64-key tiles.
+// A warp holds kRPW row groups of kKG lanes: lane tx of row group tr owns
+// rows tr + kRPW·i (i < kRows) of the warp's, keys kKeys·tx + e of each S
+// tile, and output columns of its rows in chunks tx, tx + kKG, … At D =
+// 64 that is 8 × 8 scores and 8 × 8 outputs a lane, one 16-byte shared
+// load for 16 FMAs. K rows keep 16-byte chunk c at chunk c ^ (row / kKeys
+// & 7), q rows at c ^ (row % kRPW · 8 / kRPW), and P rows xor their keys
+// by kKG·tr, so no shared load or P store of a warp conflicts; q and P
+// loads are one address a quarter-warp, P stores 16 bytes a lane. A row's
+// max is a butterfly over its kKG lanes; each lane keeps a partial l over
+// its own keys, summed once at the end; p = exp(s − m) by exp_sfu (the
+// special-function unit's 2^x, corrected to expf's 2 ulp). P passes through shared memory once a tile, read
+// back only by the warp that wrote it. The warps run apart: K/V tiles sit
+// in a ring of kStages stages, each with an mbarrier that its copy's
+// cp.async completions arrive on; the last warp done with a stage refills
+// it, so no barrier holds the block. A warp skips its tiles past its own
+// diagonal (exact: they leave its state unchanged), masks are compiled
+// only into tiles that cross its diagonal or the ragged end, causal q
+// tiles run heaviest first, and q is scaled and rounded once, into shared
+// memory. On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, phase 7):
+// 2.001 ms at (8, 16, 2,048, 64) causal, 51.3 % of its 1.026 ms bound
+// (the first tiled kernel: 7.935; SDPA f32: 2.211). Removal probes
+// (tools/k2_tiled_probe.py) put the softmax at about 5 % of that; the
+// rest is the two products' issue at two warps a scheduler, 254 registers
+// a lane.
 
-template <int DMAX>
-struct F32Smem {
-  float q[kBQ][DMAX + 1];
-  float k[kBK][DMAX + 1];
-  float v[kBK][DMAX];
-  float p[kBQ][kBK + 1];
+// The blocking at D rounded up to DT (32, 64, 128).
+template <int DT>
+struct Tiled {
+  static constexpr int kThreads = 256;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kBQ = DT == 32 ? 64 : DT == 64 ? 256 : 128;  // q rows a block
+  static constexpr int kKG = DT == 64 ? 8 : 16;                     // lanes a row
+  static constexpr int kRPW = 32 / kKG;                            // row groups a warp
+  static constexpr int kRows = kBQ / (kThreads / kKG);             // q rows a thread
+  static constexpr int kWarpRows = kRPW * kRows;                    // q rows a warp
+  static constexpr int kKeys = kBK / kKG;                          // keys a thread, a tile
+  static constexpr int kVW = DT / kKG < 4 ? DT / kKG : 4;          // columns a V load
+  static constexpr int kNC = DT / (kKG * kVW);                     // V loads a key
+  static constexpr int kStages = DT == 128 ? 2 : 3;                // K/V ring
+  static constexpr int kMinBlocks = DT == 32 ? 2 : 1;
+  // floats: the q tile, the K and V stages, the P tile; then a barrier
+  // and a done count a stage
+  static constexpr int kSmemFloats = kBQ * DT + 2 * kStages * kBK * DT + kBQ * kBK;
+  static constexpr int kSmemBytes = 4 * kSmemFloats + 16 * kStages;
 };
 
-template <int DMAX>
-__global__ void __launch_bounds__(256)
+__device__ __forceinline__ int num_live_tiles(int causal, long long q_row0, int q_rows,
+                                              int q_offset, int k_offset, int s_k) {
+  const int num_k = (s_k + kBK - 1) / kBK;
+  if (q_rows <= 0) return 0;
+  if (!causal) return num_k;
+  // keys up to the last q position: tiles past it are all masked
+  const long long span = q_offset + q_row0 + q_rows - k_offset;
+  if (span <= 0) return 0;
+  const long long live = (span + kBK - 1) / kBK;
+  return live < num_k ? static_cast<int>(live) : num_k;
+}
+
+// Float offset of column `col` of row `row` in a tile of DT-float rows
+// whose 16-byte chunk c sits at chunk c ^ x.
+template <int DT>
+__device__ __forceinline__ int chunk_xor(int row, int col, int x) {
+  return row * DT + ((((col >> 2) ^ x) << 2) | (col & 3));
+}
+
+// The chunk xor of a K row (the 8 keys a quarter-warp reads at once, one
+// of every kKeys, differ in row / kKeys & 7) and of a q row (the kRPW rows
+// a warp reads at once differ in row % kRPW).
+template <int KEYS>
+__device__ __forceinline__ int k_xor(int row) {
+  return row / KEYS & 7;
+}
+
+template <int RPW>
+__device__ __forceinline__ int q_xor(int row) {
+  return row % RPW * (8 / RPW);
+}
+
+// A lane's walk over the pieces of rows w pieces wide, 32 lanes a step: its
+// first piece (row, c) and its step, so that no copy divides.
+struct Walk {
+  int row, c, dr, dc;
+};
+
+__device__ __forceinline__ Walk walk(int first, int w, int lanes) {
+  return {first / w, first % w, lanes / w, lanes % w};
+}
+
+__device__ __forceinline__ void step(Walk& p, int w) {
+  p.row += p.dr;
+  p.c += p.dc;
+  if (p.c >= w) {
+    p.c -= w;
+    ++p.row;
+  }
+}
+
+// One K or V tile by one warp: `rows` rows of d floats, contiguous at src,
+// into kBK rows of DT floats at dst (chunk-swizzled for K), W floats a
+// cp.async; rows from `rows` on are filled with zeros (a stale value could
+// be NaN, and its p of 0 would not clear it). Each lane's copies then
+// arrive on `bar` as they complete.
+template <int DT, int W, bool SWZ>
+__device__ __forceinline__ void copy_tile(float* dst, const float* src, int rows, int d,
+                                          int lane) {
+  const int w = d / W;
+  Walk p = walk(lane, w, 32);
+  for (int i = lane; i < kBK * w; i += 32, step(p, w)) {
+    const int col = p.c * W;
+    const uint32_t s = sm90::smem_u32(
+        dst + (SWZ ? chunk_xor<DT>(p.row, col, k_xor<Tiled<DT>::kKeys>(p.row)) : p.row * DT + col));
+    const int n = p.row < rows ? 4 * W : 0;  // source bytes; the rest is zeroed
+    const float* g = n ? src + static_cast<size_t>(i) * W : src;
+    if constexpr (W == 4) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(g), "r"(n)
+                   : "memory");
+    } else {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(g), "r"(n)
+                   : "memory");
+    }
+  }
+}
+
+__device__ __forceinline__ void arrive_on_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   sm90::smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float lane_of(const float4& x, int e) {
+  return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
+}
+
+// exp(x) in four instructions: 2^t on the special-function unit
+// (ex2.approx, 2 ulp) for t = x·log2 e rounded to f32, times 1 + c for what
+// that rounding dropped, c = x − t·ln 2 by one FMA (x and t·ln 2 nearly
+// cancel). 2^t alone would be off by up to |x|·2^-24 relative, 29 ulp for
+// |x| ≤ 30; the rounding of t, c and the product leave at most 2.3 ulp
+// there (tests/test_torch_flash.py models it), beside ex2's own 2 (expf:
+// 2 in all). Results below 2^-126 flush to 0; exp(−1e30) is 0.
+__device__ __forceinline__ float exp_sfu(float x) {
+  const float t = x * 1.44269502f;  // log2 e, rounded to f32
+  const float c = fmaf(-t, 0.693147182f, x);  // ln 2, rounded to f32
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(t));
+  return fmaf(y, c, y);
+}
+
+// The online softmax of one S tile for a thread's rows, each step over
+// all rows at once so that the rows' shuffles and exponentials overlap:
+// the mask (MASK tiles only, by selects), the row max by a butterfly over
+// the row's kKG lanes, p into the P tile, the partial l and the output
+// rescaled by alpha.
+template <int DT, bool MASK>
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[Tiled<DT>::kRows][Tiled<DT>::kKeys], float (&m)[Tiled<DT>::kRows],
+    float (&lp)[Tiled<DT>::kRows],
+    float (&o)[Tiled<DT>::kRows][Tiled<DT>::kNC][Tiled<DT>::kVW], float* prow, int pswz,
+    int tx, long long qi0, int kj0, int s_k, int causal, int q_offset, int k_offset) {
+  using C = Tiled<DT>;
+  bool ok[C::kRows][C::kKeys];
+  float mx[C::kRows], alpha[C::kRows];
+#pragma unroll
+  for (int i = 0; i < C::kRows; ++i) {
+    // key kj0 + e is seen by row qi0 + kRPW·i when e ≤ lim
+    const long long lim =
+        static_cast<long long>(q_offset) + qi0 + C::kRPW * i - k_offset - kj0;
+    mx[i] = kNeg;
+#pragma unroll
+    for (int e = 0; e < C::kKeys; ++e) {
+      ok[i][e] = !MASK || (kj0 + e < s_k && (!causal || e <= lim));
+      if (MASK) s[i][e] = ok[i][e] ? s[i][e] : kNeg;
+      mx[i] = fmaxf(mx[i], s[i][e]);
+    }
+  }
+#pragma unroll
+  for (int x = 1; x < C::kKG; x <<= 1) {
+#pragma unroll
+    for (int i = 0; i < C::kRows; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], x));
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < C::kRows; ++i) {
+    const float m_new = fmaxf(m[i], mx[i]);
+    alpha[i] = exp_sfu(m[i] - m_new);
+    m[i] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < C::kRows; ++i) {
+    float sum = __fmul_rn(lp[i], alpha[i]);
+    float p[C::kKeys];
+#pragma unroll
+    for (int e = 0; e < C::kKeys; ++e) {
+      p[e] = exp_sfu(s[i][e] - m[i]);
+      if (MASK) p[e] = ok[i][e] ? p[e] : 0.f;
+      sum = __fadd_rn(sum, p[e]);
+    }
+#pragma unroll
+    for (int h = 0; h < C::kKeys; h += 4) {
+      *reinterpret_cast<float4*>(prow + C::kRPW * i * kBK + ((C::kKeys * tx + h) ^ pswz)) =
+          make_float4(p[h], p[h + 1], p[h + 2], p[h + 3]);
+    }
+    lp[i] = sum;
+#pragma unroll
+    for (int cc = 0; cc < C::kNC; ++cc) {
+#pragma unroll
+      for (int w = 0; w < C::kVW; ++w) o[i][cc][w] = __fmul_rn(o[i][cc][w], alpha[i]);
+    }
+  }
+}
+
+// DT: D rounded up (32, 64, 128); VEC: every row 16-byte aligned (D % 4
+// == 0 and the four bases aligned), else 4-byte copies and stores.
+template <int DT, bool VEC>
+__global__ void __launch_bounds__(Tiled<DT>::kThreads, Tiled<DT>::kMinBlocks)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ out,
-                  float* __restrict__ lse, int s_q, int s_k, int d,
-                  int q_tiles, int q_offset, int k_offset, int causal,
-                  float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  F32Smem<DMAX>& sm = *reinterpret_cast<F32Smem<DMAX>*>(smem_raw);
+                  float* __restrict__ lse, int bh, int s_q, int s_k, int d, int q_offset,
+                  int k_offset, int causal, float scale) {
+  using C = Tiled<DT>;
+  constexpr int W = VEC ? 4 : 1;  // floats a copy
+  constexpr int R = C::kRows, K = C::kKeys, NC = C::kNC, VW = C::kVW, NS = C::kStages;
+  extern __shared__ __align__(16) float smem[];
+  float* sq = smem;
+  float* sk = sq + C::kBQ * DT;    // NS stages
+  float* sv = sk + NS * kBK * DT;  // NS stages
+  float* sp = sv + NS * kBK * DT;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sp + C::kBQ * kBK);  // a stage's tile landed
+  int* done = reinterpret_cast<int*>(full + NS);  // warps done with a stage, cumulative
 
-  const int bh = blockIdx.x / q_tiles;
-  const int q_row0 = (blockIdx.x % q_tiles) * kBQ;
-  const int tid = threadIdx.x;
-  const int r = tid / 4, part = tid % 4;  // four threads per q row
-  const size_t q_base = static_cast<size_t>(bh) * s_q * d;
-  const size_t k_base = static_cast<size_t>(bh) * s_k * d;
+  const int head = static_cast<int>(blockIdx.x % bh);
+  const int q_tiles = (s_q + C::kBQ - 1) / C::kBQ;
+  const int q_row0 = (q_tiles - 1 - static_cast<int>(blockIdx.x / bh)) * C::kBQ;  // heaviest first
+  const int q_rows = min(C::kBQ, s_q - q_row0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tx = lane % C::kKG, tr = lane / C::kKG;
+  const int wrow0 = warp * C::kWarpRows;  // the warp's first row in the block
+  const float* kh = k + static_cast<size_t>(head) * s_k * d;
+  const float* vh = v + static_cast<size_t>(head) * s_k * d;
+  const int live = num_live_tiles(causal, q_row0, q_rows, q_offset, k_offset, s_k);
+  const int warp_live = num_live_tiles(causal, q_row0 + wrow0, min(C::kWarpRows, q_rows - wrow0),
+                                       q_offset, k_offset, s_k);
 
-  for (int i = tid; i < kBQ * DMAX; i += blockDim.x) {
-    const int rr = i / DMAX, c = i % DMAX;
-    const int row = q_row0 + rr;
-    sm.q[rr][c] = (row < s_q && c < d)
-                      ? q[q_base + static_cast<size_t>(row) * d + c] * scale
-                      : 0.f;
-  }
-
-  float m_i = kNeg, l_i = 0.f;
-  constexpr int kCols = DMAX / 4;  // output columns part + 4·x
-  float o[kCols];
-#pragma unroll
-  for (int x = 0; x < kCols; ++x) o[x] = 0.f;
-
-  const long long qi = q_row0 + r;
-  const int live = num_live_tiles(causal, q_row0, q_offset, k_offset, s_k);
-  for (int kt = 0; kt < live; ++kt) {
-    const int key0 = kt * kBK;
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < kBK * DMAX; i += blockDim.x) {
-      const int j = i / DMAX, c = i % DMAX;
-      const int kj = key0 + j;
-      const bool in = kj < s_k && c < d;
-      const size_t off = k_base + static_cast<size_t>(kj) * d + c;
-      sm.k[j][c] = in ? k[off] : 0.f;
-      sm.v[j][c] = in ? v[off] : 0.f;
+  if (live > 0) {
+    if (threadIdx.x < NS) {
+      sm90::mbar_init(full + threadIdx.x, 32);  // one warp's copies fill a stage
+      done[threadIdx.x] = 0;
+    }
+    if constexpr (!VEC) {  // the pad columns of the last chunk read as 0
+      for (int i = threadIdx.x; i < NS * kBK * DT; i += C::kThreads) sk[i] = 0.f;
     }
     __syncthreads();
-
-    float sc[kBK / 4];
-    float mx = kNeg;
-#pragma unroll
-    for (int x = 0; x < kBK / 4; ++x) {
-      const int j = part + 4 * x;
-      float acc = 0.f;
-      for (int c = 0; c < d; ++c) acc = fmaf(sm.q[r][c], sm.k[j][c], acc);
-      if (!key_valid(causal, qi, key0 + j, s_k, q_offset, k_offset)) acc = kNeg;
-      sc[x] = acc;
-      mx = fmaxf(mx, acc);
+    if (warp < NS && warp < live) {  // warp t fills stage t with tile t
+      const size_t off = static_cast<size_t>(warp) * kBK * d;
+      const int rows = min(kBK, s_k - warp * kBK);
+      copy_tile<DT, W, true>(sk + warp * kBK * DT, kh + off, rows, d, lane);
+      copy_tile<DT, W, false>(sv + warp * kBK * DT, vh + off, rows, d, lane);
+      arrive_on_copies(full + warp);
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m_i, mx);
-    const float alpha = expf(m_i - m_new);
-    m_i = m_new;
-    float rs = 0.f;
-#pragma unroll
-    for (int x = 0; x < kBK / 4; ++x) {
-      const int j = part + 4 * x;
-      const float p = key_valid(causal, qi, key0 + j, s_k, q_offset, k_offset)
-                          ? expf(sc[x] - m_new)
-                          : 0.f;
-      sm.p[r][j] = p;
-      rs += p;
+    // q·scale, rounded to f32 once; rows past S_q and the pad columns 0
+    const float* qh = q + (static_cast<size_t>(head) * s_q + q_row0) * d;
+    const int wq = (d + 3) / 4 * (VEC ? 1 : 4);
+    Walk p = walk(threadIdx.x, wq, C::kThreads);
+    for (int i = threadIdx.x; i < C::kBQ * wq; i += C::kThreads, step(p, wq)) {
+      if constexpr (VEC) {
+        float4 x = p.row < q_rows ? *reinterpret_cast<const float4*>(qh + p.row * d + 4 * p.c)
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+        x.x *= scale, x.y *= scale, x.z *= scale, x.w *= scale;
+        *reinterpret_cast<float4*>(sq + chunk_xor<DT>(p.row, 4 * p.c, q_xor<C::kRPW>(p.row))) = x;
+      } else {
+        sq[chunk_xor<DT>(p.row, p.c, q_xor<C::kRPW>(p.row))] =
+            p.row < q_rows && p.c < d ? qh[p.row * d + p.c] * scale : 0.f;
+      }
     }
-    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-    l_i = l_i * alpha + rs;
-    __syncwarp();  // the row's p values come from the four threads of a quad
+    __syncthreads();
+  }
 
+  float o[R][NC][VW], m[R], lp[R];
 #pragma unroll
-    for (int x = 0; x < kCols; ++x) {
-      const int c = part + 4 * x;
-      float pv = 0.f;
-      for (int j = 0; j < kBK; ++j) pv = fmaf(sm.p[r][j], sm.v[j][c], pv);
-      o[x] = o[x] * alpha + pv;
+  for (int i = 0; i < R; ++i) {
+    m[i] = kNeg;
+    lp[i] = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc) {
+#pragma unroll
+      for (int w = 0; w < VW; ++w) o[i][cc][w] = 0.f;
+    }
+  }
+  const int nch = (d + 3) / 4;  // 16-byte chunks of a q·k product
+  const int qx = q_xor<C::kRPW>(tr), kx = tx & 7;
+  const int pswz = tr * C::kKG;  // P keys xor'd by row group
+  const float* qrow = sq + (wrow0 + tr) * DT;
+  float* prow = sp + (wrow0 + tr) * kBK;
+  const long long qi0 = static_cast<long long>(q_row0) + wrow0 + tr;
+
+  for (int t = 0; t < live; ++t) {
+    const int stage = t % NS, key0 = t * kBK;
+    sm90::mbar_wait(full + stage, (t / NS) & 1);
+    if (t < warp_live) {
+      const float* ks = sk + stage * kBK * DT + K * tx * DT;
+      const float* vs = sv + stage * kBK * DT + VW * tx;
+
+      // S = (q·scale)·Kᵀ: an FMA chain over d for each score
+      float s[R][K];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+#pragma unroll
+        for (int e = 0; e < K; ++e) s[i][e] = 0.f;
+      }
+#pragma unroll 2
+      for (int c = 0; c < nch; ++c) {
+        float4 kf[K];
+#pragma unroll
+        for (int e = 0; e < K; ++e) kf[e] = lds4(ks + e * DT + ((c ^ kx) << 2));
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const float4 qf = lds4(qrow + C::kRPW * i * DT + ((c ^ qx) << 2));
+#pragma unroll
+          for (int e = 0; e < K; ++e) {
+            s[i][e] = fmaf(qf.x, kf[e].x, s[i][e]);
+            s[i][e] = fmaf(qf.y, kf[e].y, s[i][e]);
+            s[i][e] = fmaf(qf.z, kf[e].z, s[i][e]);
+            s[i][e] = fmaf(qf.w, kf[e].w, s[i][e]);
+          }
+        }
+      }
+
+      __syncwarp();  // the warp's P·V reads of the last tile are done
+      const bool mask = key0 + kBK > s_k ||
+                        (causal && static_cast<long long>(q_offset) + q_row0 + wrow0 <
+                                       static_cast<long long>(k_offset) + key0 + kBK - 1);
+      if (mask) {
+        softmax_tile<DT, true>(s, m, lp, o, prow, pswz, tx, qi0, key0 + K * tx, s_k, causal,
+                               q_offset, k_offset);
+      } else {
+        softmax_tile<DT, false>(s, m, lp, o, prow, pswz, tx, qi0, key0 + K * tx, s_k, causal,
+                                q_offset, k_offset);
+      }
+      __syncwarp();  // a row's p come from the kKG lanes of its row group
+
+      // O += P·V: an FMA chain over the tile's keys in order
+#pragma unroll 2
+      for (int j4 = 0; j4 < kBK; j4 += 4) {
+        float4 pf[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) pf[i] = lds4(prow + C::kRPW * i * kBK + (j4 ^ pswz));
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          float vv[NC][VW];
+#pragma unroll
+          for (int cc = 0; cc < NC; ++cc) {
+            const float* src = vs + (j4 + jj) * DT + C::kKG * VW * cc;
+            if constexpr (VW == 4) {
+              const float4 x = lds4(src);
+              vv[cc][0] = x.x, vv[cc][1] = x.y, vv[cc][2] = x.z, vv[cc][3] = x.w;
+            } else {
+              const float2 x = *reinterpret_cast<const float2*>(src);
+              vv[cc][0] = x.x, vv[cc][1] = x.y;
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            const float pj = lane_of(pf[i], jj);
+#pragma unroll
+            for (int cc = 0; cc < NC; ++cc) {
+#pragma unroll
+              for (int w = 0; w < VW; ++w) o[i][cc][w] = fmaf(pj, vv[cc][w], o[i][cc][w]);
+            }
+          }
+        }
+      }
+    }
+
+    // done with the stage: the last warp to be done refills it
+    __syncwarp();
+    int last = 0;
+    if (lane == 0) {
+      __threadfence_block();
+      last = (atomicAdd(done + stage, 1) + 1) % C::kWarps == 0;
+    }
+    if (__shfl_sync(0xffffffffu, last, 0) && t + NS < live) {
+      __threadfence_block();
+      const size_t off = static_cast<size_t>(key0 + NS * kBK) * d;
+      const int rows = min(kBK, s_k - key0 - NS * kBK);
+      copy_tile<DT, W, true>(sk + stage * kBK * DT, kh + off, rows, d, lane);
+      copy_tile<DT, W, false>(sv + stage * kBK * DT, vh + off, rows, d, lane);
+      arrive_on_copies(full + stage);
     }
   }
 
-  if (qi < s_q) {
-    const float den = fmaxf(l_i, 1e-30f);
-    float* row = out + q_base + static_cast<size_t>(qi) * d;
+  // l: the kKG lanes' partial sums by a butterfly; out = o / max(l, 1e-30)
 #pragma unroll
-    for (int x = 0; x < kCols; ++x) {
-      const int c = part + 4 * x;
-      if (c < d) row[c] = o[x] / den;
+  for (int i = 0; i < R; ++i) {
+    float l = lp[i];
+#pragma unroll
+    for (int x = 1; x < C::kKG; x <<= 1) l += __shfl_xor_sync(0xffffffffu, l, x);
+    const int row = wrow0 + tr + C::kRPW * i;
+    if (row >= q_rows) continue;
+    const float den = fmaxf(l, 1e-30f);
+    const size_t orow = static_cast<size_t>(head) * s_q + q_row0 + row;
+    float* dst = out + orow * d;
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc) {
+      const int col = VW * tx + C::kKG * VW * cc;
+      float y[VW];
+#pragma unroll
+      for (int w = 0; w < VW; ++w) y[w] = o[i][cc][w] / den;
+      if constexpr (VEC && VW == 4) {
+        if (col < d) *reinterpret_cast<float4*>(dst + col) = make_float4(y[0], y[1], y[2], y[3]);
+      } else if constexpr (VEC) {
+        if (col < d) *reinterpret_cast<float2*>(dst + col) = make_float2(y[0], y[1]);
+      } else {
+#pragma unroll
+        for (int w = 0; w < VW; ++w) {
+          if (col + w < d) dst[col + w] = y[w];
+        }
+      }
     }
-    if (lse != nullptr && part == 0) {
-      lse[static_cast<size_t>(bh) * s_q + qi] = m_i + logf(den);
-    }
+    if (lse != nullptr && tx == 0) lse[orow] = m[i] + logf(den);
   }
 }
 
@@ -286,20 +611,59 @@ cudaError_t opt_in_smem(bool (&configured)[sm90::kMaxDevices], Kernel kernel,
   return err;
 }
 
-template <int DMAX>
-int launch_f32(const void* q, const void* k, const void* v, void* out,
-               float* lse, int bh, int s_q, int s_k, int d, int q_offset,
-               int k_offset, int causal, float scale, cudaStream_t s) {
-  const int smem = static_cast<int>(sizeof(F32Smem<DMAX>));
+// Launches of the tiled kernel in this process (read by
+// keystone_flash_attention_f32_tiled_launches).
+std::atomic<long long> tiled_launches{0};
+
+template <int DT, bool VEC>
+int launch_tiled(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
+                 int s_q, int s_k, int d, int q_offset, int k_offset, int causal, float scale,
+                 cudaStream_t s) {
+  using C = Tiled<DT>;
+  constexpr int smem = C::kSmemBytes;
   static bool configured[sm90::kMaxDevices] = {};
-  const cudaError_t err = opt_in_smem(configured, flash_fwd_f32<DMAX>, smem);
+  const cudaError_t err = opt_in_smem(configured, flash_fwd_f32<DT, VEC>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int q_tiles = (s_q + kBQ - 1) / kBQ;
-  flash_fwd_f32<DMAX><<<static_cast<unsigned>(bh) * q_tiles, 256, smem, s>>>(
+  const unsigned blocks = static_cast<unsigned>(bh) * ((s_q + C::kBQ - 1) / C::kBQ);
+  flash_fwd_f32<DT, VEC><<<blocks, C::kThreads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), lse, s_q, s_k,
-      d, q_tiles, q_offset, k_offset, causal, scale);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const float*>(v), static_cast<float*>(out), lse, bh, s_q, s_k, d,
+      q_offset, k_offset, causal, scale);
+  const cudaError_t launched = cudaGetLastError();
+  if (launched == cudaSuccess) tiled_launches.fetch_add(1, std::memory_order_relaxed);
+  return static_cast<int>(launched);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Rows 16-byte aligned: D % 4 == 0 and every base aligned.
+bool rows_aligned(const void* q, const void* k, const void* v, const void* out, int d) {
+  return d % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out);
+}
+
+// D rounded up to the tiled kernel's DT: 32, 64 or 128; 128 for rows off
+// 16 bytes.
+int tiled_dt(int d, bool vec) { return !vec ? 128 : d <= 32 ? 32 : d <= 64 ? 64 : 128; }
+
+// S_k > 64: the tiled kernel.
+int launch_f32_tiled(const void* q, const void* k, const void* v, void* out, float* lse,
+                     int bh, int s_q, int s_k, int d, int q_offset, int k_offset, int causal,
+                     float scale, cudaStream_t s) {
+  if (!rows_aligned(q, k, v, out, d)) {
+    return launch_tiled<128, false>(q, k, v, out, lse, bh, s_q, s_k, d, q_offset, k_offset,
+                                    causal, scale, s);
+  }
+  switch (tiled_dt(d, true)) {
+    case 32:
+      return launch_tiled<32, true>(q, k, v, out, lse, bh, s_q, s_k, d, q_offset, k_offset,
+                                    causal, scale, s);
+    case 64:
+      return launch_tiled<64, true>(q, k, v, out, lse, bh, s_q, s_k, d, q_offset, k_offset,
+                                    causal, scale, s);
+    default:
+      return launch_tiled<128, true>(q, k, v, out, lse, bh, s_q, s_k, d, q_offset, k_offset,
+                                     causal, scale, s);
+  }
 }
 
 // ------------------------------------------------------ f32, short keys
@@ -576,13 +940,6 @@ int launch_short_keys(const void* q, const void* k, const void* v, void* out,
                                     k_offset, causal, scale, s);
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
-// Rows 16-byte aligned: D % 4 == 0 and every base aligned.
-bool rows_aligned(const void* q, const void* k, const void* v, const void* out, int d) {
-  return d % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out);
-}
-
 // S_k ≤ 64: the short-key kernel at D rounded up to 32, 64 or 128.
 int launch_f32_short(const void* q, const void* k, const void* v, void* out,
                      float* lse, int bh, int s_q, int s_k, int d, int q_offset,
@@ -630,10 +987,8 @@ extern "C" int keystone_flash_attention(const void* q, const void* k,
       return launch_f32_short(q, k, v, out, l, bh, s_q, s_k, d, q_offset,
                               k_offset, causal, scale, s);
     }
-    return d <= 64 ? launch_f32<64>(q, k, v, out, l, bh, s_q, s_k, d,
-                                    q_offset, k_offset, causal, scale, s)
-                   : launch_f32<128>(q, k, v, out, l, bh, s_q, s_k, d,
-                                     q_offset, k_offset, causal, scale, s);
+    return launch_f32_tiled(q, k, v, out, l, bh, s_q, s_k, d, q_offset, k_offset,
+                            causal, scale, s);
   }
   if (in_dtype == 1 && out_dtype == 1) {
     return launch_bf16<__nv_bfloat16>(q, k, v, out, l, bh, s_q, s_k, d, d_in,
@@ -660,11 +1015,24 @@ extern "C" int keystone_flash_attention_smem_bytes(int d_in) {
 extern "C" int keystone_flash_attention_f32_smem_bytes(int bh, int s_q, int s_k,
                                                        int d, int vec) {
   if (s_k > kBK) {
-    return static_cast<int>(d <= 64 ? sizeof(F32Smem<64>) : sizeof(F32Smem<128>));
+    switch (tiled_dt(d, vec)) {
+      case 32:
+        return Tiled<32>::kSmemBytes;
+      case 64:
+        return Tiled<64>::kSmemBytes;
+      default:
+        return Tiled<128>::kSmemBytes;
+    }
   }
   const int dt = !vec ? 128 : d <= 32 ? 32 : d <= 64 ? 64 : 128;
   const int kmax = !vec ? 64 : s_k <= 16 ? 16 : s_k <= 32 ? 32 : 64;
   return short_plan(dt, kmax, bh, s_q, s_k).smem;
+}
+
+// The tiled f32 kernel's launches in this process so far: which route a
+// caller's f32 calls took, beside the wrapper's count of both routes.
+extern "C" long long keystone_flash_attention_f32_tiled_launches() {
+  return tiled_launches.load();
 }
 
 extern "C" const char* keystone_cuda_error_string(int code) {

@@ -142,6 +142,12 @@ def _qkv(card, seed, b, h, s_q, s_k, d, dtype):
         ((1, 4, 300, 200, 128), torch.bfloat16, False, (0, 0)),  # D = 128
         ((2, 2, 100, 130, 36), torch.bfloat16, True, (0, 30)),  # D not a multiple of 8
         ((1, 2, 65, 65, 100), torch.float32, True, (0, 0)),
+        # the tiled f32 kernel (S_k > 64)
+        ((8, 8, 256, 256, 32), torch.float32, True, (0, 0)),  # the trainer's default
+        ((2, 2, 130, 200, 64), torch.float32, True, (5, 90)),  # offsets: rows 0-84 fully masked
+        ((1, 3, 333, 129, 128), torch.float32, False, (0, 0)),
+        ((3, 2, 97, 97, 33), torch.float32, True, (0, 0)),  # rows not 16-byte aligned
+        ((2, 3, 20, 100, 40), torch.float32, True, (0, 70)),  # every row fully masked
         # the Hopper tiles: 192 q rows a block (128 at D > 64), 64 keys
         ((1, 3, 200, 333, 64), torch.bfloat16, True, (70, 30)),  # ragged S, offsets
         ((2, 2, 191, 193, 64), torch.bfloat16, False, (0, 0)),  # one row short of a block
@@ -182,6 +188,24 @@ def test_k2_matches_plain(card, shape, dtype, causal, offsets):
     assert torch.all(out[~live] == 0)
 
 
+@pytest.mark.parametrize("shape,causal", [((2, 2, 200, 300, 64), True),
+                                          ((1, 2, 130, 130, 32), False)])
+def test_k2_f32_tiled_holds_at_large_scores(card, shape, causal):
+    """The tiled f32 kernel's exponentials at scores tens apart: q times 8
+    spreads a row's scores over about ±25, where an exponential off by
+    |x|·2^-24 relative would show first; out within K2_F32_TOL of the
+    plain version, the lse within 1e-5 of max(1, |lse|)."""
+    from keystone_tpu_torch.ops import flash_attention as fa
+
+    b, h, s_q, s_k, d = shape
+    q, k, v = _qkv(card, sum(shape) + 1, b, h, s_q, s_k, d, torch.float32)
+    out, lse = fa.flash_attention(8 * q, k, v, causal=causal, return_lse=True)
+    ref, ref_lse = fa.flash_attention_plain(8 * q, k, v, causal=causal, return_lse=True)
+    assert _rel(out, ref) <= K2_F32_TOL
+    scale = max(1.0, float(ref_lse.abs().max()))
+    assert float((lse - ref_lse).abs().max()) <= 1e-5 * scale
+
+
 def test_k2_bf16_in_f32_out(card):
     from keystone_tpu_torch.ops import flash_attention as fa
 
@@ -220,7 +244,7 @@ def test_k2_bf16_in_f32_out_with_lse_and_masked_rows(card, d):
 @pytest.mark.parametrize("shape", [(1, 2, 64, 128), (1, 2, 200, 64)], ids=["short_keys", "tiled"])
 def test_k2_f32_launches_on_a_second_card(card, shape):
     """Both f32 kernels opt in to more than 48 KB of shared memory (about
-    100 KB and 66 KB at these shapes) on each card they launch on: a
+    100 KB and 224 KB at these shapes) on each card they launch on: a
     process that launched on card 0 launches on card 1 too, and each
     card's result is its plain version's."""
     if torch.cuda.device_count() < 2:
@@ -816,6 +840,7 @@ def test_sampled_graph_replays_draw_fresh_numbers(card):
     (torch.bfloat16, (1, 16, 128, 64), True),
     (torch.float32, (1, 16, 128, 64), True),
     (torch.float32, (512, 4, 16, 32), False),  # ViT's call: the short-key kernel
+    (torch.float32, (8, 16, 2048, 64), True),  # the f32 legs' call: the tiled kernel
 ])
 def test_k2_graph_replays_give_the_eager_bits(card, dtype, shape, causal):
     from keystone_tpu_torch.ops import flash_attention as fa

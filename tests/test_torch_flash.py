@@ -6,6 +6,7 @@ against dense attention. Inputs come from numpy seeds.
 Each test starts from a state no earlier test file of the same worker can
 have changed (:func:`fresh_state`)."""
 
+import importlib.util
 import os
 
 import numpy as np
@@ -188,6 +189,151 @@ def test_k2_short_key_arithmetic_matches_plain_and_jax(shape, causal, offsets):
                            (np.asarray(j_out), np.asarray(j_lse))):
         np.testing.assert_allclose(got.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
         _assert_lse_close(got_lse.numpy(), want_lse)
+
+
+_LOG2E_F32 = float(np.float32(1.44269502))
+_LN2_F32 = float(np.float32(0.693147182))
+
+
+def _exp_sfu(x):
+    """The tiled f32 kernel's exp_sfu on an f32 tensor, its special-function
+    unit's 2^t taken as correctly rounded: t = x·log2 e rounded to f32, c =
+    x − t·ln 2 rounded once (an FMA), 2^t·(1 + c) rounded once (an FMA).
+    Products of two f32 values are exact in f64."""
+    f32, f64 = torch.float32, torch.float64
+    t = (x.to(f64) * _LOG2E_F32).to(f32)
+    c = (x.to(f64) - t.to(f64) * _LN2_F32).to(f32)
+    y = torch.exp2(t.to(f64)).to(f32).to(f64)
+    return (y * c.to(f64) + y).to(f32)
+
+
+def test_k2_tiled_exp_is_within_ulps_of_exp():
+    """exp_sfu's roundings leave at most 2.3 ulp against exp for |x| ≤ 30
+    (beside the special-function unit's own 2 ulp), where 2^t alone is off
+    by up to 29; at x = 0 it is exact, and exp(−1e30) is 0."""
+    x = torch.from_numpy(-np.concatenate([np.logspace(-8, np.log10(30), 300_000),
+                                          np.linspace(0, 30, 300_001)]).astype(np.float32))
+    want = torch.exp(x.to(torch.float64))
+    ulp = torch.from_numpy(np.spacing(want.to(torch.float32).numpy())).to(torch.float64)
+
+    def ulps(got):
+        return float(((got.to(torch.float64) - want).abs() / ulp).max())
+
+    assert ulps(_exp_sfu(x)) <= 2.3
+    assert ulps(torch.exp2((x.to(torch.float64) * _LOG2E_F32).to(torch.float32).to(
+        torch.float64)).to(torch.float32)) > 20
+    assert float(_exp_sfu(torch.tensor([0.0]))) == 1.0
+    assert float(_exp_sfu(torch.tensor([-1e30]))) == 0.0
+
+
+def _k2_tiled_emulated(q, k, v, *, causal=False, q_offset=0, k_offset=0):
+    """K2's tiled f32 kernel (S_k > 64) in its own order of sums: each score
+    an FMA chain over D of q·scale (rounded to f32) and k; per 64-key tile
+    the masked scores set to −1e30, m_new = max(m, the tile's row max),
+    alpha and p as _exp_sfu of x = m − m_new and s − m_new; each of a
+    row's G lanes keeps a partial l, lane t over the tile's keys K·t … K·t
+    + K − 1 (G = 8, K = 8 at 32 < D ≤ 64; else G = 16, K = 4, as for rows
+    off 16 bytes), l·alpha rounded, then its p added in order; acc·alpha
+    rounded, then an FMA chain of p·v over the tile's keys in order; at
+    the end a butterfly adds the G partial sums (xor 1, 2, 4, …), out =
+    acc / max(l, 1e-30), lse = m + log(max(l, 1e-30)). An FMA is the f64
+    product (exact for f32 factors) plus the f32 sum, rounded once to
+    f32."""
+    f32, f64 = torch.float32, torch.float64
+    s_q, d = q.shape[2], q.shape[3]
+    s_k = k.shape[2]
+    lanes, keys = (8, 8) if d % 4 == 0 and 32 < d <= 64 else (16, 4)
+    qs = q * flash._scale(d, f32)
+
+    def fma(a, b, c):
+        return (a.to(f64) * b.to(f64) + c.to(f64)).to(f32)
+
+    lead = q.shape[:3]
+    m = torch.full(lead + (1,), -1e30, dtype=f32)
+    lp = torch.zeros(lead + (lanes,), dtype=f32)
+    acc = torch.zeros(q.shape, dtype=f32)
+    q_pos = q_offset + torch.arange(s_q)[:, None]
+    for key0 in range(0, s_k, 64):
+        kt, vt = k[:, :, key0 : key0 + 64], v[:, :, key0 : key0 + 64]
+        n = kt.shape[2]
+        s = torch.zeros(lead + (n,), dtype=f32)
+        for c in range(d):
+            s = fma(qs[..., c : c + 1], kt[..., c][..., None, :], s)
+        valid = torch.ones((s_q, n), dtype=torch.bool)
+        if causal:
+            valid = q_pos >= k_offset + key0 + torch.arange(n)[None, :]
+        s = torch.where(valid, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = _exp_sfu(m - m_new)
+        p = torch.where(valid, _exp_sfu(s - m_new), 0.0)
+        lp = lp * alpha
+        for j in range(n):  # lane j // keys adds its keys in order
+            lane = j // keys
+            lp[..., lane] = lp[..., lane] + p[..., j]
+        acc = acc * alpha
+        for j in range(n):
+            acc = fma(p[..., j : j + 1], vt[:, :, j : j + 1, :], acc)
+        m = m_new
+    part = [lp[..., t : t + 1] for t in range(lanes)]
+    while len(part) > 1:  # butterfly: neighbours first
+        part = [part[i] + part[i + 1] for i in range(0, len(part), 2)]
+    den = torch.clamp_min(part[0], 1e-30)
+    return acc / den, (m + torch.log(den))[..., 0]
+
+
+@pytest.mark.parametrize("shape,causal,offsets", [
+    ((1, 2, 16, 65, 32), False, (0, 0)),  # the first S_k past one key tile
+    ((2, 2, 130, 200, 64), True, (5, 90)),  # offsets: rows 0-84 fully masked
+    ((1, 2, 40, 129, 128), False, (0, 0)),
+    ((2, 2, 97, 97, 33), True, (0, 0)),  # rows off 16 bytes
+    ((1, 2, 70, 90, 40), True, (20, 0)),
+    ((1, 1, 33, 70, 100), False, (0, 0)),
+    ((2, 2, 64, 256, 32), True, (0, 0)),  # the trainer's default D, four tiles
+    ((1, 2, 100, 130, 64), False, (3, 1)),
+    ((1, 1, 65, 66, 128), True, (0, 0)),
+])
+def test_k2_tiled_arithmetic_matches_plain_and_jax(shape, causal, offsets):
+    """The emulation of the tiled f32 kernel's order of sums against K2's
+    plain version and the JAX package's flash_attention (Pallas, interpret
+    mode), within F32_TOL, the lse included."""
+    b, h, s_q, s_k, d = shape
+    q, k, v = _qkv(sum(shape) + 3, b, h, s_q, s_k, d)
+    kw = dict(causal=causal, q_offset=offsets[0], k_offset=offsets[1])
+    got, got_lse = _k2_tiled_emulated(*(torch.from_numpy(x) for x in (q, k, v)), **kw)
+    plain, plain_lse = _port(q, k, v, return_lse=True, **kw)
+    j_out, j_lse = _jax(q, k, v, return_lse=True, **kw)
+    for want, want_lse in ((plain.numpy(), plain_lse.numpy()),
+                           (np.asarray(j_out), np.asarray(j_lse))):
+        np.testing.assert_allclose(got.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
+        _assert_lse_close(got_lse.numpy(), want_lse)
+    if offsets == (5, 90):
+        assert torch.all(got[:, :, :85] == 0) and torch.all(got_lse[:, :, :85] <= -1e29)
+
+
+def _k2_tiled_probe():
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "tools", "k2_tiled_probe.py")
+    spec = importlib.util.spec_from_file_location("k2_tiled_probe", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("variant", ["kernel", "expf", "approx", "no_softmax", "s_only",
+                                     "pv_only"])
+def test_k2_tiled_probe_patches_the_kernel_source(variant):
+    """Each probe build of tools/k2_tiled_probe.py patches today's
+    flash_attention.cu (every anchor found once) and leaves its bf16
+    launches out, so a change to the kernel that moves an anchor fails
+    here rather than on the card."""
+    probe = _k2_tiled_probe()
+    patches, _ = probe.VARIANTS[variant]
+    src = probe.variant_source(patches)
+    with open(os.path.join(probe.CSRC_DIR, "flash_attention.cu")) as f:
+        whole = f.read()
+    assert "return launch_bf16<" in whole and "return launch_bf16<" not in src
+    for old, new in patches:
+        assert old not in src and new in src
+    assert "flash_fwd_f32<DT, VEC><<<" in src
 
 
 def test_fully_masked_rows_are_zero_with_lse():
