@@ -38,7 +38,20 @@ through the run supervisor (``supervise --procs 4 -- chip_multicard.py
    and V block to the next card), one ``all_to_all``'s ms at that shape,
    and a ring train step after one that warms it (K3 10 a layer over the
    ranks);
-8. after each of 4-7, the parameters hash the same on every rank.
+8. after each of 4-7, the parameters hash the same on every rank;
+9. serving a model sharded over a model axis of the four cards (TP
+   (1, 4)) at the decode width: f32 at depth 2, teacher-forced prefill
+   and 32 decode steps of ``shard_params(m)`` and of
+   ``quantize_for_decode(shard_params(m))`` against one process on card 0
+   at ``chip_smoke``'s phase 45 bars (within 1e-5 of max|logit|, the
+   gathered codes and scales bit for bit, the row-split ``wo``/``w2``
+   scaled by their max over the cards), K2 2 and K4 384 a rank; then
+   ``export_lm(shard_params(m), quantize=True, int8_kv=True)`` in bf16
+   at depth 8 with phase 45's 8 prompts on every rank (128 tokens, 256
+   new): the same tokens on every rank, whether the pool was captured as
+   CUDA graphs with its NCCL collectives (printed), K4 48 a step replay
+   and K2 8 a prefill replay a rank by kernel name, ms a pooled step and
+   tokens/s.
 
 Every NCCL communicator is warmed before it is timed: its first use
 builds it.
@@ -193,6 +206,62 @@ def parallel_parts(device, out_dir: str) -> dict:
     return res
 
 
+def serving_part(device, out_dir: str) -> dict:
+    """Part 9 on this rank: TP (1, 4) serving over NCCL."""
+    import numpy as np
+
+    from keystone_tpu_torch.models.lm import shard_params
+    from keystone_tpu_torch.parallel import create_mesh, multihost
+
+    # every rank replays the same graphs under the profiler: a rank that
+    # took a session again would replay collectives the others do not
+    cs.TRACE_ATTEMPTS = 1
+    mesh = create_mesh(data=1, model=PROCS)
+    _warm(mesh)
+    f32 = cs.shard_f32_legs(device, mesh)
+    if multihost.process_index() == 0:
+        torch.save({k: f32[k].cpu() for k in ("float", "int8")},
+                   os.path.join(out_dir, "shard_f32.pt"))
+    res = {"f32": {"codes_equal": f32["codes_equal"], "launches": f32["launches"]}}
+    del f32
+    torch.cuda.empty_cache()
+    model = shard_params(cs.shard_model(device, cs.LM_CONF["depth"], "bfloat16"), mesh)
+    leg, loop, state, outs = cs.shard_loop_leg(device, model, cs.shard_prompts())
+    leg["step_ms"] = cs._step_ms(loop, state, loop._tok.copy())
+    leg["tokens_equal_ranks"] = cs.replicas_equal([torch.from_numpy(np.concatenate(outs))])
+    res["bf16"] = leg
+    return res
+
+
+def check_serving(ranks: list, out_dir: str, ref: dict) -> dict:
+    """Hold and print part 9 of every rank against the one-process
+    reference on card 0."""
+    depth = cs.LM_CONF["depth"]
+    saved = {k: v.to(ref[k].device)
+             for k, v in torch.load(os.path.join(out_dir, "shard_f32.pt")).items()}
+    f32 = cs.check_shard_f32(f"TP (1, {PROCS}) serving f32 depth {cs.SHARD_F32_DEPTH}",
+                             {**ranks[0]["f32"], **saved}, ref, 1)
+    for r, par in enumerate(ranks):
+        cs.check(par["f32"]["codes_equal"], f"rank {r}: the sharded quantization differs")
+        cs.check(par["f32"]["launches"] == ranks[0]["f32"]["launches"],
+                 f"rank {r}: f32 leg launches {par['f32']['launches']}")
+        b = par["bf16"]
+        print(f"  rank {r} TP serving bf16 depth {depth}: graphed {b['graphed']}; "
+              f"{b['tokens']} tokens in {b['wall_s']:.3f} s ({b['tokens_per_s']:.1f} tokens/s); "
+              f"pooled step {b['step_ms']:.3f} ms; launches a step replay "
+              f"{b.get('step_launches')}, a prefill replay {b.get('prefill_launches')}; K4 "
+              f"pieces {b['k4_pieces']}, on quantization.mm {b['pieces_on_mm']}; peak "
+              f"{b['peak_bytes'] / 2**30:.2f} GiB")
+        cs.check(b["tokens_equal_ranks"], "TP serving: the ranks' tokens differ")
+        cs.check(b["k4_pieces"] == 6 * depth - len(b["pieces_on_mm"]), f"rank {r}: K4 pieces")
+        if b["graphed"]:
+            cs.check(b["step_launches"]["int8_matmul"] == b["k4_pieces"],
+                     f"rank {r}: a step replay launched {b['step_launches']}")
+            cs.check(b["prefill_launches"]["flash_attention"] == depth,
+                     f"rank {r}: a prefill replay launched {b['prefill_launches']}")
+    return {"f32": f32, "ranks": [p["bf16"] for p in ranks]}
+
+
 def worker(out_dir: str) -> None:
     """One process of the four: NCCL on card ``rank``."""
     from keystone_tpu_torch.models import mnist_random_fft
@@ -258,6 +327,8 @@ def worker(out_dir: str) -> None:
     del flat
     torch.cuda.empty_cache()
     res["parallel"] = parallel_parts(device, out_dir)
+    torch.cuda.empty_cache()
+    res["serving"] = serving_part(device, out_dir)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     multihost.shutdown()
@@ -339,6 +410,7 @@ def main() -> None:
         undo()
     ref = cs.f32_reference(device, PROCS)
     par_ref, par_floor = cs.par_reference(device, cs.PAR_F32_DEPTH)
+    shard_ref = cs.shard_f32_reference(device)
     torch.cuda.empty_cache()
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -364,6 +436,7 @@ def main() -> None:
             f"{label} f32 depth {cs.PAR_F32_DEPTH} over {PROCS} cards",
             cs.load_dist_f32_leg(out, tag, par_ranks, cs.PAR_F32_DEPTH), par_ref, par_floor)
             for tag, label in (("tp", "TP (1, 4)"), ("dptp", "dp x tp (2, 2)"))}
+        serving = check_serving([r["serving"] for r in ranks], out, shard_ref)
 
     print(f"four processes, one card each: {procs_s:.1f} s under the supervisor")
     want_k2 = cs.TRAIN_CONF["depth"] * STEPS
@@ -396,7 +469,9 @@ def main() -> None:
     summary = {"cards": smi, "backend": "nccl", "procs_s": procs_s, "parallel": parallel,
                "one_process": {"mnist_fit_s": res8["fit_s"], "mnist_test_error":
                                res8["test_error"]},
-               "ranks": [{k: v for k, v in r.items() if k != "parallel"} for r in ranks],
+               "serving": serving,
+               "ranks": [{k: v for k, v in r.items() if k not in ("parallel", "serving")}
+                         for r in ranks],
                "mnist_agreement": agree, "mnist_weight_dist": w_dist,
                "f32": f32,
                "s": time.perf_counter() - t_all}

@@ -212,7 +212,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    λ 6e-5, mixture weight 0.25, blocks of 4,096, chunks of 32; D = 4,096
    features): ``imagenet_sift_lcs_fv.main`` eager on 1,024 + 256
    synthetic images of 8 classes (test top-1 error ≤ 5 %), then
-   ``--streaming`` with ``KEYSTONE_PLAN=1`` on 4,096 + 1,024 images of
+   ``--streaming`` with ``KEYSTONE_PLAN=1`` on 2,048 + 512 images of
    1,000 classes (the solver at (D, C) = (4,096, 1,000); the planner's fit
    decisions and ``plan_featurize_passes_saved``); load, SIFT, LCS, PCA,
    GMM, Fisher, fit and test s, samples/s, peak memory; no hand kernel
@@ -343,6 +343,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    1, K2 16 a rank for Ulysses, the parameters hashing the same on both
    ranks), and one f32 TP step over a model axis of two against one
    process, as in (a).
+
+45. serving a sharded model, one process on a mesh naming the card 4
+   times. (a) f32 at depth 2 at the decode width: teacher-forced prefill
+   (8 × 128) and 32 decode steps of ``shard_params(m)`` and of
+   ``quantize_for_decode(shard_params(m))`` (K4 on) within 1e-5 of
+   max|logit| of the unsharded pair from the same weights, K2 8 in the
+   prefill and K4 1,536 in the int8 leg's steps, the sharded quantization's
+   codes and scales (gathered, and the positions' pieces joined) equal to
+   the whole model's bit for bit. (b) bf16 at depth 8:
+   ``export_lm(shard_params(m), quantize=True, int8_kv=True)`` and
+   ``export_lm(m, ...)``, 8 slots, 8 prompts of 128 tokens and 256 new
+   tokens each: both graphed; by kernel name in a profiler trace, K4 192
+   a step replay and K2 32 a prefill replay (48 and 8 unsharded; a weight
+   piece that takes ``quantization.mm`` is printed and taken off); ms a
+   pooled step in turns, tokens/s, peak memory; the sharded pool fed the
+   unsharded pool's tokens picks the same next token at ≥ 99 % of the
+   steps (the free-running agreement printed); K2 at (8, 4, 128, 64) and
+   K4 at the pieces' shapes against their plain versions, timed beside
+   them, their library calls and bounds. (c) ``ServeApp`` over (b)'s
+   sharded loop answers 8 concurrent ``/generate``, all 200 with the
+   loop's own tokens.
 
 Phase 7 also holds K2 with its lse against its plain version at the train
 steps' shapes, (8, 16, 2,048, 64) and (1, 8, 16,384, 64), bf16 causal.
@@ -3588,7 +3609,7 @@ def phase_sift_bench(device) -> dict:
 # 2·64·16 = 4,096 features), and the weighted solver at bench.py's two shapes
 IMNET_ARGV = ["--synthetic", "1024"]  # 1,024 + 256 images, 8 classes (the default)
 IMNET_MAX_TOP1 = 0.05  # the synthetic classes are far apart
-IMNET_STREAM_ARGV = ["--synthetic", "4096", "--synthetic-classes", "1000", "--streaming"]
+IMNET_STREAM_ARGV = ["--synthetic", "2048", "--synthetic-classes", "1000", "--streaming"]
 IMNET_FEATURES = 2 * 2 * 64 * 16
 # a small configuration, featurized on the card and on the CPU from one set of
 # descriptors and artifacts
@@ -3677,7 +3698,7 @@ def phase_imagenet(device) -> dict:
     """Phase 32: ``imagenet_sift_lcs_fv`` at ``ImageNetConfig``'s widths.
     (a) ``run``, eager, on 1,024 + 256 synthetic images of 8 classes:
     top-1 error ≤ 5 %, the parts' seconds, samples/s, peak memory;
-    (b) ``run_streaming`` with ``KEYSTONE_PLAN=1`` on 4,096 + 1,024 images
+    (b) ``run_streaming`` with ``KEYSTONE_PLAN=1`` on 2,048 + 512 images
     of 1,000 classes, the solver at (D, C) = (4,096, 1,000): the
     planner's fit decisions, ``plan_featurize_passes_saved``, both
     errors. No hand kernel launches in either leg. Then a small
@@ -6305,6 +6326,415 @@ def phase_parallel(device) -> dict:
     return res
 
 
+# --- phase 45: serving a sharded model (one card named PAR_N times)
+SHARD_F32_DEPTH = 2  # leg (a): f32 against the unsharded model, cut for the time limit
+SHARD_F32_TOL = 1e-5  # of max|logit|, f32 sharded against unsharded from the same weights
+SHARD_S_MAX = LM_PROMPT + LM_MAX_NEW  # 128 + 256
+SHARD_TIMED_STEPS = 50
+
+
+def shard_model(device, depth: int, compute_dtype: str):
+    """Phase 45's model at the decode width (seed 0)."""
+    from keystone_tpu_torch.models.lm import TransformerLM
+
+    return TransformerLM.create(**dict(LM_CONF, depth=depth), compute_dtype=compute_dtype,
+                                device=device, generator=torch.Generator(device=device).manual_seed(0))
+
+
+def shard_tokens(device) -> torch.Tensor:
+    """Leg (a)'s (8, 128 + 32) teacher-forced tokens (seed 45)."""
+    import numpy as np
+
+    return torch.from_numpy(np.random.default_rng(45).integers(
+        0, LM_CONF["vocab"], size=(LM_BATCH, LM_PROMPT + EQUIV_STEPS))).to(device)
+
+
+def shard_prompts() -> list:
+    """Leg (b)'s 8 prompts of 128 tokens (seed 46)."""
+    import numpy as np
+
+    rng = np.random.default_rng(46)
+    return [rng.integers(0, LM_CONF["vocab"], size=LM_PROMPT) for _ in range(LM_BATCH)]
+
+
+def teacher_forced(model, toks) -> torch.Tensor:
+    """Prefill of the first 128 tokens, then a decode step along each of
+    the next 32: the (33, B, V) f32 logits."""
+    from keystone_tpu_torch.models.lm import decode
+
+    logits, cache = decode.prefill(model, toks[:, :LM_PROMPT], toks.shape[1] + 1)
+    out = [logits]
+    for j in range(LM_PROMPT, toks.shape[1]):
+        logits, cache = decode.decode_step(model, toks[:, j], cache)
+        out.append(logits)
+    return torch.stack(out)
+
+
+def same_quantization(sharded_q, whole_q) -> bool:
+    """True when a sharded model's int8 codes and scales, gathered, equal
+    the whole model's quantization bit for bit (and, in one process, the
+    positions' pieces joined back equal them too)."""
+    from keystone_tpu_torch.models.lm import unshard_params
+    from keystone_tpu_torch.models.lm.sharding import leaf_dims
+    from keystone_tpu_torch.ops.quantization import QTensor
+
+    tp = sharded_q.tp
+    same = True
+    for got, mine, want, dim in zip(unshard_params(sharded_q).leaves(), sharded_q.leaves(),
+                                    whole_q.leaves(), leaf_dims(sharded_q)):
+        if not isinstance(want, QTensor):
+            continue
+        same &= torch.equal(got.q, want.q) and torch.equal(got.scale, want.scale)
+        if dim is not None and not tp.local:
+            pieces = [tp.part(mine, dim, p, None) for p in range(tp.n)]
+            same &= torch.equal(torch.cat([x.q for x in pieces], dim=dim), want.q)
+    return bool(same)
+
+
+def shard_f32_legs(device, mesh) -> dict:
+    """Phase 45 (a) on ``mesh``: f32 at depth 2, teacher-forced prefill and
+    32 decode steps of the sharded model and of the sharded quantized
+    model (``quantize_for_decode(shard_params(m))``, K4 on), each with
+    the launches they counted: {"float": logits, "int8": logits,
+    "launches": {...}, "codes_equal": bool}."""
+    from keystone_tpu_torch.models.lm import quantize_for_decode, shard_params
+
+    model = shard_model(device, SHARD_F32_DEPTH, "float32")
+    toks = shard_tokens(device)
+    sharded = shard_params(model, mesh)
+    quant = quantize_for_decode(sharded)
+    out = {"codes_equal": same_quantization(quant, quantize_for_decode(model)), "launches": {}}
+    for name, m in (("float", sharded), ("int8", quant.replace(int8_kernel="kernel"))):
+        torch.cuda.synchronize()
+        _zero_counts()
+        out[name] = teacher_forced(m, toks)
+        torch.cuda.synchronize()
+        out["launches"][name] = _counts()
+    return out
+
+
+def shard_f32_reference(device) -> dict:
+    """The unsharded model's logits of leg (a), from the same weights."""
+    from keystone_tpu_torch.models.lm import quantize_for_decode
+
+    model = shard_model(device, SHARD_F32_DEPTH, "float32")
+    toks = shard_tokens(device)
+    return {"float": teacher_forced(model, toks),
+            "int8": teacher_forced(quantize_for_decode(model).replace(int8_kernel="kernel"),
+                                   toks)}
+
+
+def check_shard_f32(label: str, got: dict, ref: dict, positions: int) -> dict:
+    """Hold leg (a)'s logits within SHARD_F32_TOL of max|logit| of the
+    unsharded model's, the codes bit for bit, and the launches: K2 once a
+    block a position in the prefill, K4 six times a block a position in
+    every decode step of the int8 leg (a prefill of 1,024 rows takes
+    ``quantization.mm``)."""
+    res = {"codes_equal": got["codes_equal"], "launches": got["launches"]}
+    for name in ("float", "int8"):
+        err = _rel(got[name], ref[name])
+        agree = float((got[name].argmax(-1) == ref[name].argmax(-1)).float().mean())
+        res[name] = {"max_rel_err": err, "argmax_agreement": agree}
+        print(f"  {label} {name}: prefill + {EQUIV_STEPS} decode steps, max|sharded - "
+              f"unsharded| / max|logit| = {err:.3e}, argmax agreement {agree:.4%}, launches "
+              f"{got['launches'][name]}")
+        check(bool(torch.isfinite(got[name]).all()), f"{label} {name}: logits not finite")
+        check(err <= SHARD_F32_TOL, f"{label} {name}: logits {err:.3e} of max from unsharded")
+    depth = SHARD_F32_DEPTH
+    want = {"float": {"flash_attention": depth * positions, "int8_matmul": 0},
+            "int8": {"flash_attention": depth * positions,
+                     "int8_matmul": 6 * depth * positions * EQUIV_STEPS}}
+    for name, w in want.items():
+        got_l = {k: got["launches"][name][k] for k in w}
+        check(got_l == w, f"{label} {name}: launches {got['launches'][name]}, want {w}")
+    print(f"  {label}: the sharded quantization's codes and scales equal the whole model's "
+          f"bit for bit: {got['codes_equal']}")
+    check(got["codes_equal"], f"{label}: the sharded quantization differs from the whole one")
+    return res
+
+
+def k4_pieces(model) -> tuple:
+    """(K4 launches a pooled step, the pieces that take ``quantization.mm``)
+    of an int8 model under its layout: every weight's piece a position
+    (the whole weight without a layout) whose (1, N) scale K4 takes."""
+    from keystone_tpu_torch.models.lm.model import _WEIGHTS
+    from keystone_tpu_torch.models.lm.sharding import leaf_dims
+    from keystone_tpu_torch.ops.quantization import QTensor
+
+    tp = model.tp
+    dims = leaf_dims(model)[2:]
+    k4, on_mm = 0, []
+    for i, blk in enumerate(model.blocks):
+        for j, (name, w) in enumerate(zip(_WEIGHTS, blk.leaves())):
+            dim = dims[6 * i + j]
+            split = tp is not None and dim is not None and not tp.local
+            pieces = [tp.part(w, dim, p, None) for p in range(tp.n)] if split else [w]
+            for p, piece in enumerate(pieces):
+                if isinstance(piece, QTensor) and tuple(piece.scale.shape) == (1, piece.q.shape[1]):
+                    k4 += 1
+                else:
+                    on_mm.append(f"block {i} {name} piece {p}")
+    return k4, on_mm
+
+
+def _pool_state(loop) -> list:
+    c = loop.cache
+    return [t.clone() for t in (c.k, c.v, c.k_scale, c.v_scale, c.pos)]
+
+
+def _restore_pool(loop, state) -> None:
+    c = loop.cache
+    for buf, saved in zip((c.k, c.v, c.k_scale, c.v_scale, c.pos), state):
+        buf.copy_(saved)
+
+
+def shard_loop_leg(device, model, prompts) -> dict:
+    """Phase 45 (b) for one model: ``export_lm(quantize=True,
+    int8_kv=True)`` with 8 slots, the prompts run to 256 new tokens each
+    (wall, tokens/s, peak memory), then one pool state with every slot
+    busy: the graphed step's ms, and K4 and K2 by kernel name in a
+    profiler trace of 8 step replays and of one prefill replay. Returns
+    the leg, the loop (its slots busy, at that state) and the state."""
+    import numpy as np
+
+    from keystone_tpu_torch.serve.export import export_lm
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    loop = export_lm(model, slots=LM_BATCH, s_max=SHARD_S_MAX, quantize=True, int8_kv=True,
+                     max_new=LM_MAX_NEW)
+    warm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = loop.run(prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    tokens = sum(len(o) for o in outs)
+    check(tokens == LM_BATCH * LM_MAX_NEW, f"sharded serving: {tokens} tokens")
+    check(all(bool(((o >= 0) & (o < LM_CONF["vocab"])).all()) for o in outs),
+          "sharded serving: a token out of range")
+    leg = {"graphed": loop.graphed, "warm_s": warm_s, "wall_s": wall, "tokens": tokens,
+           "tokens_per_s": tokens / wall, "peak_bytes": torch.cuda.max_memory_allocated(),
+           "capture_launches": counts}
+    k4_want, on_mm = k4_pieces(loop.model)
+    leg["k4_pieces"], leg["pieces_on_mm"] = k4_want, on_mm
+    with torch.inference_mode():
+        for p in prompts:
+            loop.submit(p, max_new=LM_MAX_NEW)
+        loop._admit()
+        state = _pool_state(loop)
+        tok = loop._tok.copy()
+        if loop.graphed:
+            _restore_pool(loop, state)
+            trace = traced_launches(lambda: [loop._run_step(tok) for _ in range(8)],
+                                    reset=lambda: _restore_pool(loop, state))
+            padded = np.asarray(prompts[0])[None]
+            prefill = traced_launches(lambda: loop._run_prefill(padded, LM_PROMPT))
+            leg["step_launches"] = {k: v / 8 for k, v in trace["launches"].items()}
+            leg["prefill_launches"] = prefill["launches"]
+            leg["step_device_busy_ms"] = trace["device_busy_ms"] / 8
+            leg["step_kernels"] = trace["device_kernels"] / 8
+        _restore_pool(loop, state)
+    return leg, loop, state, outs
+
+
+def _step_ms(loop, state, tok) -> float:
+    with torch.inference_mode():
+        _restore_pool(loop, state)
+        return _wall(lambda: loop._run_step(tok), iters=SHARD_TIMED_STEPS) * 1e3
+
+
+def shard_kernel_shapes(device, qmodel) -> dict:
+    """K2 at one position's prefill call, (8, 4, 128, 64) bf16 causal, and
+    K4 at the pieces' shapes, 8 rows in bf16 against the (1,024 × 256)
+    column piece of ``wq``, the (256 × 1,024) row piece of ``wo`` and the
+    (1,024 × 1,024) pieces of ``w1`` and ``w2``: each against its plain
+    version, timed beside it, its library call and its bound."""
+    import torch.nn.functional as F
+
+    from keystone_tpu_torch.ops import flash_attention as fa
+    from keystone_tpu_torch.ops import int8_matmul as im
+
+    gen = torch.Generator(device=device).manual_seed(45)
+    tp, blk = qmodel.tp, qmodel.blocks[0]
+    k4 = {}
+    for name, w, dim in (("wq_piece", blk.wq, 1), ("wo_piece", blk.wo, 0), ("w1_piece", blk.w1, 1),
+                         ("w2_piece", blk.w2, 0)):
+        piece = tp.part(w, dim, 1, device)
+        k, n = piece.q.shape
+        y = torch.randn((LM_BATCH, k), generator=gen, device=device).to(torch.bfloat16)
+        out = im.mm_fused(y, piece)
+        torch.cuda.synchronize()
+        ref = im.mm_fused_plain(y, piece)
+        err = _rel(out, ref)
+        check(err <= K4_BF16_TOL, f"K4 at {name} {LM_BATCH}x{k}x{n} disagrees ({err:.3e})")
+        q_nk, scales = piece.q.t().contiguous(), piece.scale[0].to(torch.bfloat16).contiguous()
+        try:
+            library_ms = device_ms(lambda: torch._weight_int8pack_mm(y, q_nk, scales))
+        except (RuntimeError, NotImplementedError):
+            library_ms = None
+        traffic = k * n + 2 * LM_BATCH * k + 4 * n + 2 * LM_BATCH * n
+        ops_ms = 1e3 * 2.0 * LM_BATCH * k * n / BF16_PEAK_OPS
+        bytes_ms = 1e3 * traffic / HBM_BYTES_PER_S
+        k4[name] = {"shape": [LM_BATCH, k, n], "max_abs_err": float((out.float() - ref.float())
+                                                                    .abs().max()),
+                    "max_rel_err": err, "ms": device_ms(lambda: im.mm_fused(y, piece)),
+                    "plain_ms": device_ms(lambda: im.mm_fused_plain(y, piece)),
+                    "library_ms": library_ms, "library": "torch._weight_int8pack_mm",
+                    "bound_ms": max(ops_ms, bytes_ms),
+                    "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+        r = k4[name]
+        print(f"  K4 {name} {r['shape']} bf16: relative {err:.3e}; device kernel {r['ms']} ms, "
+              f"plain {r['plain_ms']} ms, library {library_ms} ms, bound {r['bound_ms']:.5f} ms")
+    b, h, s, d = LM_BATCH, LM_CONF["num_heads"] // PAR_N, LM_PROMPT, 64
+    q, kk, v = (torch.randn((b, h, s, d), generator=gen, device=device).to(torch.bfloat16)
+                for _ in range(3))
+    out = fa.flash_attention(q, kk, v, causal=True)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_plain(q, kk, v, causal=True)
+    err = _rel(out, ref)
+    check(err <= K2_BF16_TOL, f"K2 at ({b}, {h}, {s}, {d}) disagrees ({err:.3e})")
+    ops_ms = 1e3 * 4.0 * b * h * d * s * (s + 1) / 2 / BF16_PEAK_OPS
+    bytes_ms = 1e3 * 4.0 * b * h * s * d * 2 / HBM_BYTES_PER_S
+    k2 = {"shape": [b, h, s, d], "max_abs_err": float((out.float() - ref.float()).abs().max()),
+          "max_rel_err": err, "ms": device_ms(lambda: fa.flash_attention(q, kk, v, causal=True)),
+          "plain_ms": device_ms(lambda: fa.flash_attention_plain(q, kk, v, causal=True)),
+          "library_ms": device_ms(lambda: F.scaled_dot_product_attention(q, kk, v,
+                                                                          is_causal=True)),
+          "library": "scaled_dot_product_attention", "bound_ms": max(ops_ms, bytes_ms),
+          "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    print(f"  K2 {k2['shape']} bf16 causal: relative {err:.3e}; device kernel {k2['ms']} ms, "
+          f"plain {k2['plain_ms']} ms, sdpa {k2['library_ms']} ms, bound {k2['bound_ms']:.5f} ms")
+    return {"k2": k2, "k4": k4}
+
+
+def phase_sharded_serving(device) -> dict:
+    """Phase 45: serving a sharded model in one process on a mesh naming
+    the card ``PAR_N`` times. (a) f32 at depth 2: teacher-forced prefill
+    and 32 decode steps of ``shard_params(m)`` and of
+    ``quantize_for_decode(shard_params(m))`` against the unsharded pair,
+    within 1e-5 of max|logit|, the codes bit for bit. (b) bf16 at depth 8:
+    ``export_lm(shard_params(m), quantize=True, int8_kv=True)`` against
+    ``export_lm(m, ...)``, 8 prompts of 128 tokens and 256 new tokens
+    each: both graphed, K4 a step replay and K2 a prefill replay by kernel
+    name (4 × the unsharded counts), ms a pooled step in turns, tokens/s,
+    peak memory, and the greedy tokens teacher-forced from the unsharded
+    pool's (every step fed the unsharded tokens) ≥ 99 % equal; the
+    free-running tokens' agreement printed. K2 and K4 at the new shapes
+    against their plain versions. (c) ``ServeApp`` over (b)'s sharded
+    loop answers 8 concurrent ``/generate`` with the loop's own tokens."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+
+    from keystone_tpu_torch.models.lm import shard_params
+    from keystone_tpu_torch.parallel import create_mesh
+    from keystone_tpu_torch.serve import server
+
+    t_phase = time.perf_counter()
+    mesh = create_mesh(data=1, model=PAR_N, devices=[device] * PAR_N)
+    res: dict = {"f32": check_shard_f32(f"sharded f32 depth {SHARD_F32_DEPTH} over {PAR_N}",
+                                        shard_f32_legs(device, mesh), shard_f32_reference(device),
+                                        PAR_N)}
+    torch.cuda.empty_cache()
+
+    model = shard_model(device, LM_CONF["depth"], "bfloat16")
+    prompts = shard_prompts()
+    legs, loops = {}, {}
+    for name, m in (("unsharded", model), ("sharded", shard_params(model, mesh))):
+        leg, loop, state, outs = shard_loop_leg(device, m, prompts)
+        legs[name], loops[name] = leg, (loop, state, outs)
+        check(leg["graphed"], f"sharded serving: the {name} loop was not graphed")
+    tok = loops["unsharded"][0]._tok.copy()
+    turns: dict = {"unsharded": [], "sharded": []}
+    for name in ("unsharded", "sharded", "sharded", "unsharded"):
+        loop, state, _ = loops[name]
+        turns[name].append(_step_ms(loop, state, tok))
+    forced = 0
+    with torch.inference_mode():
+        for loop, state, _ in loops.values():
+            _restore_pool(loop, state)
+        t = tok
+        for _ in range(LM_MAX_NEW - 1):
+            tu = loops["unsharded"][0]._run_step(t)
+            ts = loops["sharded"][0]._run_step(t)
+            forced += int((tu == ts).sum())
+            t = tu
+        for loop, _, _ in loops.values():
+            for b in range(LM_BATCH):
+                loop._retire(b)
+    forced_agree = forced / (LM_BATCH * (LM_MAX_NEW - 1))
+    free = [o_s == o_u for o_s, o_u in zip(loops["sharded"][2], loops["unsharded"][2])]
+    free_agree = float(np.concatenate(free).mean())
+    first_diff = [int(np.argmin(f)) if not f.all() else None for f in free]
+    depth = LM_CONF["depth"]
+    for name, leg in legs.items():
+        leg["step_ms"] = statistics.mean(turns[name])
+        leg["step_ms_turns"] = turns[name]
+        print(f"  {name} loop (bf16 depth {depth}, int8 weights and KV, {LM_BATCH} slots): "
+              f"{leg['tokens']} tokens in {leg['wall_s']:.3f} s ({leg['tokens_per_s']:.1f} "
+              f"tokens/s), graphed step {leg['step_ms']:.3f} ms (turns {turns[name]}), device "
+              f"busy {leg['step_device_busy_ms']:.3f} ms in {leg['step_kernels']:.0f} kernels a "
+              f"step; launches a step replay "
+              f"{leg['step_launches']}, a prefill replay {leg['prefill_launches']}; K4 pieces "
+              f"{leg['k4_pieces']}, on quantization.mm {leg['pieces_on_mm']}; peak "
+              f"{leg['peak_bytes'] / 2**30:.2f} GiB; warm {leg['warm_s']:.1f} s")
+    for name, n in (("unsharded", 1), ("sharded", PAR_N)):
+        leg = legs[name]
+        check(leg["k4_pieces"] == 6 * depth * n - len(leg["pieces_on_mm"]),
+              f"{name}: K4 pieces {leg['k4_pieces']}")
+        check(leg["step_launches"]["int8_matmul"] == leg["k4_pieces"]
+              and leg["step_launches"]["flash_attention"] == 0,
+              f"{name}: a step replay launched {leg['step_launches']}, want K4 {leg['k4_pieces']}")
+        check(leg["prefill_launches"]["flash_attention"] == depth * n,
+              f"{name}: a prefill replay launched {leg['prefill_launches']}")
+        check(leg["capture_launches"]["flash_attention"] > 0
+              and leg["capture_launches"]["int8_matmul"] > 0,
+              f"{name}: the wrappers launched {leg['capture_launches']} in export and run")
+    print(f"  greedy tokens, sharded against unsharded: teacher-forced {forced_agree:.4%} of "
+          f"{LM_BATCH * (LM_MAX_NEW - 1)} steps; free-running {free_agree:.4%} (first "
+          f"differing position a prompt: {first_diff})")
+    check(forced_agree >= EQUIV_ARGMAX, f"sharded serving: teacher-forced agreement "
+          f"{forced_agree:.4%}")
+    res["bf16"] = {"legs": legs, "teacher_forced_agreement": forced_agree,
+                   "free_running_agreement": free_agree, "first_differing": first_diff}
+    res["kernels"] = shard_kernel_shapes(device, loops["sharded"][0].model)
+
+    sloop, _, souts = loops["sharded"]
+    del loops
+    app = server.ServeApp(decode_loop=sloop, device=device)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), server._handler_for(app))
+    thread = threading.Thread(target=httpd.serve_forever, kwargs={"poll_interval": 0.05},
+                              daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/generate"
+    try:
+        answers, wall = _burst([lambda p=p: _http(url, {"prompt": p.tolist(),
+                                                        "max_new": LM_MAX_NEW})
+                                for p in prompts])
+    finally:
+        app.shutdown()
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    for (status, payload, _), want in zip(answers, souts):
+        check(status == 200, f"sharded http: /generate answered {status}")
+        check(payload["tokens"] == want.tolist(),
+              "sharded http: /generate differs from the loop's own tokens")
+    res["http"] = {**_latency(answers, wall), "tokens": LM_BATCH * LM_MAX_NEW,
+                   "tokens_per_s": LM_BATCH * LM_MAX_NEW / wall}
+    print(f"  http /generate over the sharded loop: {len(answers)} concurrent, all 200 with the "
+          f"loop's tokens, {wall:.3f} s ({res['http']['tokens_per_s']:.1f} tokens/s), p50 "
+          f"{res['http']['p50_ms']:.1f} ms")
+    res["s"] = time.perf_counter() - t_phase
+    print(f"phase 45: {res['s']:.1f} s")
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available")
@@ -6506,6 +6936,22 @@ def main() -> None:
     tiled_legs = f32_legs_summary(equiv, train_equiv, par_path["f32"])
     k2["launches_tiled_f32"] = tiled_legs["tiled_f32_launches"]
     print(json.dumps({"k2_tiled_f32_legs": {"card": smi, **tiled_legs}}))
+    shard_path = phase_sharded_serving(device)
+    legs = shard_path["bf16"]["legs"]
+    k2["launches_sharded_serving"] = {
+        "per_prefill_replay": legs["sharded"]["prefill_launches"]["flash_attention"],
+        "unsharded_per_prefill_replay": legs["unsharded"]["prefill_launches"]["flash_attention"],
+        "f32_prefill": shard_path["f32"]["launches"]["float"]["flash_attention"],
+        "count": "kernel names in a torch.profiler trace"}
+    k4["launches_sharded_serving"] = {
+        "per_step_replay": legs["sharded"]["step_launches"]["int8_matmul"],
+        "unsharded_per_step_replay": legs["unsharded"]["step_launches"]["int8_matmul"],
+        "pieces_on_mm": legs["sharded"]["pieces_on_mm"],
+        "f32_int8_decode": shard_path["f32"]["launches"]["int8"]["int8_matmul"],
+        "count": "kernel names in a torch.profiler trace"}
+    k2["at_sharded_serving"] = shard_path["kernels"]["k2"]
+    k4["at_sharded_serving"] = shard_path["kernels"]["k4"]
+    print(json.dumps({"sharded_serving_path": {"card": smi, **shard_path}}))
 
     summary = {
         "card": smi,

@@ -8,6 +8,17 @@ writes the new position into the cache's tensors in place: a
 the one passed in. A per-row write is an indexed write of each row's
 position. :func:`generate` is a Python loop over decode steps; with an
 ``eos_id`` it stops once every row has emitted it.
+
+A tensor-parallel model (``shard_params``) serves as it trains: each
+position of the model axis runs its heads, its MLP columns and its vocab
+rows, and the partial sums add up over the axis. The cache is split over
+its KV-head axis, as the JAX package's comes back sharded
+(``P(None, None, 'model')``): across processes each rank holds its
+(L, B, KV/n, S_max, hd) heads; in one process the cache is whole and each
+position writes and reads its heads' slice, a view along dim 2. Where the
+heads do not split over the axis the attention and the cache stay whole.
+The logits go through the model's vocab-sharded logits, gathered over the
+axis.
 """
 
 from __future__ import annotations
@@ -22,11 +33,11 @@ from keystone_tpu_torch.models.lm.model import (
     TransformerLM,
     _block_apply,
     _embed,
-    _gather_embed,
-    _tied_logits,
+    embed_rows,
     model_mm,
 )
-from keystone_tpu_torch.ops.quantization import quantize_int8, symmetric_int8
+from keystone_tpu_torch.models.lm.sharding import leaf_dims
+from keystone_tpu_torch.ops.quantization import QTensor, quantize_int8, symmetric_int8
 
 
 @dataclasses.dataclass
@@ -54,12 +65,13 @@ def _tokens(x, device) -> torch.Tensor:
     return torch.as_tensor(x, device=device).long()
 
 
-def _refuse_sharded(model) -> None:
-    if model.tp is not None:
-        raise NotImplementedError(
-            "prefill/decode of a tensor-parallel model: serving a sharded model is "
-            "ROADMAP A6 part 3 (unshard_params gives the whole model)"
-        )
+def cache_heads(model: TransformerLM) -> int:
+    """The KV heads this process's cache holds: a rank's share across
+    processes under a layout that splits the heads, else every head."""
+    tp = model.tp
+    if tp is not None and tp.attn and tp.local:
+        return model.kv_heads // tp.n
+    return model.kv_heads
 
 
 @torch.inference_mode()
@@ -72,7 +84,6 @@ def prefill(model: TransformerLM, tokens, s_max: int,
     and the cache carries a per-row ``pos``."""
     if model.seq_mode != "local":
         raise ValueError("prefill/decode require seq_mode='local'")
-    _refuse_sharded(model)
     if kv_dtype not in (None, "int8"):
         raise ValueError(f"kv_dtype={kv_dtype!r}; expected None|'int8'")
     cdt = model.cdt
@@ -82,21 +93,22 @@ def prefill(model: TransformerLM, tokens, s_max: int,
         raise ValueError(f"prompt length {s} exceeds s_max={s_max}")
     x = _embed(model, tokens, cdt)
     mm_fn = model_mm(model)
+    ffn = model._ffn()
     ks, vs = [], []
     for i, blk in enumerate(model.blocks):
         x, (k, v), _ = _block_apply(
             x, blk, cdt, lambda y, b: model._attention(y, b, return_kv=True),
-            moe=model._moe(i), mm_fn=mm_fn,
+            moe=model._moe(i), mm_fn=mm_fn, ffn=ffn,
         )
         ks.append(k)
         vs.append(v)
     if lengths is None:
-        logits = _tied_logits(x[:, -1:], model.embed, cdt)[:, 0]
+        logits = model.logits(x[:, -1:])[:, 0]
         pos = s
     else:
         lengths = _tokens(lengths, x.device)
         idx = (lengths - 1)[:, None, None].expand(-1, 1, x.shape[-1])
-        logits = _tied_logits(x.gather(1, idx), model.embed, cdt)[:, 0]
+        logits = model.logits(x.gather(1, idx))[:, 0]
         pos = lengths
     shape = (len(ks), n, ks[0].shape[1], s_max, ks[0].shape[-1])
     k_stack = torch.zeros(shape, dtype=ks[0].dtype, device=x.device)
@@ -132,7 +144,6 @@ def decode_step(model: TransformerLM, token, cache: KVCache):
     logits, the cache with ``pos + 1``). The cache's buffers are written in
     place. Attention reads the whole cache with positions past ``pos``
     masked. A row at or past the cache's capacity gets NaN logits."""
-    _refuse_sharded(model)
     cdt = model.cdt
     d = model.embed.shape[-1]
     h = model.num_heads
@@ -144,7 +155,7 @@ def decode_step(model: TransformerLM, token, cache: KVCache):
     if isinstance(pos, torch.Tensor) and not vec:
         pos = int(pos)
     s_cap = cache.k.shape[3]
-    x = _gather_embed(model.embed, token)[:, None] * math.sqrt(d)
+    x = embed_rows(model, token)[:, None] * math.sqrt(d)
     if model.pos_encoding == "learned":
         last = model.pos_embed.shape[0] - 1
         if vec:
@@ -161,51 +172,66 @@ def decode_step(model: TransformerLM, token, cache: KVCache):
         valid = (ar <= pos)[None, None, None, :]
         positions = torch.tensor([pos], device=x.device)
     quantized = cache.k_scale is not None
-    kvh = model.kv_heads
-    g = h // kvh
     mm_fn = model_mm(model)
+    ffn = model._ffn()
+    tp = model.tp
+
+    def cached(i, q, k1, v1, heads):
+        """Write the new position's K/V of ``heads`` into layer ``i`` of the
+        cache and attend the (n, h, 1, hd) queries over those heads' cache:
+        (n, h, 1, hd) f32."""
+        dev = cache.k.device
+        q, k1, v1 = q.to(dev), k1.to(dev), v1.to(dev)
+        k_buf, v_buf = cache.k[:, :, heads], cache.v[:, :, heads]
+        if quantized:
+            ks_buf, vs_buf = cache.k_scale[:, :, heads], cache.v_scale[:, :, heads]
+            k1, k1s = _kv_quant(k1)
+            v1, v1s = _kv_quant(v1)
+            _write(ks_buf, i, k1s, pos, s_cap)
+            _write(vs_buf, i, v1s, pos, s_cap)
+        _write(k_buf, i, k1, pos, s_cap)
+        _write(v_buf, i, v1, pos, s_cap)
+        # grouped attention: q heads regroup as (KV, G) against the KV-head
+        # cache. Operands in the compute dtype, widened to f32 (bf16
+        # products are exact in f32): f32 scores and output, as the JAX
+        # package's f32-result einsums
+        kvh = k1.shape[1]
+        qg = q.reshape(n, kvh, q.shape[1] // kvh, 1, hd).to(cdt).to(torch.float32)
+        scores = torch.einsum(
+            "bkgqd,bksd->bkgqs", qg, k_buf[i].to(cdt).to(torch.float32)
+        ) / math.sqrt(hd)
+        if quantized:
+            scores = scores * ks_buf[i][..., 0][:, :, None, None, :]
+        scores = torch.where(valid[:, :, None], scores, -1e30)
+        probs = torch.softmax(scores, dim=-1)
+        if quantized:
+            probs = probs * vs_buf[i][..., 0][:, :, None, None, :]
+        out = torch.einsum(
+            "bkgqs,bksd->bkgqd", probs.to(cdt).to(torch.float32),
+            v_buf[i].to(cdt).to(torch.float32),
+        )
+        return out.reshape(n, q.shape[1], 1, hd)
 
     def cached_attn(i):
         def attn(y, blk):
+            if tp is not None and tp.attn:
+                kvh = model.kv_heads // tp.n
+
+                def attend(p, q, k1, v1):
+                    heads = slice(None) if tp.local else slice(p * kvh, (p + 1) * kvh)
+                    return cached(i, q, k1, v1, heads).to(q.device)
+
+                return model._attention_tp(y, blk, positions=positions, attend=attend), None
             q, k1, v1 = model._qkv_heads(y, blk, positions=positions)
-            if quantized:
-                k1, k1s = _kv_quant(k1)
-                v1, v1s = _kv_quant(v1)
-                _write(cache.k_scale, i, k1s, pos, s_cap)
-                _write(cache.v_scale, i, v1s, pos, s_cap)
-            _write(cache.k, i, k1, pos, s_cap)
-            _write(cache.v, i, v1, pos, s_cap)
-            layer_k, layer_v = cache.k[i], cache.v[i]
-            # grouped attention: q heads regroup as (KV, G) against the
-            # KV-head cache. Operands in the compute dtype, widened to f32
-            # (bf16 products are exact in f32): f32 scores and output, as
-            # the JAX package's f32-result einsums
-            qg = q.reshape(n, kvh, g, 1, hd).to(cdt).to(torch.float32)
-            scores = torch.einsum(
-                "bkgqd,bksd->bkgqs", qg, layer_k.to(cdt).to(torch.float32)
-            ) / math.sqrt(hd)
-            if quantized:
-                scores = scores * cache.k_scale[i][..., 0][:, :, None, None, :]
-            scores = torch.where(valid[:, :, None], scores, -1e30)
-            probs = torch.softmax(scores, dim=-1)
-            if quantized:
-                probs = probs * cache.v_scale[i][..., 0][:, :, None, None, :]
-            out = torch.einsum(
-                "bkgqs,bksd->bkgqd", probs.to(cdt).to(torch.float32),
-                layer_v.to(cdt).to(torch.float32),
-            )
-            proj = mm_fn(
-                out.reshape(n, h, 1, hd).transpose(1, 2).reshape(n, 1, d).to(cdt),
-                blk.wo,
-                cdt,
-            )
-            return proj, None
+            out = cached(i, q, k1, v1, slice(None))
+            return mm_fn(out.transpose(1, 2).reshape(n, 1, d).to(cdt), blk.wo, cdt), None
 
         return attn
 
     for i, blk in enumerate(model.blocks):
-        x, _, _ = _block_apply(x, blk, cdt, cached_attn(i), moe=model._moe(i), mm_fn=mm_fn)
-    logits = _tied_logits(x, model.embed, cdt)[:, 0]
+        x, _, _ = _block_apply(x, blk, cdt, cached_attn(i), moe=model._moe(i), mm_fn=mm_fn,
+                               ffn=ffn)
+    logits = model.logits(x)[:, 0]
     # past capacity the write above landed on the last position: the
     # logits are plausible but wrong, so they are poisoned loudly
     if vec:
@@ -311,14 +337,33 @@ def quantize_for_decode(model: TransformerLM) -> TransformerLM:
     per-output-channel int8, the tied embedding per-row scales (serving
     both the gather and the logit transpose). The learned position table
     and the MoE experts stay full precision, as in the JAX package, and a
-    MoE block's zero-width FFN placeholders stay as they are."""
+    MoE block's zero-width FFN placeholders stay as they are.
 
-    def qmat(w):
-        return quantize_int8(w.detach()) if w.numel() else w
+    A sharded model quantizes as the JAX package's GSPMD does, to the whole
+    model's codes and scales: in one process the whole leaves quantize and
+    each position's pieces are made once (``TensorParallel.with_pieces``);
+    across processes a rank's rows of ``wo``/``w2`` take their per-column
+    max |w| over the model axis before rounding, and the column pieces
+    and the embedding's vocab rows need no collective."""
+    tp = model.tp
+    dims = leaf_dims(model)[2:]
+
+    def qmat(w, dim):
+        if not w.numel():
+            return w
+        w = w.detach()
+        if tp is not None and tp.local and dim == 0:
+            amax = tp.comm.pmax([torch.amax(w.abs().to(torch.float32), dim=0, keepdim=True)])
+            return QTensor(*symmetric_int8(w, (0,), amax=amax))
+        return quantize_int8(w)
 
     blocks = [
-        LMBlock(*(qmat(w) for w in blk.leaves())) for blk in model.blocks
+        LMBlock(*(qmat(w, dims[6 * i + j]) for j, w in enumerate(blk.leaves())))
+        for i, blk in enumerate(model.blocks)
     ]
-    return model.replace(
+    out = model.replace(
         embed=quantize_int8(model.embed.detach(), channel_axis=0), blocks=blocks
     )
+    if tp is not None:
+        out = out.replace(tp=tp.with_pieces(out.leaves(), leaf_dims(out)))
+    return out

@@ -175,30 +175,35 @@ def _gather_embed(embed, tokens):
 
 
 def _gather_embed_tp(model, tokens):
-    """Embedding rows for ``tokens`` from a vocab-sharded table: each
-    position gathers the tokens in its rows and zeros for the rest, and the
-    sum over the model axis holds each token's row once."""
+    """Embedding rows for ``tokens`` from a vocab-sharded table (float or
+    row-quantized): each position gathers the tokens in its rows and zeros
+    for the rest, and the sum over the model axis holds each token's row
+    once."""
     tp = model.tp
     parts = []
     for pos, dev in zip(tp.comm.positions, tp.comm.devices):
         e = tp.part(model.embed, 0, pos, dev)
         lo, vl = pos * e.shape[0], e.shape[0]
         t = tokens.to(dev)
-        rows = e[(t - lo).clamp(0, vl - 1)]
+        rows = _gather_embed(e, (t - lo).clamp(0, vl - 1))
         live = ((t >= lo) & (t < lo + vl))[..., None]
         parts.append(torch.where(live, rows, torch.zeros((), dtype=rows.dtype, device=dev)))
     return tp.comm.psum(parts, device=tokens.device)
+
+
+def embed_rows(model, tokens):
+    """The embedding rows of ``tokens`` under the model's layout."""
+    tp = model.tp
+    if tp is not None and tp.vocab:
+        return _gather_embed_tp(model, tokens)
+    return _gather_embed(model.embed, tokens)
 
 
 def _embed(model, tokens, cdt):
     """Token embedding (× √d) plus learned positions, in the compute
     dtype."""
     d = model.embed.shape[-1]
-    tp = getattr(model, "tp", None)
-    if tp is not None and tp.vocab:
-        x = _gather_embed_tp(model, tokens) * math.sqrt(d)
-    else:
-        x = _gather_embed(model.embed, tokens) * math.sqrt(d)
+    x = embed_rows(model, tokens) * math.sqrt(d)
     if model.pos_encoding == "learned":
         x = x + model.pos_embed[: tokens.shape[1]]
     return x.to(cdt)
@@ -210,7 +215,12 @@ def _tied_logits(x, embed, cdt):
     rounded to the compute dtype and then widened to f32, where a product
     of two bf16 values is exact, so only the order of the f32 sum
     differs."""
-    a = _ln(x, cdt).to(torch.float32)
+    return _logits_of(_ln(x, cdt).to(torch.float32), embed, cdt)
+
+
+def _logits_of(a, embed, cdt):
+    """Normalized f32 hidden states ``a`` against a (piece of the) tied
+    embedding, float or row-quantized."""
     if isinstance(embed, QTensor):
         # (V, 1) row scales become per-output-channel under the transpose
         return (a @ embed.q.T.to(torch.float32)) * embed.scale[:, 0]
@@ -358,7 +368,7 @@ class TransformerLM(nn.Module):
     def _attention(self, x, blk: LMBlock, return_kv: bool = False):
         n, s, d = x.shape
         if self.tp is not None and self.tp.attn:
-            return self._attention_tp(x, blk)
+            return self._attention_tp(x, blk, return_kv=return_kv)
         # x is the full sequence here: the sequence-parallel modes shard it
         # inside ring/ulysses_attention
         q, k, v = self._qkv_heads(x, blk)
@@ -370,23 +380,35 @@ class TransformerLM(nn.Module):
             return proj, (k, v)
         return proj
 
-    def _attention_tp(self, x, blk: LMBlock):
+    def _attention_tp(self, x, blk: LMBlock, return_kv: bool = False, positions=None,
+                      attend=None):
         """Head-parallel attention: each position of the model axis runs
         its H/n query heads and KV/n key/value heads (columns of wq, wk and
         wv) and its rows of wo; the partial projections add up over the
-        axis."""
+        axis. ``positions`` are the tokens' positions (decode passes its
+        own); ``attend(pos, q, k, v)``, when given, attends position
+        ``pos``'s heads (decode's cached attention), else the model's
+        causal attention does. With ``return_kv`` the K/V heads of this
+        process's positions come back joined along the head axis (every
+        head in one process, the rank's own across processes)."""
         tp = self.tp
         n, s, d = x.shape
         h, kvh = self.num_heads // tp.n, self.kv_heads // tp.n
         mm_fn = model_mm(self)
-        parts = []
+        parts, ks, vs = [], [], []
         for pos, y in zip(tp.comm.positions, tp.comm.enter(x)):
             w = functools.partial(tp.part, pos=pos, device=y.device)
-            q, k, v = self._qkv(y, w(blk.wq, 1), w(blk.wk, 1), w(blk.wv, 1), h, kvh)
-            out = self._attend(q, k, v)
+            q, k, v = self._qkv(y, w(blk.wq, 1), w(blk.wk, 1), w(blk.wv, 1), h, kvh, positions)
+            out = self._attend(q, k, v) if attend is None else attend(pos, q, k, v)
             parts.append(mm_fn(out.transpose(1, 2).reshape(n, s, d // tp.n).to(y.dtype),
                                w(blk.wo, 0), y.dtype))
-        return tp.comm.psum(parts, device=x.device)
+            ks.append(k)
+            vs.append(v)
+        proj = tp.comm.psum(parts, device=x.device)
+        if return_kv:
+            return proj, (tp.comm.join_local(ks, 1, x.device),
+                          tp.comm.join_local(vs, 1, x.device))
+        return proj
 
     def _ffn_tp(self, y, blk: LMBlock):
         """The MLP column-parallel then row-parallel over the model axis."""
@@ -408,12 +430,22 @@ class TransformerLM(nn.Module):
             return [_tied_logits(x, self.embed, self.cdt)]
         a = _ln(x, self.cdt).to(torch.float32)
         return [
-            aa @ tp.part(self.embed, 0, pos, aa.device).T.to(self.cdt).to(torch.float32)
+            _logits_of(aa, tp.part(self.embed, 0, pos, aa.device), self.cdt)
             for pos, aa in zip(tp.comm.positions, tp.comm.enter(a))
         ]
 
     def _moe(self, i: int):
-        return self.moe_layers[i] if self.moe_layers else None
+        """Block ``i``'s expert layer (expert-parallel under a layout that
+        splits the experts), or None."""
+        moe = self.moe_layers[i] if self.moe_layers else None
+        if moe is not None and self.tp is not None and self.tp.experts:
+            return functools.partial(moe, tp=self.tp)
+        return moe
+
+    def _ffn(self):
+        """The tensor-parallel MLP under a layout that splits it, else None
+        (the block's own)."""
+        return self._ffn_tp if self.tp is not None and self.tp.ffn else None
 
     def forward(self, tokens):
         """(B, S) int tokens → (B, S, V) float32 logits."""
@@ -426,12 +458,9 @@ class TransformerLM(nn.Module):
         tokens = torch.as_tensor(tokens, device=self.device).long()
         x = _embed(self, tokens, cdt)
         mm_fn = model_mm(self)
-        tp = self.tp
-        ffn = self._ffn_tp if tp is not None and tp.ffn else None
+        ffn = self._ffn()
 
         def block_fn(x, blk, moe):
-            if moe is not None and tp is not None and tp.experts:
-                moe = functools.partial(moe, tp=tp)
             out, _, moe_aux = _block_apply(
                 x, blk, cdt, lambda y, b: (self._attention(y, b), None), moe=moe,
                 mm_fn=mm_fn, ffn=ffn,
@@ -561,9 +590,9 @@ class TransformerLM(nn.Module):
         counted (as the JAX package counts its leaves); a model sharded
         across processes counts its whole leaves."""
         if self.tp is not None and self.tp.local:
-            from keystone_tpu_torch.models.lm.sharding import whole_shapes
+            from keystone_tpu_torch.models.lm.sharding import whole_numel
 
-            return sum(math.prod(shape) for shape in whole_shapes(self))
+            return whole_numel(self)
         total = 0
         for leaf in self.leaves():
             if isinstance(leaf, QTensor):

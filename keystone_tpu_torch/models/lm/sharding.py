@@ -22,15 +22,28 @@ On a mesh whose model axis spans processes each rank keeps only its shard
 of a split leaf; in one process the leaves stay whole and each position
 takes its slice when it runs. :func:`unshard_params` is the inverse, for
 checkpoints and tests.
+
+Int8 serving quantizes after sharding, as the JAX package does
+(``quantize_for_decode(shard_params(...))``): an int8 :class:`QTensor`
+splits its codes along the leaf's dim and its scale with them where the
+scale runs along that dim (a column piece's (1, N/n), an embedding vocab
+piece's (V/n, 1)); a row piece of ``wo``/``w2`` keeps the whole (1, N)
+scale, which pulls out of the partial sums exactly. A column piece of the
+codes is a strided view, and K4 takes contiguous codes, so in one process
+each position's pieces of a QTensor are made contiguous once, when the
+sharded model is quantized (:meth:`TensorParallel.with_pieces`), and kept
+on the layout. Sharding a model that already holds int8 leaves raises
+``ValueError``, as the JAX package's ``device_put`` of a (1, N) scale
+over the model axis does.
 """
 
 from __future__ import annotations
 
 import dataclasses
-
-import torch
+import math
 
 from keystone_tpu_torch.models.lm.model import LMBlock, TransformerLM, has_quantized_leaves
+from keystone_tpu_torch.ops.quantization import QTensor
 from keystone_tpu_torch.parallel.collectives import AxisComm, all_gather_cat
 from keystone_tpu_torch.parallel.mesh import MODEL_AXIS
 
@@ -49,6 +62,9 @@ class TensorParallel:
     vocab: bool
     experts: bool
     comm: AxisComm = dataclasses.field(compare=False, repr=False)
+    # id of a whole QTensor leaf -> (the leaf, its contiguous piece a
+    # position), in one process (see with_pieces)
+    pieces: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     @property
     def n(self) -> int:
@@ -62,10 +78,48 @@ class TensorParallel:
 
     def part(self, w, dim: int, pos: int, device):
         """Position ``pos``'s piece of a split leaf ``w`` along ``dim``, on
-        ``device``."""
+        ``device``: a view of a float leaf, the piece made by
+        :meth:`with_pieces` of a QTensor."""
         if self.local:
             return w
+        if isinstance(w, QTensor):
+            held = self.pieces.get(id(w))
+            if held is None or held[0] is not w:
+                raise ValueError(
+                    "an int8 leaf of a sharded model without its pieces: quantize "
+                    "through quantize_for_decode(shard_params(...))"
+                )
+            return held[1][pos]
         return w.tensor_split(self.n, dim=dim)[pos].to(device)
+
+    def with_pieces(self, leaves, dims) -> "TensorParallel":
+        """This layout holding, for every split QTensor of ``leaves`` (with
+        their split ``dims``), each position's contiguous piece on its
+        device: made once here, not on every call. Across processes the
+        leaves are already the rank's pieces and nothing is made."""
+        if self.local:
+            return self
+        pieces = {}
+        for w, dim in zip(leaves, dims):
+            if dim is not None and isinstance(w, QTensor):
+                pieces[id(w)] = (w, [
+                    QTensor(q.to(d).contiguous(), s.to(d).contiguous())
+                    for q, s, d in zip(w.q.tensor_split(self.n, dim=dim),
+                                       _scale_pieces(w, dim, self.n), self.comm.devices)
+                ])
+        return dataclasses.replace(self, pieces=pieces)
+
+
+def _scale_splits(w: QTensor, dim: int) -> bool:
+    """True when a QTensor's scale runs along ``dim`` and splits with its
+    codes; a row piece of a (1, N)-scaled ``wo``/``w2`` keeps it whole."""
+    return w.scale.shape[dim] == w.q.shape[dim]
+
+
+def _scale_pieces(w: QTensor, dim: int, n: int) -> list:
+    if _scale_splits(w, dim):
+        return list(w.scale.tensor_split(n, dim=dim))
+    return [w.scale] * n
 
 
 def _dense(blk) -> bool:
@@ -103,14 +157,29 @@ def leaf_specs(model: TransformerLM) -> list:
 
 
 def whole_shapes(model: TransformerLM) -> list:
-    """Each leaf's shape as the whole model holds it."""
+    """Each leaf's shape as the whole model holds it (a QTensor's codes')."""
+    return [shape for shape, _ in _whole_shapes(model)]
+
+
+def whole_numel(model: TransformerLM) -> int:
+    """The stored values of the whole model, a QTensor's codes and scales
+    both counted, as the JAX package counts its leaves' global sizes."""
+    return sum(math.prod(q) + (math.prod(s) if s else 0) for q, s in _whole_shapes(model))
+
+
+def _whole_shapes(model: TransformerLM) -> list:
+    """(shape, scale shape or None) of each leaf as the whole model holds
+    it."""
     n = model.tp.n if model.tp is not None and model.tp.local else 1
     out = []
     for leaf, dim in zip(model.leaves(), leaf_dims(model)):
         shape = list(leaf.shape)
+        scale = list(leaf.scale.shape) if isinstance(leaf, QTensor) else None
         if dim is not None:
             shape[dim] *= n
-        out.append(shape)
+            if scale is not None and _scale_splits(leaf, dim):
+                scale[dim] *= n
+        out.append((shape, scale))
     return out
 
 
@@ -139,9 +208,10 @@ def shard_params(model: TransformerLM, mesh) -> TransformerLM:
     if model.tp is not None:
         raise ValueError("the model is already sharded; unshard_params first")
     if has_quantized_leaves(model):
-        raise NotImplementedError(
-            "shard_params of int8 QTensor weights: serving a sharded model is "
-            "ROADMAP A6 part 3"
+        raise ValueError(
+            "shard_params of int8 weights: a (1, N) scale of a row-split wo/w2 does "
+            "not split over the model axis; quantize after sharding, "
+            "quantize_for_decode(shard_params(model, mesh))"
         )
     comm = AxisComm.of(mesh, MODEL_AXIS)
     tp = _layout(model, mesh, comm)
@@ -172,23 +242,33 @@ def _with_leaves(model: TransformerLM, leaves: list, tp) -> TransformerLM:
                          tp=tp)
 
 
-def gather_leaf(model: TransformerLM, leaf: torch.Tensor, dim) -> torch.Tensor:
+def gather_leaf(model: TransformerLM, leaf, dim):
     """The whole value of one of ``model``'s leaves (or of a tensor laid
     out like it, as an optimizer moment): gathered over the model axis
-    when it is split across processes, else ``leaf`` itself."""
+    when it is split across processes, else ``leaf`` itself. A QTensor
+    gathers its codes, and its scale where the scale splits."""
     tp = model.tp
     if dim is None or tp is None or not tp.local:
         return leaf
+    if isinstance(leaf, QTensor):
+        scale = leaf.scale
+        if _scale_splits(leaf, dim):
+            scale = all_gather_cat(scale, tp.comm.group, dim)
+        return QTensor(all_gather_cat(leaf.q, tp.comm.group, dim), scale)
     return all_gather_cat(leaf.detach(), tp.comm.group, dim)
 
 
-def local_leaf(model: TransformerLM, whole: torch.Tensor, dim) -> torch.Tensor:
+def local_leaf(model: TransformerLM, whole, dim):
     """This rank's shard of a whole value laid out like a leaf (the
     inverse of :func:`gather_leaf`)."""
     tp = model.tp
     if dim is None or tp is None or not tp.local:
         return whole
-    return whole.tensor_split(tp.n, dim=dim)[tp.comm.positions[0]]
+    pos = tp.comm.positions[0]
+    if isinstance(whole, QTensor):
+        return QTensor(whole.q.tensor_split(tp.n, dim=dim)[pos],
+                       _scale_pieces(whole, dim, tp.n)[pos])
+    return whole.tensor_split(tp.n, dim=dim)[pos]
 
 
 def unshard_params(model: TransformerLM) -> TransformerLM:

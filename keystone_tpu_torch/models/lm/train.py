@@ -171,7 +171,7 @@ def pp_forward(model: TransformerLM, tokens, mesh, *, n_micro: int,
             n_stages, per, *getattr(model.blocks[0], name).shape)
         for name in ("wq", "wk", "wv", "wo", "w1", "w2")
     }
-    ffn = model._ffn_tp if model.tp is not None and model.tp.ffn else None
+    ffn = model._ffn()
 
     def stage_fn(stage_params, act):
         for j in range(per):

@@ -37,13 +37,15 @@ class QTensor:
         return self.q.to(torch.float32) * self.scale
 
 
-def symmetric_int8(w, reduce_dims) -> tuple[torch.Tensor, torch.Tensor]:
+def symmetric_int8(w, reduce_dims, amax=None) -> tuple[torch.Tensor, torch.Tensor]:
     """The one symmetric-int8 recipe: amax/127 scales (floored at 1e-12),
     round half to even, clip to ±127. ``reduce_dims`` are the axes the
-    scale pools over (kept as size-1 axes). Returns (int8 codes, f32
-    scale)."""
+    scale pools over (kept as size-1 axes); ``amax``, when given, is that
+    pooled max |w|, taken where ``w`` is one shard of the pooled axes.
+    Returns (int8 codes, f32 scale)."""
     w = torch.as_tensor(w, dtype=torch.float32)
-    amax = torch.amax(w.abs(), dim=tuple(reduce_dims), keepdim=True)
+    if amax is None:
+        amax = torch.amax(w.abs(), dim=tuple(reduce_dims), keepdim=True)
     scale = torch.clamp_min(amax, 1e-12) / 127.0
     q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
     return q, scale

@@ -20,6 +20,15 @@ inputs, replays, and reads the picked tokens back. A capture that fails
 raises; a step on the card before :meth:`warm` captures first. On the
 CPU the loop runs eagerly.
 
+A tensor-parallel model (``shard_params``) serves through the same loop.
+In one process every position of the model axis runs on the loop's
+device, and the graphs hold every position's work. Across processes
+every rank runs the same loop on the same prompts, as the JAX package's
+one SPMD program would, and its cache holds the rank's KV heads; over
+NCCL the graphs are captured with their collectives. A gloo group cannot
+be captured (it moves a card's values through the host), so a loop over
+a gloo model axis runs eagerly on the card and ``graphed`` stays False.
+
 The pool's cache is written in place: a merge copies a prefilled
 sequence into its slot, and each step writes the new position of every
 slot back into the pool's one ``pos`` buffer, which the step graph reads
@@ -38,7 +47,13 @@ import torch
 
 from keystone_tpu_torch.core.kernels import KERNELS
 from keystone_tpu_torch.core.logging import get_logger
-from keystone_tpu_torch.models.lm.decode import KVCache, decode_step, pick, prefill
+from keystone_tpu_torch.models.lm.decode import (
+    KVCache,
+    cache_heads,
+    decode_step,
+    pick,
+    prefill,
+)
 from keystone_tpu_torch.observe import metrics as _metrics
 from keystone_tpu_torch.observe import spans as _spans
 from keystone_tpu_torch.observe import telemetry as _telemetry
@@ -80,9 +95,20 @@ class _Graph(NamedTuple):
     launches: dict
 
 
+def _over_gloo(model) -> bool:
+    """True when the model's axis spans processes over gloo."""
+    tp = model.tp
+    if tp is None or not tp.local:
+        return False
+    import torch.distributed as dist
+
+    return dist.get_backend(tp.comm.group.pg) == "gloo"
+
+
 def _merge_slot(pool: KVCache, one: KVCache, slot: int) -> None:
     """Write a freshly prefilled single-sequence cache into pool slot
-    ``slot``, in place."""
+    ``slot``, in place. Both hold the same KV heads: every head in one
+    process, the rank's own across processes."""
     pool.k[:, slot] = one.k[:, 0]
     pool.v[:, slot] = one.v[:, 0]
     pool.pos[slot] = one.pos[0]
@@ -142,6 +168,7 @@ class DecodeLoop:
             prefill_buckets = buckets
         self.prefill_buckets = tuple(sorted(prefill_buckets))
         self.device = model.device
+        self._capturable = self.device.type == "cuda" and not _over_gloo(model)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)
@@ -168,7 +195,8 @@ class DecodeLoop:
     @property
     def graphed(self) -> bool:
         """True once the step graph is captured (on the card, after
-        :meth:`warm`)."""
+        :meth:`warm`; never over a gloo model axis, see the module
+        docstring)."""
         return self._step_graph is not None
 
     @torch.inference_mode()
@@ -176,7 +204,7 @@ class DecodeLoop:
         m = self.model
         d = m.embed.shape[-1]
         hd = d // m.num_heads
-        shape = (len(m.blocks), self.slots, m.kv_heads, self.s_max, hd)
+        shape = (len(m.blocks), self.slots, cache_heads(m), self.s_max, hd)
         # a (slots,) pos even at one slot: the pool never takes
         # decode_step's scalar-position branch, which reads pos on the host
         pos = torch.zeros(self.slots, dtype=torch.long, device=self.device)
@@ -274,7 +302,7 @@ class DecodeLoop:
     def _run_prefill(self, padded: np.ndarray, n: int):
         """(first picked token, one-sequence cache) of a padded prompt
         of ``n`` real tokens."""
-        if self.device.type != "cuda":
+        if not self._capturable:
             picked, one = self._prefill(
                 torch.from_numpy(padded).to(self.device),
                 torch.tensor([n], device=self.device),
@@ -424,7 +452,7 @@ class DecodeLoop:
         """Admit + one pooled decode step. Returns the number of active
         slots that advanced (0 = pool idle). On the card the first step
         captures the graphs if :meth:`warm` has not."""
-        if self.device.type == "cuda" and self._step_graph is None:
+        if self._capturable and self._step_graph is None:
             self.warm()
         self._admit()
         with self._lock:
@@ -492,10 +520,10 @@ class DecodeLoop:
         arrives. On the card: capture each prefill bucket's graph and the
         pooled step's (capture before any serving thread starts: a
         capture fails if another thread uses the card meanwhile). On the
-        CPU: run each path once on a scratch cache. Returns wall
-        seconds."""
+        CPU, or over a gloo model axis: run each path once on a scratch
+        cache. Returns wall seconds."""
         t0 = time.perf_counter()
-        if self.device.type == "cuda":
+        if self._capturable:
             for width in self.prefill_buckets:
                 if width not in self._prefill_graphs:
                     self._capture_prefill(width)

@@ -2099,3 +2099,75 @@ def test_two_process_gloo_ring_on_card_counts_k3(card, tmp_path):
     for r in range(2):
         rec = json.loads((tmp_path / f"rank{r}.json").read_text())
         assert rec["k3"] == r + 1 and rec["err"] <= 1e-5, rec
+
+
+_TP_SERVE_SCRIPT = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from keystone_tpu_torch.models.lm import TransformerLM, generate, prefill, shard_params
+from keystone_tpu_torch.ops import flash_attention as fa, int8_matmul
+from keystone_tpu_torch.parallel import create_mesh, multihost
+from keystone_tpu_torch.serve.export import export_lm
+
+rank, port, out = int(sys.argv[2]), sys.argv[3], sys.argv[4]
+device = multihost.initialize(f"127.0.0.1:{port}", 2, rank, init_timeout_s=60, backend="gloo",
+                              device="cuda:0")
+whole = TransformerLM.create(vocab=512, max_seq=128, dim=256, depth=2, num_heads=4,
+                             device=device, generator=torch.Generator(device=device).manual_seed(0))
+model = shard_params(whole, create_mesh(data=1, model=2))
+prompt = torch.randint(0, 512, (2, 16), generator=torch.Generator().manual_seed(1))
+before = fa.FLASH_ATTENTION.launches
+got, cache = prefill(model, prompt, 64)
+k2 = fa.FLASH_ATTENTION.launches - before
+want = prefill(whole, prompt, 64)[0]
+toks = generate(model, prompt, max_new=8)
+loop = export_lm(model, slots=2, s_max=64, quantize=True, max_new=8)
+before = int8_matmul.INT8_MATMUL.launches
+outs = loop.run([prompt[0].numpy(), prompt[1, :9].numpy()])
+torch.cuda.synchronize()
+rec = {"k2": k2, "k4": int8_matmul.INT8_MATMUL.launches - before, "heads": cache.k.shape[2],
+       "err": float((got - want).abs().max() / want.abs().max()), "graphed": loop.graphed,
+       "tokens": toks.tolist(), "loop": [o.tolist() for o in outs]}
+with open(f"{out}/rank{rank}.json", "w") as f:
+    json.dump(rec, f)
+multihost.shutdown()
+"""
+
+
+def test_two_process_gloo_tp_serving_on_card(card, tmp_path):
+    """Two processes on card 0 over gloo serve a model sharded over a model
+    axis across them: each rank's prefill launches K2 once a block for its
+    two heads, and its cache holds those heads; the prefill logits within
+    1e-5 of max|logit| of the whole model's; ``generate`` and the slot pool
+    of ``export_lm(quantize=True)`` give the same tokens on both ranks, the
+    pool eager (a gloo group cannot be captured) with K4 six times a block
+    in every forward."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = str(Path(__file__).resolve().parent.parent)
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("KEYSTONE_", "KST_"))}
+    procs = [subprocess.Popen([sys.executable, "-c", _TP_SERVE_SCRIPT, root, str(r), str(port),
+                               str(tmp_path)], env=env, text=True, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        outs = [(p.communicate(timeout=240)[0], p.returncode) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for out, rc in outs:
+        assert rc == 0, out
+    recs = [json.loads((tmp_path / f"rank{r}.json").read_text()) for r in range(2)]
+    for rec in recs:
+        assert rec["k2"] == 2 and rec["heads"] == 2 and rec["err"] <= 1e-5, rec
+        assert not rec["graphed"] and rec["k4"] > 0 and rec["k4"] % 12 == 0, rec
+    assert recs[0]["tokens"] == recs[1]["tokens"] and recs[0]["loop"] == recs[1]["loop"]
+    assert [len(t) for t in recs[0]["loop"]] == [8, 8]

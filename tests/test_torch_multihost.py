@@ -21,7 +21,13 @@ processes (``sp``) hold ring and Ulysses attention, causal and not,
 against dense attention (2e-4, ``tests/test_multihost.py:102``), ring and
 Ulysses train steps against the JAX local step (as ``:182``), their
 perplexity, and a TP run stopped after two checkpointed steps and resumed
-to four against the JAX package's four (5e-5).
+to four against the JAX package's four (5e-5). Two processes (``serve``)
+serve a model sharded over a model axis across them, dense and MoE:
+``generate`` (an int8 KV cache too) and ``export_lm(quantize=True)``'s
+slot pool give the JAX package's sharded tokens on both ranks, and
+``quantize_for_decode`` of the shards, gathered, equals the JAX package's
+quantization bit for bit (the row-split ``wo``/``w2`` take their scales'
+max over the axis).
 
 The worker is this file: ``python test_torch_multihost.py <mode> <rank>
 <world> <port> <out>`` imports only torch and the port. The JAX reference
@@ -54,6 +60,13 @@ TP_PROCS = 4
 # held-out scoring (tests/test_torch_perplexity.py's shape, the LM's vocab)
 EVAL_SEQ, EVAL_BATCH, EVAL_CHUNK = 32, 2, 16
 ATTN_SHAPE = (2, 4, 128, 16)
+# serving a sharded model (tests/test_torch_tp_serve.py's tiny models)
+SERVE_CONF = dict(vocab=64, max_seq=48, dim=64, depth=2, num_heads=4)
+SERVE_MOE = dict(moe_every=2, num_experts=4)
+SERVE_NEW = 10
+SERVE_LOOP = dict(slots=2, s_max=32, max_new=6)
+SERVE_LOOP_LENS = (5, 9, 3)
+SERVE_WEIGHTS = ("wq", "wk", "wv", "wo", "w1", "w2")
 
 
 def _fit_data():
@@ -203,6 +216,32 @@ def _lm_model(out: Path, name: str = "lm_in.npz", **kw):
         ],
     }
     return convert.transformer_lm(leaves, num_heads=meta["num_heads"], device="cpu", **kw)
+
+
+def _serve_prompts():
+    """(a (2, 8) generate prompt, the slot pool's prompts)."""
+    rng = np.random.default_rng(21)
+    return (rng.integers(0, SERVE_CONF["vocab"], size=(2, 8)),
+            [rng.integers(0, SERVE_CONF["vocab"], size=n) for n in SERVE_LOOP_LENS])
+
+
+def _serve_model(out: Path, name: str):
+    """The port's model ``name`` (dense or moe) from ``lm_serve_in.npz``."""
+    from keystone_tpu_torch import convert
+
+    z = np.load(out / "lm_serve_in.npz")
+    depth = SERVE_CONF["depth"]
+    leaves = {
+        "embed": z[f"{name}_embed"], "pos_embed": z[f"{name}_pos_embed"],
+        "blocks": [{n: z[f"{name}_b{i}_{n}"] for n in SERVE_WEIGHTS} for i in range(depth)],
+        "moe_layers": [
+            dict(w_router=z[f"{name}_m{i}_w_router"], w1=z[f"{name}_m{i}_w1"],
+                 w2=z[f"{name}_m{i}_w2"], capacity_factor=float(z[f"{name}_m{i}_cf"]),
+                 group_size=int(z[f"{name}_m{i}_gs"]))
+            if f"{name}_m{i}_w_router" in z else None
+            for i in range(depth)] if name == "moe" else [],
+    }
+    return convert.transformer_lm(leaves, num_heads=SERVE_CONF["num_heads"], device="cpu")
 
 
 def _held_out():
@@ -367,6 +406,51 @@ def _w_sp(rank, world, out: Path, ckdir: str) -> None:
     _save(out, rank, res)
 
 
+def _w_serve(rank, world, out: Path) -> None:
+    """Two processes serve the dense and the MoE model sharded over a model
+    axis across them: greedy ``generate`` (f32 and int8 KV cache), the
+    slot pool of ``export_lm(quantize=True)``, and the quantized shards
+    gathered back."""
+    import torch
+
+    from keystone_tpu_torch.models.lm import (
+        generate,
+        quantize_for_decode,
+        shard_params,
+        unshard_params,
+    )
+    from keystone_tpu_torch.models.lm.decode import cache_heads
+    from keystone_tpu_torch.parallel import create_mesh
+    from keystone_tpu_torch.serve.export import export_lm
+
+    res: dict = {}
+    mesh = create_mesh(data=1, model=world)
+    prompt, loop_prompts = _serve_prompts()
+    for name in ("dense", "moe"):
+        model = shard_params(_serve_model(out, name), mesh)
+        toks = generate(model, torch.from_numpy(prompt), max_new=SERVE_NEW)
+        kv8 = generate(model, torch.from_numpy(prompt), max_new=SERVE_NEW, kv_dtype="int8")
+        loop = export_lm(model, quantize=True, **SERVE_LOOP)
+        outs = loop.run(loop_prompts)
+        res[f"{name}_generate"], res[f"{name}_generate_kv8"] = toks.numpy(), kv8.numpy()
+        res[f"{name}_loop"] = np.concatenate(outs)
+        res[f"{name}_graphed"] = loop.graphed
+        res[f"{name}_cache_heads"] = loop.cache.k.shape[2]
+        res[f"{name}_local_heads"] = cache_heads(model)
+        res[f"{name}_equal"] = _replicas_equal([toks, kv8, torch.from_numpy(res[f"{name}_loop"])])
+    whole = _serve_model(out, "dense")
+    gathered = unshard_params(quantize_for_decode(shard_params(whole, mesh)))
+    mine = quantize_for_decode(whole)
+    res["q_codes"] = np.concatenate([w.q.numpy().reshape(-1) for w in gathered.leaves()
+                                     if hasattr(w, "q")])
+    res["q_scales"] = np.concatenate([w.scale.numpy().reshape(-1) for w in gathered.leaves()
+                                      if hasattr(w, "q")])
+    res["q_whole_bits"] = all(
+        torch.equal(a.q, b.q) and torch.equal(a.scale, b.scale)
+        for a, b in zip(gathered.leaves(), mine.leaves()) if hasattr(a, "q"))
+    _save(out, rank, res)
+
+
 def _w_lm(rank, world, out: Path) -> None:
     """Three data-parallel steps of ``make_train_step`` with optax.adamw's
     defaults (``_lm_worker_common.build``), then three of ``train``."""
@@ -459,6 +543,8 @@ def _worker(argv: list) -> int:
             _w_tp(rank, world, out)
         elif mode == "sp":
             _w_sp(rank, world, out, argv[5])
+        elif mode == "serve":
+            _w_serve(rank, world, out)
         else:
             raise SystemExit(f"unknown mode {mode!r}")
     finally:
@@ -482,6 +568,7 @@ import jax.numpy as jnp  # noqa: E402
 from keystone_tpu.learn.merge import fit_stats_merge as j_fit_stats_merge  # noqa: E402
 from keystone_tpu.ops import linear as jlinear  # noqa: E402
 from keystone_tpu.parallel import multihost as jmultihost  # noqa: E402
+from keystone_tpu.parallel.mesh import create_mesh as jcreate_mesh  # noqa: E402
 from keystone_tpu_torch.parallel import create_mesh  # noqa: E402
 from keystone_tpu_torch.parallel import multihost  # noqa: E402
 
@@ -584,6 +671,44 @@ def sp_run(tmp_path_factory):
     _write_lm_in(out, _jax_lm()[0])
     _spawn("sp", out, _free_port(), out / "tp_ck")
     return dict(np.load(out / "rank0.npz"))
+
+
+def _jax_serve_models() -> dict:
+    """tests/test_torch_tp_serve.py's dense and MoE models (routers scaled
+    by 25)."""
+    import dataclasses
+
+    import jax
+
+    from keystone_tpu.models import lm_transformer as jlm
+
+    dense = jlm.TransformerLM.create(jax.random.key(0), **SERVE_CONF)
+    moe = jlm.TransformerLM.create(jax.random.key(0), **SERVE_CONF, **SERVE_MOE)
+    moe = dataclasses.replace(moe, moe_layers=tuple(
+        None if m is None else dataclasses.replace(m, w_router=m.w_router * 25.0)
+        for m in moe.moe_layers))
+    return {"dense": dense, "moe": moe}
+
+
+@pytest.fixture(scope="module")
+def serve_run(tmp_path_factory):
+    out = tmp_path_factory.mktemp("mh_serve")
+    arrays = {}
+    for name, jm in _jax_serve_models().items():
+        arrays[f"{name}_embed"] = np.asarray(jm.embed)
+        arrays[f"{name}_pos_embed"] = np.asarray(jm.pos_embed)
+        for i, blk in enumerate(jm.blocks):
+            for n in SERVE_WEIGHTS:
+                arrays[f"{name}_b{i}_{n}"] = np.asarray(getattr(blk, n))
+        for i, m in enumerate(jm.moe_layers):
+            if m is not None:
+                for n in ("w_router", "w1", "w2"):
+                    arrays[f"{name}_m{i}_{n}"] = np.asarray(getattr(m, n))
+                arrays[f"{name}_m{i}_cf"] = np.asarray(m.capacity_factor)
+                arrays[f"{name}_m{i}_gs"] = np.asarray(m.group_size)
+    np.savez(out / "lm_serve_in.npz", **arrays)
+    _spawn("serve", out, _free_port())
+    return out, dict(np.load(out / "rank0.npz"))
 
 
 def _jax_ppl(jm):
@@ -963,3 +1088,67 @@ def test_two_process_tp_checkpoint_resume(sp_run):
     np.testing.assert_allclose(sp_run["ckpt_embed"], np.asarray(jm.embed), atol=5e-5)
     assert int(sp_run["ckpt_step"]) == 4
     assert bool(sp_run["ckpt_whole_bits"]) and bool(sp_run["ckpt_equal"])
+
+
+# -- serving a sharded model across processes
+
+
+@pytest.mark.parametrize("name", ["dense", "moe"])
+def test_two_process_tp_serving_matches_jax(serve_run, name):
+    """A model sharded over two processes serves the JAX package's sharded
+    tokens: greedy ``generate`` (an f32 and an int8 KV cache) and the slot
+    pool of ``export_lm(quantize=True)``, equal on both ranks. Each rank's
+    cache holds its two of the four KV heads; over gloo the loop is not
+    graphed. The MoE model's routing gaps exceed 1e-4 on the same
+    inputs."""
+    import jax
+
+    from keystone_tpu.models import lm_transformer as jlm
+    from keystone_tpu.serve.export import export_lm as j_export_lm
+
+    out, run = serve_run
+    jm = jlm.shard_params(_jax_serve_models()[name],
+                          jcreate_mesh(data=4, model=2, devices=jax.devices()))
+    prompt, loop_prompts = _serve_prompts()
+    want = np.asarray(jlm.generate(jm, jnp.asarray(prompt), max_new=SERVE_NEW))
+    want8 = np.asarray(jlm.generate(jm, jnp.asarray(prompt), max_new=SERVE_NEW, kv_dtype="int8"))
+    want_loop = j_export_lm(jm, quantize=True, **SERVE_LOOP).run(loop_prompts)
+    np.testing.assert_array_equal(run[f"{name}_generate"], want)
+    np.testing.assert_array_equal(run[f"{name}_generate_kv8"], want8)
+    np.testing.assert_array_equal(run[f"{name}_loop"], np.concatenate(want_loop))
+    assert bool(run[f"{name}_equal"]) and not bool(run[f"{name}_graphed"])
+    assert int(run[f"{name}_cache_heads"]) == int(run[f"{name}_local_heads"]) == 2
+    if name == "moe":
+        pm = _serve_model(out, "moe")
+        margins = []
+        handles = [m.register_forward_hook(lambda mod, args, o: margins.append(float(
+            torch.diff(torch.sort(args[0].reshape(-1, args[0].shape[-1]).double()
+                                  @ mod.w_router.double(), dim=-1).values[:, -3:],
+                       dim=-1).min()))) for m in pm.experts]
+        try:
+            from keystone_tpu_torch.models.lm import generate
+
+            generate(pm, torch.from_numpy(prompt), max_new=SERVE_NEW)
+        finally:
+            for h in handles:
+                h.remove()
+        assert margins and min(margins) > 1e-4
+
+
+def test_two_process_quantize_of_shards_matches_jax(serve_run):
+    """``quantize_for_decode`` of the shards across two processes, gathered,
+    equals the port's whole quantization and the JAX package's
+    quantization of its sharded model, codes and scales bit for bit."""
+    import jax
+
+    from keystone_tpu.models import lm_transformer as jlm
+
+    _, run = serve_run
+    jq = jlm.quantize_for_decode(jlm.shard_params(
+        _jax_serve_models()["dense"], jcreate_mesh(data=4, model=2, devices=jax.devices())))
+    leaves = [jq.embed] + [getattr(b, n) for b in jq.blocks for n in SERVE_WEIGHTS]
+    np.testing.assert_array_equal(
+        run["q_codes"], np.concatenate([np.asarray(w.q).reshape(-1) for w in leaves]))
+    np.testing.assert_array_equal(
+        run["q_scales"], np.concatenate([np.asarray(w.scale).reshape(-1) for w in leaves]))
+    assert bool(run["q_whole_bits"])

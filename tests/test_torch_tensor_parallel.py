@@ -10,7 +10,8 @@ the vocab-sharded cross-entropy, dense and chunked, with every leaf's
 gradient; an expert-parallel MoE step against the JAX package's sharded
 MoE (its routers scaled by 25 and the routing gap asserted, as
 ``tests/test_torch_moe.py`` does); a TP model's checkpoint and resume, bit
-for bit; and the refusal to decode a sharded model. The JAX models are
+for bit; a sharded model's decode against the whole model's, and the
+refusal to shard an int8 model. The JAX models are
 carried across with ``convert.transformer_lm``; inputs come from numpy
 seeds.
 """
@@ -222,11 +223,15 @@ def test_tp_checkpoint_resumes_bit_for_bit(tmp_path):
 
 
 def test_sharded_model_refuses_decode():
-    """Serving a sharded model is a later step: prefill and generate raise
-    and name it; ``unshard_params`` gives back the whole model."""
-    pm = lm.shard_params(port_of(_jax_model()), create_mesh(data=1, model=2,
-                                                             devices=["cpu"] * 2))
-    with pytest.raises(NotImplementedError, match="A6 part 3"):
-        lm.generate(pm, np.array([[1, 2, 3]]), max_new=2)
-    whole = lm.unshard_params(pm)
-    assert whole.tp is None and len(lm.generate(whole, np.array([[1, 2, 3]]), max_new=2)[0]) == 2
+    """A sharded model serves: its greedy ``generate`` equals the whole
+    model's, and ``unshard_params`` gives back the whole model. What is
+    refused is sharding an int8 model: ``shard_params`` of a quantized
+    model raises ``ValueError``, as the JAX package's does."""
+    mesh = create_mesh(data=1, model=2, devices=["cpu"] * 2)
+    whole = port_of(_jax_model())
+    pm = lm.shard_params(whole, mesh)
+    prompt = np.array([[1, 2, 3], [4, 5, 6]])
+    assert torch.equal(lm.generate(pm, prompt, max_new=6), lm.generate(whole, prompt, max_new=6))
+    assert lm.unshard_params(pm).tp is None
+    with pytest.raises(ValueError, match="quantize_for_decode"):
+        lm.shard_params(lm.quantize_for_decode(whole), mesh)
