@@ -51,7 +51,23 @@ through the run supervisor (``supervise --procs 4 -- chip_multicard.py
    new): the same tokens on every rank, whether the pool was captured as
    CUDA graphs with its NCCL collectives (printed), K4 48 a step replay
    and K2 8 a prefill replay a rank by kernel name, ms a pooled step and
-   tokens/s.
+   tokens/s;
+10. the last multi-process paths: (a) the class-weighted fit of a global
+   batch at ``weighted_imagenet``'s shape (N 16,384, D 4,096, C 1,000, 4,096
+   rows a rank, the masked layout) against one process's fits on card 0:
+   in float64 within 1e-10 of max|W| of its float64 fit of the same
+   layout, in f32 within 2e-3 of max|W| of that fit, of its f32 fit of the
+   same layout and of its grid fit, with the grid fit under TF32 Grams
+   beyond 2e-3 (``chip_smoke.check_weighted``); each rank's rows, fit
+   seconds and all-reduce bytes (the largest a class chunk's Grams);
+   (b) MNIST's streamed int8 fit over a (data 2, model 2) mesh, 30,000
+   rows a data row held by both of its model positions: K1 once a fit
+   chunk on every rank, the same weights on every rank, test error ≤ 1 %
+   and ≥ 99.5 % of the test predictions as the one-process int8 fit; (c)
+   pp × tp on a (pipe 2, data 1, model 2) mesh, two stages of four blocks
+   with 8 heads a position: three bf16 train steps at the flagship width
+   (K2 8 a step a rank, falling finite losses, ms a step) and an f32 leg
+   at depth 2 against one process on card 0 at part 4's bars.
 
 Every NCCL communicator is warmed before it is timed: its first use
 builds it.
@@ -81,6 +97,10 @@ ALLREDUCE_REPS = 10
 TIMEOUT_S = 1500
 PP_MICRO = 8
 COMM_REPS = 10
+WEIGHTED = "weighted_imagenet"
+# pp × tp: two stages, each stage's blocks over a model axis of two
+PPTP_AXES = {"pipe": 2, "data": 1, "model": 2}
+PPTP_KW = dict(n_micro=2, axis="pipe", data_axis="data")
 
 
 def _event_ms(fn, reps: int = COMM_REPS) -> list:
@@ -262,6 +282,133 @@ def check_serving(ranks: list, out_dir: str, ref: dict) -> dict:
     return {"f32": f32, "ranks": [p["bf16"] for p in ranks]}
 
 
+def last_paths_part(device, out_dir: str) -> dict:
+    """Part 10 on this rank."""
+    from keystone_tpu_torch.models import mnist_random_fft
+    from keystone_tpu_torch.ops import gram
+    from keystone_tpu_torch.parallel import create_mesh, multihost, process_mesh
+
+    rank = multihost.process_index()
+    res = {"weighted": cs.weighted_rank_leg(device, out_dir, WEIGHTED)}
+
+    mesh = create_mesh(data=2, model=PROCS // 2)
+    _warm(mesh)
+    coords = mesh.coords()
+    weights: list = []
+    undo = cs._capture_weights(weights)
+    os.environ.update(KEYSTONE_PLAN="1", KEYSTONE_GRAM_OP="int8")
+    gram.INT8_GRAM.launches = 0
+    try:
+        run = mnist_random_fft.main(list(cs.MAIN_ARGV), mesh=mesh)
+    finally:
+        undo()
+    lo, hi = multihost.row_block(run["n_train"], coords["data"], mesh.shape["data"])
+    rows = min(hi, run["n_train"]) - lo
+    rank_chunk = run["fit_chunk_size"] // mesh.shape["data"]
+    res["mnist"] = {"coords": [coords["data"], coords["model"]],
+                    "k1_launches": gram.INT8_GRAM.launches, "rows": rows,
+                    "rank_chunk": rank_chunk, "fit_chunks": -(-rows // rank_chunk),
+                    "weights_equal": cs.replicas_equal(weights[-1:]),
+                    **{k: run[k] for k in ("train_error", "test_error", "fit_s", "total_s",
+                                           "processes", "fit_chunk_size")}}
+    if rank == 0:
+        torch.save({"pred": torch.from_numpy(run["test_predictions"])},
+                   os.path.join(out_dir, "mnist_data_model.pt"))
+    del run
+    torch.cuda.empty_cache()
+
+    mesh = process_mesh(PPTP_AXES)
+    _warm(mesh)
+    res["pptp"] = cs.dist_f32_leg(device, mesh, out_dir, "pptp", pp=PPTP_KW)
+    torch.cuda.empty_cache()
+    res["pptp_bf16"] = pptp_bf16_leg(device, mesh)
+    res["pptp_bf16"]["coords"] = [mesh.coords()[a] for a in PPTP_AXES]
+    return res
+
+
+def pptp_bf16_leg(device, mesh) -> dict:
+    """Three pp × tp train steps of the bf16 model at the flagship width
+    after one that warms them: losses, K2, ms a step, peak memory and
+    whether every replica holds the same parameters."""
+    from keystone_tpu_torch.models.lm import (
+        make_optimizer,
+        make_pp_train_step,
+        shard_params,
+        unshard_params,
+    )
+    from keystone_tpu_torch.models.lm.train import _step_batch, synthetic_corpus
+
+    corpus = synthetic_corpus(200_000, cs.TRAIN_CONF["vocab"], seed=0)
+    batches = [torch.from_numpy(_step_batch(corpus, 0, i, cs.TRAIN_BATCH, cs.TRAIN_SEQ)).to(device)
+               for i in range(STEPS + 1)]
+    model = shard_params(cs._par_model(device, cs.TRAIN_CONF["depth"], "bfloat16"), mesh)
+    optimizer = make_optimizer(cs.TRAIN_LR, steps=STEPS + 1)
+    state = optimizer.init(model.leaves())
+    step = make_pp_train_step(optimizer, mesh, **PPTP_KW)
+    model, state, _ = step(model, state, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cs._zero_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for toks in batches[1:]:
+        model, state, loss = step(model, state, toks)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"losses": losses, "launches": cs._counts(), "ms_per_step": wall * 1e3 / STEPS,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "replicas_equal": cs.replicas_equal(unshard_params(model).leaves())}
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_last_paths(ranks: list, out_dir: str, weighted_refs: dict, res8: dict,
+                     par_ref: dict, par_floor: tuple) -> dict:
+    """Hold and print part 10 of every rank."""
+    saved = torch.load(os.path.join(out_dir, "weighted.pt"))
+    weighted = cs.check_weighted_ranks(WEIGHTED, [r["weighted"] for r in ranks], weighted_refs,
+                                       saved)
+    depth = cs.TRAIN_CONF["depth"]
+    k2_step = depth // PPTP_AXES["pipe"] * PPTP_KW["n_micro"]
+    rows = {}
+    for r, part in enumerate(ranks):
+        m = part["mnist"]
+        print(f"  rank {r} at (data, model) {tuple(m['coords'])}: MNIST int8 {m['rows']} rows, K1 "
+              f"{m['k1_launches']} for {m['fit_chunks']} fit chunks of {m['rank_chunk']}, test "
+              f"error {m['test_error']:.4%}, fit {m['fit_s']:.2f} s, run {m['total_s']:.2f} s")
+        cs.check(m["processes"] == PROCS and m["k1_launches"] == m["fit_chunks"],
+                 f"rank {r}: MNIST over (data, model) {m}")
+        cs.check(m["test_error"] <= cs.MAX_TEST_ERROR and m["weights_equal"],
+                 f"rank {r}: MNIST over (data, model) {m}")
+        rows.setdefault(m["coords"][0], set()).add(m["rows"])
+        b = part["pptp_bf16"]
+        print(f"  rank {r} at (pipe, data, model) {tuple(b['coords'])}: pp x tp bf16 depth "
+              f"{depth}: {b['ms_per_step']:.1f} ms a step, peak {b['peak_bytes'] / 2**30:.2f} GiB, "
+              f"K2 {b['launches']['flash_attention']}, losses {b['losses']}")
+        cs.check(b["launches"]["flash_attention"] == k2_step * STEPS,
+                 f"rank {r} pp x tp bf16 K2 {b['launches']} for {k2_step} a step")
+        cs.check(all(math.isfinite(x) for x in b["losses"]) and b["losses"][-1] < b["losses"][0],
+                 f"rank {r} pp x tp bf16 losses {b['losses']}")
+        cs.check(b["replicas_equal"], "pp x tp bf16: parameters differ across ranks")
+    cs.check(all(len(v) == 1 for v in rows.values())
+             and sum(next(iter(v)) for v in rows.values()) == res8["n_train"],
+             f"MNIST over (data, model): rows {rows}")
+    pred = torch.load(os.path.join(out_dir, "mnist_data_model.pt"))["pred"].numpy()
+    agree = float((pred == res8["test_predictions"]).mean())
+    print(f"  MNIST int8 over (data 2, model 2) against one process: test predictions agree on "
+          f"{agree:.4%}")
+    cs.check(agree >= cs.MIN_AGREEMENT, f"MNIST over (data, model): agreement {agree:.4%}")
+    pp_f32 = cs.check_par_leg(
+        f"pp x tp (2, 1, 2) f32 depth {cs.PAR_F32_DEPTH} over {PROCS} cards",
+        cs.load_dist_f32_leg(out_dir, "pptp", ranks,
+                             cs.PAR_F32_DEPTH // PPTP_AXES["pipe"] * PPTP_KW["n_micro"]),
+        par_ref, par_floor)
+    return {"weighted": weighted, "mnist_agreement": agree, "pptp_f32": pp_f32,
+            "ranks": [{k: part[k] for k in ("mnist", "pptp_bf16")} for part in ranks]}
+
+
 def worker(out_dir: str) -> None:
     """One process of the four: NCCL on card ``rank``."""
     from keystone_tpu_torch.models import mnist_random_fft
@@ -329,6 +476,8 @@ def worker(out_dir: str) -> None:
     res["parallel"] = parallel_parts(device, out_dir)
     torch.cuda.empty_cache()
     res["serving"] = serving_part(device, out_dir)
+    torch.cuda.empty_cache()
+    res["last_paths"] = last_paths_part(device, out_dir)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     multihost.shutdown()
@@ -412,6 +561,7 @@ def main() -> None:
     par_ref, par_floor = cs.par_reference(device, cs.PAR_F32_DEPTH)
     shard_ref = cs.shard_f32_reference(device)
     torch.cuda.empty_cache()
+    weighted_refs = cs.weighted_references(device, WEIGHTED)
 
     root = os.path.dirname(os.path.abspath(__file__))
     env = {k: v for k, v in os.environ.items() if not k.startswith(("KEYSTONE_", "KST_"))}
@@ -437,6 +587,8 @@ def main() -> None:
             cs.load_dist_f32_leg(out, tag, par_ranks, cs.PAR_F32_DEPTH), par_ref, par_floor)
             for tag, label in (("tp", "TP (1, 4)"), ("dptp", "dp x tp (2, 2)"))}
         serving = check_serving([r["serving"] for r in ranks], out, shard_ref)
+        last_paths = check_last_paths([r["last_paths"] for r in ranks], out, weighted_refs,
+                                      res8, par_ref, par_floor)
 
     print(f"four processes, one card each: {procs_s:.1f} s under the supervisor")
     want_k2 = cs.TRAIN_CONF["depth"] * STEPS
@@ -469,9 +621,9 @@ def main() -> None:
     summary = {"cards": smi, "backend": "nccl", "procs_s": procs_s, "parallel": parallel,
                "one_process": {"mnist_fit_s": res8["fit_s"], "mnist_test_error":
                                res8["test_error"]},
-               "serving": serving,
-               "ranks": [{k: v for k, v in r.items() if k not in ("parallel", "serving")}
-                         for r in ranks],
+               "serving": serving, "last_paths": last_paths,
+               "ranks": [{k: v for k, v in r.items()
+                          if k not in ("parallel", "serving", "last_paths")} for r in ranks],
                "mnist_agreement": agree, "mnist_weight_dist": w_dist,
                "f32": f32,
                "s": time.perf_counter() - t_all}

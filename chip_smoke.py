@@ -324,7 +324,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    process accumulating each gradient over the same row blocks, their
    distance to one process on the whole batch printed beside what
    reversing that run's batch rows moves it), in bf16 at depth 8 (K2 8 a
-   step on each rank, a falling loss, ms a step on each rank).
+   step on each rank, a falling loss, ms a step on each rank); the
+   class-weighted fit of a global batch at ``bench_weighted``'s shape
+   (16,384 rows a rank, the masked layout, each sum over rows summed over
+   the pair): in float64 within 1e-10 of max|W| of one process's float64
+   fit of the same layout, in f32 within 3e-4 of max|W| of that fit, of
+   one process's f32 fit of the same layout and of phase 33's grid fit,
+   with the same grid fit under TF32 Grams beyond 3e-4 (the control that
+   shows the limit would catch it); and the streamed
+   MNIST fit under a plan budget below its state, whose materialized
+   fallback featurizes 30,000 rows on each rank (rows and seconds a rank
+   printed, test error ≤ 1 %).
 
 44. tensor, pipeline and sequence parallelism at the flagship width. (a)
    One process, meshes naming the card 4 times (8 for the 3-axis one),
@@ -3639,6 +3649,18 @@ WEIGHTED_CHECKS = {
     "masked": dict(seed=13, n=2048, d=96, c=6, num_iter=1, class_chunk=4, dominant=0.85),
 }
 WEIGHTED_TOL = 1e-4  # of max|W| (intercepts: of max(max|W|, max|b|), as tests/test_torch_weighted.py)
+# the weighted fit of a global batch against one process's fits. In
+# float64 it is one process's fit of the same (masked) layout up to
+# rounding, WEIGHTED_F64_TOL of max|W| (intercepts: of max(max|W|, max|b|));
+# the float64 fits take class chunks of at most WEIGHTED_F64_CHUNK (memory;
+# each class's system is its own, so the chunk changes no sum)
+WEIGHTED_F64_TOL = 1e-10
+WEIGHTED_F64_CHUNK = 16
+# in float32, a fixed limit a shape on each of its distances from one
+# process's float64, masked and grid fits: above what a sound f32 fit
+# summed in another order reads at that shape, below what the same fit
+# with TF32 Grams reads (the control, printed and checked each run)
+WEIGHTED_GLOBAL_TOL = {"bench_weighted": 3e-4, "weighted_imagenet": 2e-3}
 
 
 def imagenet_small_checks(device) -> dict:
@@ -3785,6 +3807,103 @@ def weighted_flops(n, d, c, num_iter, cls) -> float:
     return setup + num_iter * per_pass
 
 
+def weighted_estimator(shape: dict, dtype=torch.float32, precision: str | None = None):
+    """The weighted solver as phase 33 fits ``shape`` (a float64 fit's
+    class chunk at most ``WEIGHTED_F64_CHUNK``; ``precision`` the
+    solver's own)."""
+    from keystone_tpu_torch.ops import weighted_linear as wl
+
+    chunk = shape["class_chunk"]
+    if dtype == torch.float64:
+        chunk = min(chunk, WEIGHTED_F64_CHUNK)
+    return wl.BlockWeightedLeastSquaresEstimator(
+        block_size=shape["d"], num_iter=shape["num_iter"], lam=1e-3, mixture_weight=0.5,
+        class_chunk=chunk, precision=precision)
+
+
+def weighted_references(device, name: str) -> dict:
+    """``WEIGHTED_BENCH[name]``'s fits in one process on ``device``, each
+    as (W, b) on the CPU: the grid fit phase 33 times (``grid``), the fit
+    of the same rows as a global batch of one process (``masked``: the
+    layout and solves a fit across processes takes), that fit in float64
+    (``f64``: the yardstick of every f32 fit and the reference of a
+    float64 fit across processes), and the control: the grid fit with
+    TF32 products (the solver's ``precision="high"``), of which only its
+    distance from ``f64`` is kept (``tf32_gap``; a fit that fails counts
+    as infinitely far). Prints each fit's seconds (``fit_s``), the first
+    call of each layout included."""
+    from keystone_tpu_torch.parallel.multihost import GlobalRows
+
+    shape = WEIGHTED_BENCH[name]
+    x, y, _ = weighted_problem(**shape)
+    est, est64 = weighted_estimator(shape), weighted_estimator(shape, torch.float64)
+    xd, yd = x.to(device), y.to(device)
+    out, secs = {}, {}
+    for tag, fit in (("grid", lambda: est.fit(xd, yd)),
+                     ("masked", lambda: est.fit(GlobalRows(xd, shape["n"], 0), yd)),
+                     ("f64", lambda: est64.fit(GlobalRows(xd.double(), shape["n"], 0),
+                                               yd.double()))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = fit()
+        torch.cuda.synchronize()
+        secs[tag] = time.perf_counter() - t0
+        out[tag] = (torch.cat(list(model.xs)).double().cpu(), model.b.double().cpu())
+        del model
+        torch.cuda.empty_cache()
+    print(f"  weighted {name}, one process: the grid fit {secs['grid']:.3f} s, the masked "
+          f"fit {secs['masked']:.3f} s, the masked fit in float64 {secs['f64']:.3f} s")
+    out["fit_s"] = secs
+    try:
+        model = weighted_estimator(shape, precision="high").fit(xd, yd)
+        gap = weighted_gap(out["f64"], (torch.cat(list(model.xs)).cpu(), model.b.cpu()))
+        out["tf32_gap"] = gap if math.isfinite(gap) else math.inf
+        del model
+    except torch.linalg.LinAlgError as e:
+        print(f"  weighted {name}: the TF32 control's fit failed ({e})")
+        out["tf32_gap"] = math.inf
+    del xd, yd
+    torch.cuda.empty_cache()
+    return out
+
+
+def weighted_gap(ref: tuple, got: tuple) -> float:
+    """``got``'s distance from ``ref``: the weights' in max|W_ref|, the
+    intercepts' in max(max|W_ref|, max|b_ref|), the larger of the two."""
+    (w, b), (gw, gb) = ref, (got[0].double(), got[1].double())
+    scale = float(w.abs().max())
+    return max(float((gw - w).abs().max()) / scale,
+               float((gb - b).abs().max()) / max(scale, float(b.abs().max())))
+
+
+def check_weighted(label: str, name: str, refs: dict, got: tuple, got64: tuple) -> dict:
+    """Hold a fit of ``WEIGHTED_BENCH[name]`` across processes to one
+    process's fits (:func:`weighted_references`): its float64 fit
+    (``got64``) within ``WEIGHTED_F64_TOL`` of one process's; its f32 fit
+    (``got``) within ``WEIGHTED_GLOBAL_TOL[name]`` of one process's float64,
+    masked and grid fits; the TF32 control beyond that limit. Prints every
+    distance, one process's f32 fits' own from float64 among them."""
+    tol = WEIGHTED_GLOBAL_TOL[name]
+    f64 = weighted_gap(refs["f64"], got64)
+    gaps = {"vs_f64": weighted_gap(refs["f64"], got),
+            "vs_masked": weighted_gap(refs["masked"], got),
+            "vs_grid": weighted_gap(refs["grid"], got)}
+    sound = {tag: weighted_gap(refs["f64"], refs[tag]) for tag in ("grid", "masked")}
+    print(f"  {label}: float64 fit {f64:.3e} from one process's (limit {WEIGHTED_F64_TOL:.0e}); "
+          f"f32 fit from one process's float64 fit {gaps['vs_f64']:.3e}, masked fit "
+          f"{gaps['vs_masked']:.3e}, grid fit {gaps['vs_grid']:.3e} (limit {tol:.0e}); one "
+          f"process's f32 grid and masked fits {sound['grid']:.3e} and {sound['masked']:.3e} "
+          f"from its float64 fit, its grid fit with TF32 Grams {refs['tf32_gap']:.3e}")
+    check(f64 <= WEIGHTED_F64_TOL, f"{label}: float64 fit {f64:.3e} from one process's")
+    for tag, gap in gaps.items():
+        check(gap <= tol, f"{label}: f32 fit {tag} {gap:.3e} (limit {tol:.0e})")
+    check(refs["tf32_gap"] > tol, f"{label}: the TF32 control reads {refs['tf32_gap']:.3e}, "
+          f"within the limit {tol:.0e}")
+    return {**gaps, "f64_vs_f64": f64, "grid_vs_f64": sound["grid"],
+            "masked_vs_f64": sound["masked"], "tf32_vs_f64": refs["tf32_gap"], "limit": tol,
+            "f64_limit": WEIGHTED_F64_TOL, "one_process_fit_s": refs["fit_s"]}
+
+
 def phase_weighted(device) -> dict:
     """Phase 33: the weighted solver alone at ``bench_weighted``'s and
     ``weighted_imagenet_problem``'s shapes: fit s (one warm fit, then the
@@ -3796,9 +3915,7 @@ def phase_weighted(device) -> dict:
     out = {}
     for name, shape in WEIGHTED_BENCH.items():
         x, y, cls = weighted_problem(**shape)
-        est = wl.BlockWeightedLeastSquaresEstimator(
-            block_size=shape["d"], num_iter=shape["num_iter"], lam=1e-3, mixture_weight=0.5,
-            class_chunk=shape["class_chunk"])
+        est = weighted_estimator(shape)
         path = wl.fit_path(est, y, shape["d"])
         xd, yd = x.to(device), y.to(device)
         del x, y
@@ -3822,9 +3939,7 @@ def phase_weighted(device) -> dict:
     checks = {}
     for name, shape in WEIGHTED_CHECKS.items():
         x, y, _ = weighted_problem(**shape)
-        est = wl.BlockWeightedLeastSquaresEstimator(
-            block_size=shape["d"], num_iter=shape["num_iter"], lam=1e-3, mixture_weight=0.5,
-            class_chunk=shape["class_chunk"])
+        est = weighted_estimator(shape)
         path = wl.fit_path(est, y, shape["d"])
         want = est.fit(x, y)
         got = est.fit(x.to(device), y.to(device))
@@ -5623,6 +5738,10 @@ DP_GRAD_TOL = 1e-5  # f32 first-step gradients, of max|g| of each leaf
 # that distance is measured and printed, and only its RMS is held to 5e-5
 DP_WEIGHT_TOL = 5e-5
 DP_TIMEOUT_S = 420
+# a plan budget below the fused MNIST fit's (D, D) f32 state at D = 16,384
+# (1.07 GB): fit_streaming takes its materialized fallback, by row block
+DP_FALLBACK_BUDGET_MB = 512
+DP_WEIGHTED = "bench_weighted"
 
 
 def _capture_weights(out: list):
@@ -5782,11 +5901,84 @@ def dp_f32_leg(device, out_dir: str, rank: int) -> dict:
     return {"losses": losses}
 
 
+def weighted_rank_leg(device, out_dir: str, name: str) -> dict:
+    """This process's part of the weighted fit of ``WEIGHTED_BENCH[name]``
+    as a global batch: its row block through ``global_batch_from_local``,
+    one f32 fit, its rows and seconds, and the all-reduces it made (count
+    and the largest in bytes: a class chunk's Grams); then the same fit
+    in float64 and its seconds. Rank 0 writes both models to
+    ``weighted.pt`` under ``out_dir``."""
+    from keystone_tpu_torch.parallel import multihost
+
+    shape = WEIGHTED_BENCH[name]
+    x, y, _ = weighted_problem(**shape)
+    lo, hi = multihost.row_block(shape["n"])
+    x_rank = x[lo:hi].clone()
+    rows = multihost.global_batch_from_local(x_rank)
+    labels = y[lo:hi].to(device)
+    del x, y
+    sizes: list = []
+    real = multihost.all_reduce_
+
+    def counted(t, *a, **kw):
+        sizes.append(t.numel() * t.element_size())
+        return real(t, *a, **kw)
+
+    multihost.all_reduce_ = counted
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        model = weighted_estimator(shape).fit(rows, labels)
+        torch.cuda.synchronize()
+    finally:
+        multihost.all_reduce_ = real
+    fit_s = time.perf_counter() - t0
+    saved = {"w": torch.cat(list(model.xs)).cpu(), "b": model.b.cpu()}
+    del model, rows
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = weighted_estimator(shape, torch.float64).fit(
+        multihost.global_batch_from_local(x_rank.double()), labels.double())
+    torch.cuda.synchronize()
+    f64_s = time.perf_counter() - t0
+    if multihost.process_index() == 0:
+        torch.save({**saved, "w64": torch.cat(list(model.xs)).cpu(), "b64": model.b.cpu()},
+                   os.path.join(out_dir, "weighted.pt"))
+    del model, labels, x_rank
+    torch.cuda.empty_cache()
+    return {"rows": hi - lo, "fit_s": fit_s, "f64_fit_s": f64_s, "all_reduces": len(sizes),
+            "max_all_reduce_bytes": max(sizes, default=0), "all_reduce_bytes": sum(sizes)}
+
+
+def fallback_rank_leg() -> dict:
+    """MNIST's streamed fit under a plan budget below its fused state
+    (``DP_FALLBACK_BUDGET_MB``): ``fit_streaming``'s materialized fallback
+    on this process's row block. Its rows (``plan_fit_materialized_rows``),
+    seconds, the fallback's reason and the errors."""
+    from keystone_tpu_torch.models import mnist_random_fft
+    from keystone_tpu_torch.observe import metrics
+
+    counter = metrics.get_registry().counter("plan_fit_materialized_rows")
+    before = counter.value
+    os.environ.update(KEYSTONE_PLAN="1", KEYSTONE_PLAN_BUDGET_MB=str(DP_FALLBACK_BUDGET_MB))
+    os.environ.pop("KEYSTONE_GRAM_OP", None)
+    try:
+        run = mnist_random_fft.main(list(MAIN_ARGV))
+    finally:
+        os.environ.pop("KEYSTONE_PLAN_BUDGET_MB")
+    fallback = next((d for d in run["fit_decisions"] if d["action"] == "fit_fallback"), {})
+    torch.cuda.empty_cache()
+    return {"rows": counter.value - before, "reason": fallback.get("reason"),
+            **{k: run[k] for k in ("n_train", "train_error", "test_error", "fit_s", "total_s")}}
+
+
 def dp_worker(out_dir: str) -> None:
     """``--dp-worker DIR``: one process of phase 43, under the supervisor's
     environment. Joins the group over gloo on card 0, runs the MNIST main
-    path's int8 fit on its rows, then the f32 and bf16 train legs, and
-    writes its record (and, on rank 0, the weights) under ``DIR``."""
+    path's int8 fit on its rows, the weighted fit of a global batch, the
+    streamed fit's materialized fallback, then the f32 and bf16 train
+    legs, and writes its record (and, on rank 0, the weights) under
+    ``DIR``."""
     from keystone_tpu_torch.models import mnist_random_fft
     from keystone_tpu_torch.ops import gram
     from keystone_tpu_torch.parallel import multihost
@@ -5816,6 +6008,8 @@ def dp_worker(out_dir: str) -> None:
                    os.path.join(out_dir, "mnist.pt"))
     del run
     torch.cuda.empty_cache()
+    res["weighted"] = weighted_rank_leg(device, out_dir, DP_WEIGHTED)
+    res["fallback"] = fallback_rank_leg()
 
     res["f32"] = dp_f32_leg(device, out_dir, rank)
     _dp_train(device, TRAIN_CONF, "bfloat16", 1)  # the first step warms the allocator
@@ -5828,6 +6022,38 @@ def dp_worker(out_dir: str) -> None:
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     multihost.shutdown()
+
+
+def check_weighted_ranks(name: str, ranks: list, refs: dict, saved: dict) -> dict:
+    """Print each rank's part of the weighted fit of ``WEIGHTED_BENCH[name]``
+    across processes and hold rank 0's models against the one-process
+    fits (:func:`check_weighted`)."""
+    label = f"weighted {name}"
+    n = sum(r["rows"] for r in ranks)
+    for i, r in enumerate(ranks):
+        print(f"  rank {i} {label}: {r['rows']} rows, fit {r['fit_s']:.3f} s (float64 "
+              f"{r['f64_fit_s']:.3f} s), {r['all_reduces']} "
+              f"all-reduces, the largest {r['max_all_reduce_bytes'] / 1e6:.1f} MB (a class "
+              f"chunk's Grams), {r['all_reduce_bytes'] / 1e6:.1f} MB in all")
+    check(all(r["rows"] == ranks[0]["rows"] for r in ranks) and n == ranks[0]["rows"] * len(ranks),
+          f"{label}: rows {[r['rows'] for r in ranks]}")
+    out = check_weighted(f"{label} over {len(ranks)} processes", name, refs,
+                         (saved["w"], saved["b"]), (saved["w64"], saved["b64"]))
+    return {**out, "ranks": ranks}
+
+
+def check_fallback_ranks(ranks: list, procs: int) -> dict:
+    """Print and hold each rank's streamed fit that fell back to the
+    materialized fit: the plan's reason, the rank's own row block
+    featurized, the test error."""
+    for i, r in enumerate(ranks):
+        print(f"  rank {i} MNIST fallback ({r['reason']}, budget {DP_FALLBACK_BUDGET_MB} MB): "
+              f"{r['rows']} rows featurized for the fit, fit {r['fit_s']:.2f} s, run "
+              f"{r['total_s']:.2f} s, test error {r['test_error']:.4%}")
+        check(r["reason"] == "state_over_budget", f"rank {i}: fallback {r['reason']}")
+        check(r["rows"] == -(-r["n_train"] // procs), f"rank {i}: featurized {r['rows']} rows")
+        check(r["test_error"] <= MAX_TEST_ERROR, f"rank {i}: fallback test error")
+    return {"budget_mb": DP_FALLBACK_BUDGET_MB, "ranks": ranks}
 
 
 def phase_two_processes(device, res8: dict, w8) -> dict:
@@ -5849,6 +6075,7 @@ def phase_two_processes(device, res8: dict, w8) -> dict:
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
+    weighted_refs = weighted_references(device, DP_WEIGHTED)
     ref = f32_reference(device, DP_PROCS)
     root = os.path.dirname(os.path.abspath(__file__))
     env = {k: v for k, v in os.environ.items() if not k.startswith(("KEYSTONE_", "KST_"))}
@@ -5869,6 +6096,7 @@ def phase_two_processes(device, res8: dict, w8) -> dict:
                 ranks.append(json.load(f))
         mnist = torch.load(os.path.join(out, "mnist.pt"))
         f32_saved = torch.load(os.path.join(out, "f32.pt"))
+        weighted_saved = torch.load(os.path.join(out, "weighted.pt"))
     print("two processes on one card: gloo (NCCL refuses two ranks on one device); "
           f"{pair_s:.1f} s for the pair under the supervisor")
     for r in ranks:
@@ -5894,6 +6122,9 @@ def phase_two_processes(device, res8: dict, w8) -> dict:
     print(f"  MNIST int8, two processes against one: test predictions agree on {agree:.4%}, "
           f"weights {w_dist:.3e} of max|W| apart")
     check(agree >= MIN_AGREEMENT, f"two processes: agreement {agree:.4%}")
+    weighted = check_weighted_ranks(DP_WEIGHTED, [r["weighted"] for r in ranks], weighted_refs,
+                                    weighted_saved)
+    fallback = check_fallback_ranks([r["fallback"] for r in ranks], DP_PROCS)
     f32 = check_f32_leg(ref, [r["f32"]["losses"] for r in ranks], f32_saved["leaves"],
                         f32_saved["grads"], DP_PROCS)
     res = {"backend": "gloo", "pair_s": pair_s,
@@ -5901,6 +6132,7 @@ def phase_two_processes(device, res8: dict, w8) -> dict:
                       "bf16": {k: r["bf16"][k] for k in ("losses", "ms_per_step", "peak_bytes")},
                       "k2_launches": r["bf16"]["launches"]["flash_attention"]} for r in ranks],
            "mnist_agreement": agree, "mnist_weight_dist": w_dist, "f32": f32,
+           "weighted": weighted, "fallback": fallback,
            "s": time.perf_counter() - t_phase}
     print(f"phase 43: {res['s']:.1f} s")
     return res
@@ -6099,16 +6331,22 @@ def score_modes(model, mesh, held, kw) -> dict:
     return out
 
 
-def dist_f32_leg(device, mesh, out_dir: str, tag: str, steps: int = PAR_STEPS) -> dict:
+def dist_f32_leg(device, mesh, out_dir: str, tag: str, steps: int = PAR_STEPS,
+                 pp: dict | None = None) -> dict:
     """A process's f32 leg at depth 2 sharded over ``mesh`` across
     processes: the first step's gradients (averaged over the data axis,
     gathered whole over the model axis), then ``steps`` steps of the
     data-parallel step on its data row's rows; rank 0 saves the whole
-    gradients and leaves as ``<tag>.pt``."""
+    gradients and leaves as ``<tag>.pt``. ``pp`` (``gpipe``'s keyword
+    arguments) takes the pipeline-parallel loss and step instead, TP
+    inside the stages, on the whole batch (the pipe splits it over the
+    data axis itself)."""
     from keystone_tpu_torch.models.lm import (
         make_optimizer,
+        make_pp_train_step,
         make_train_step,
         next_token_loss,
+        next_token_loss_pp,
         shard_params,
         unshard_params,
     )
@@ -6118,20 +6356,27 @@ def dist_f32_leg(device, mesh, out_dir: str, tag: str, steps: int = PAR_STEPS) -
 
     n_data = mesh.shape["data"]
     tp = shard_params(_par_model(device, PAR_F32_DEPTH, "float32"), mesh)
-    batches = _par_batches(steps, slice(*multihost.row_block(TRAIN_BATCH, mesh.coords()["data"],
-                                                             n_data)))
+    rows = slice(None) if pp is not None else slice(
+        *multihost.row_block(TRAIN_BATCH, mesh.coords()["data"], n_data))
+    batches = _par_batches(steps, rows)
     params = tp.leaves()
     for p in params:
         p.requires_grad_(True)
-    loss = next_token_loss(tp, batches[0].to(device))
+    if pp is None:
+        loss = next_token_loss(tp, batches[0].to(device))
+    else:
+        loss = next_token_loss_pp(tp, batches[0].to(device), mesh, **pp)
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
-    if n_data > 1:
+    if n_data > 1 and pp is None:
         allreduce_mean_(grads, loss.detach(), mesh.axis_group("data"))
     grads = [gather_leaf(tp, g, d).cpu() for g, d in zip(grads, leaf_dims(tp))]
     optimizer = make_optimizer(TRAIN_LR, steps=PAR_STEPS)
     state = optimizer.init(params)
-    step = make_train_step(optimizer, data_parallel=n_data > 1)
+    if pp is None:
+        step = make_train_step(optimizer, data_parallel=n_data > 1)
+    else:
+        step = make_pp_train_step(optimizer, mesh, **pp)
     torch.cuda.synchronize()
     _zero_counts()
     t0 = time.perf_counter()

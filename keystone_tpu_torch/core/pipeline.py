@@ -209,7 +209,15 @@ class Estimator:
 
 
 class LabelEstimator:
-    """Supervised estimator: ``fit(data, labels) -> Transformer``."""
+    """Supervised estimator: ``fit(data, labels) -> Transformer``.
+
+    ``fits_global_rows`` says whether :meth:`fit` takes a global batch (a
+    :class:`~keystone_tpu_torch.parallel.multihost.GlobalRows`: this
+    process's row block of rows spread over processes) and fits every
+    process's rows; an estimator without that branch would read the block
+    as the whole batch."""
+
+    fits_global_rows = False
 
     def fit(self, data, labels, **kw) -> Transformer:
         raise NotImplementedError
@@ -297,9 +305,24 @@ class ChainedLabelEstimator(LabelEstimator):
     est: LabelEstimator
 
     def fit(self, data, labels, **kw) -> "Pipeline":
+        """A ``GlobalRows`` ``data`` featurizes this process's row block
+        only and fits the global batch through the estimator's own
+        ``GlobalRows`` branch (``fits_global_rows``)."""
+        from keystone_tpu_torch.parallel.multihost import GlobalRows
+
+        rows = data if isinstance(data, GlobalRows) else None
+        if rows is not None:
+            if not self.est.fits_global_rows:
+                raise TypeError(
+                    f"{type(self.est).__name__} has no GlobalRows fit: over rows spread "
+                    "across processes it would fit this process's block as the whole batch"
+                )
+            data = rows.local
         data = _fit_entry(data)
         feats = self.prefix(data)
         _guard_feats(node_label(self.prefix), feats)
+        if rows is not None:
+            feats = dataclasses.replace(rows, local=feats)
         return Pipeline.of(self.prefix, self.est.fit(feats, labels, **kw))
 
     def fit_fused(self, data, labels, **kw) -> "Pipeline":

@@ -134,12 +134,14 @@ class MulticlassClassifierEvaluator:
 
     def evaluate(self, predicted, actual, n_valid: int | None = None):
         """``predicted`` may be a ``GlobalRows``: ``actual`` and ``n_valid``
-        then index the global batch, as in the reference."""
+        then index the global batch, as in the reference, and the
+        confusion matrix is summed over the processes that hold its row
+        blocks (each row once, whatever the mesh's model axis)."""
         from keystone_tpu_torch.parallel.multihost import GlobalRows, all_reduce_
 
         glob = isinstance(predicted, GlobalRows)
         if glob:
-            lo = predicted.offset
+            lo, group = predicted.offset, predicted.group
             n_ok = predicted.n_global if n_valid is None else min(int(n_valid), predicted.n_global)
             predicted, n_valid = predicted.local, max(0, n_ok - lo)
             actual = actual[lo : lo + predicted.shape[0]]
@@ -150,7 +152,7 @@ class MulticlassClassifierEvaluator:
             actual = torch.cat([actual, actual.new_zeros(predicted.shape[0] - actual.shape[0])])
         conf = _confusion(predicted, actual, self.num_classes, n_valid)
         if glob:
-            all_reduce_(conf)
+            all_reduce_(conf, group=group)
         return MulticlassMetrics(confusion=conf.cpu().numpy().astype(np.float64))
 
     __call__ = evaluate

@@ -239,23 +239,30 @@ def load_fit_state(path: str, device=None) -> FitState:
 # ------------------------------------------------------- cross-host merge
 
 
-def merge_over_group(state: Any) -> Any:
+def merge_over_group(state: Any, group=None) -> Any:
     """Every process's accumulated state merged in rank order, on every
     process: each field is gathered over the process group and the states
     are folded with :func:`fit_stats_merge`, rank 0 first, so every process
-    computes the same merged state from the same inputs. A group of one
+    computes the same merged state from the same inputs. ``group`` (an
+    :class:`~keystone_tpu_torch.parallel.collectives.AxisGroup`, the data
+    axis's line of a mesh across processes,
+    :func:`keystone_tpu_torch.parallel.mesh.data_group`) folds only its
+    processes' states, in data order: the replicas of one data row along a
+    model axis then count its rows once, and a (data 2, model 2) fit folds
+    the states a (data 2) fit folds, in the same order. A group of one
     returns ``state``. A transport failure raises."""
     from keystone_tpu_torch.parallel import multihost
 
-    if multihost.process_count() == 1:
+    size = multihost.process_count() if group is None else group.size
+    if size == 1:
         return state
     names = [f.name for f in dataclasses.fields(state)]
     gathered = {
-        name: multihost.all_gather(getattr(state, name).reshape(-1))
+        name: multihost.all_gather(getattr(state, name).reshape(-1), group)
         for name in names
     }
     merged = None
-    for r in range(multihost.process_count()):
+    for r in range(size):
         peer = type(state)(**{
             name: gathered[name][r].reshape(getattr(state, name).shape) for name in names
         })

@@ -58,7 +58,13 @@ from keystone_tpu_torch.ops.stats import (
 )
 from keystone_tpu_torch.ops.util import ClassLabelIndicators, MaxClassifier, ZipVectors
 from keystone_tpu_torch.parallel import multihost
-from keystone_tpu_torch.parallel.mesh import create_mesh, data_sharding
+from keystone_tpu_torch.parallel.mesh import (
+    create_mesh,
+    data_axis_size,
+    data_group,
+    data_sharding,
+    local_position,
+)
 
 logger = get_logger("keystone_tpu_torch.models.mnist_random_fft")
 
@@ -230,9 +236,11 @@ def run(conf: MnistRandomFFTConfig, device=None, mesh=None) -> dict:
     fit, the planner's decisions: the fit's and each planned pass's.
 
     In a process group of several processes (or over a ``mesh`` across
-    processes) each process fits and evaluates its row block on its own
-    card; the errors and the test predictions are global, on every
-    process."""
+    processes) each process fits and evaluates the row block of its data
+    position on its own card; the errors and the test predictions are
+    global, on every process. The model positions of a (data, model) mesh
+    hold replicas of their data row's block, which the merges and the
+    evaluator count once."""
     if mesh is None and multihost.process_count() > 1:
         mesh = create_mesh()
     dp = mesh is not None and mesh.spans_processes
@@ -248,8 +256,9 @@ def run(conf: MnistRandomFFTConfig, device=None, mesh=None) -> dict:
     test_x = torch.from_numpy(test.data)
     label_indicators = ClassLabelIndicators(num_classes=NUM_CLASSES)(train.labels)
     # this process's rows: all of them alone, its row block in a group
-    train_lo, train_hi = _rows_of(n_train, dp)
-    test_lo, test_hi = _rows_of(n_test, dp)
+    train_lo, train_hi = _rows_of(n_train, mesh if dp else None)
+    test_lo, test_hi = _rows_of(n_test, mesh if dp else None)
+    rows_group = data_group(mesh)
 
     batch_featurizers = build_batch_featurizers(
         conf.num_ffts,
@@ -287,7 +296,7 @@ def run(conf: MnistRandomFFTConfig, device=None, mesh=None) -> dict:
         model = fitted[-1]
     elif dp:
         model = est.fit(
-            multihost.GlobalRows(train_blocks, n_train, train_lo),
+            multihost.GlobalRows(train_blocks, n_train, train_lo, rows_group),
             label_indicators[train_lo:train_hi].to(device),
         )
     else:
@@ -305,7 +314,7 @@ def run(conf: MnistRandomFFTConfig, device=None, mesh=None) -> dict:
         def cb(partial_pred):
             preds[name] = classify(partial_pred)
             if dp:
-                preds[name] = multihost.GlobalRows(preds[name], n_valid, lo)
+                preds[name] = multihost.GlobalRows(preds[name], n_valid, lo, rows_group)
             errors[name] = evaluator(preds[name], labels, n_valid=n_valid).error
             logger.info("%s error so far: %.2f%%", name, 100 * errors[name])
 
@@ -378,12 +387,12 @@ def run(conf: MnistRandomFFTConfig, device=None, mesh=None) -> dict:
     return result
 
 
-def _rows_of(n: int, dp: bool) -> tuple[int, int]:
-    """This process's rows of an ``n``-row split: all of them alone, its
-    row block in a process group."""
-    if not dp:
+def _rows_of(n: int, mesh) -> tuple[int, int]:
+    """This process's rows of an ``n``-row split: all of them without a
+    mesh across processes, else the row block of its data position."""
+    if mesh is None:
         return 0, n
-    lo, hi = multihost.row_block(n)
+    lo, hi = multihost.row_block(n, local_position(mesh), data_axis_size(mesh))
     return min(lo, n), min(hi, n)
 
 
@@ -399,8 +408,10 @@ def _record_observability(ev, bank, model, test_x, device) -> None:
     record_pipeline_profile(pipe, probe, save_dir=ev.run_dir)
 
 
-def main(argv=None, device=None) -> dict:
-    """CLI entry: the config flags plus ``--device`` (default: the card)."""
+def main(argv=None, device=None, mesh=None) -> dict:
+    """CLI entry: the config flags plus ``--device`` (default: the card).
+    ``mesh`` is :func:`run`'s (default: every process of a group on the
+    data axis)."""
     import argparse
 
     pre = argparse.ArgumentParser(add_help=False)
@@ -409,7 +420,7 @@ def main(argv=None, device=None) -> dict:
     conf = parse_config(MnistRandomFFTConfig, rest)
     if not conf.synthetic and not (conf.train_location and conf.test_location):
         raise SystemExit("need --train-location AND --test-location, or --synthetic N")
-    return run(conf, device=device if device is not None else known.device)
+    return run(conf, device=device if device is not None else known.device, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -251,6 +251,8 @@ class LinearMapEstimator(LabelEstimator):
     the model carries the feature mean as its scaler and the label mean
     as its intercept."""
 
+    fits_global_rows = True
+
     lam: float = 0.0
 
     def fit(self, data, labels, n_valid: int | None = None) -> LinearMapper:
@@ -311,14 +313,16 @@ def _global_stats(data, labels, precision: str | None) -> "NormalEqState":
     valid rows folded into a state, then every process's state merged in
     rank order over the process group (the reference's GSPMD turns each
     row contraction into a psum instead). ``labels`` is a ``GlobalRows``
-    of the same layout or this process's label rows."""
+    of the same layout or this process's label rows. The merge runs over
+    ``data.group``: on a mesh with a model axis each data row counts
+    once."""
     from keystone_tpu_torch.learn.merge import merge_over_group
 
     local = _concat_blocks(data.local)
     lab = labels.local if _is_global(labels) else labels
     state = normal_eq_init(local.shape[-1], lab.shape[-1], local.device)
     state = normal_eq_update(state, local, lab, data.n_valid, precision=precision)
-    return merge_over_group(state)
+    return merge_over_group(state, data.group)
 
 
 def _normal_eq_stats(data, labels, n_valid):
@@ -516,6 +520,8 @@ class BlockLeastSquaresEstimator(LabelEstimator):
 
     ``precision`` pins the Gram/solve matmul precision (see
     :func:`_matmul_precision`); ``None`` follows the env knob."""
+
+    fits_global_rows = True
 
     block_size: int = 4096
     num_iter: int = 1
@@ -732,6 +738,8 @@ class LeastSquaresEstimator(LabelEstimator):
     """Picks the solver by feature count: a block list or more than
     ``block_size`` features take :class:`BlockLeastSquaresEstimator`,
     else the exact :class:`LinearMapEstimator`."""
+
+    fits_global_rows = True
 
     lam: float = 0.0
     block_size: int = 4096

@@ -21,6 +21,13 @@ its own class column (``w`` = ``mixture_weight``).
 - The streaming protocol (``fit_stats_*``): :class:`WeightedEqState`
   holds the population and per-class statistics, and
   :func:`_weighted_gram_fit` runs the same passes on them.
+- A global batch (:class:`~keystone_tpu_torch.parallel.multihost.GlobalRows`,
+  rows spread over processes) takes the masked path on each process's
+  rows, as the reference's non-addressable arrays do, with every
+  contraction over rows summed over the processes that hold the row
+  blocks: the counts, the population mean and covariance, the per-class
+  sums and Grams (one class chunk an all-reduce), the residual's cross
+  terms and means. The residual itself stays with each process's rows.
 
 Where the reference maps over class chunks with ``lax.map``, the port
 loops over class ranges of batched ``torch.linalg`` calls; its
@@ -78,6 +85,8 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
     class_chunk: int = 16
     precision: str | None = None
 
+    fits_global_rows = True
+
     def fit(
         self,
         data,
@@ -85,8 +94,28 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
         n_valid: int | None = None,
         init: BlockLinearMapper | None = None,
     ) -> BlockLinearMapper:
+        """A ``GlobalRows`` ``data`` (``labels`` a ``GlobalRows`` of the
+        same layout or this process's label rows) fits the global batch:
+        the masked path on this process's rows, each sum over rows summed
+        over ``data.group`` (see the module docstring); ``n_valid`` is then
+        the batch's own."""
+        from keystone_tpu_torch.parallel.multihost import GlobalRows, all_reduce_
+
+        psum = _local
+        if isinstance(data, GlobalRows):
+            rows, data = data, _concat_blocks(data.local)
+            labels = labels.local if isinstance(labels, GlobalRows) else labels
+            labels = labels.to(data.device)
+            if labels.shape[0] < data.shape[0]:  # the labels end before the pad rows
+                labels = torch.cat([labels, labels.new_zeros(
+                    (data.shape[0] - labels.shape[0], labels.shape[-1]))])
+            n_valid, perm = rows.n_valid, None
+
+            def psum(t):
+                return all_reduce_(t.reshape(-1).clone(), group=rows.group).reshape(t.shape)
+        else:
+            perm = _grid_of(labels, n_valid)
         c = labels.shape[-1]
-        perm = _grid_of(labels, n_valid)
         sort_idx, class_l = None, None
         if perm is not None:  # None: too imbalanced, the grid would blow up
             sort_idx, class_l = perm.reshape(-1), perm.shape[1]
@@ -103,6 +132,7 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
                 self.mixture_weight,
                 min(self.class_chunk, c),
                 init_xs=None if init is None else tuple(init.xs),
+                psum=psum,
             )
         return BlockLinearMapper(xs=xs, b=b, means=None, block_size=self.block_size)
 
@@ -220,23 +250,29 @@ def _class_ranges(c: int, s_chunk: int) -> list[tuple[int, int]]:
     return [(lo, min(lo + s_chunk, c)) for lo in range(0, c, s_chunk)]
 
 
-def _chunk_joint_xtx(stat, a_m, pop_cov, pop_mean, class_l, w):
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A sum over this process's rows as it is: the batch is all here."""
+    return t
+
+
+def _chunk_joint_xtx(stat, pop_cov, pop_mean, class_l, w, psum=_local):
     """One chunk's per-class systems (S, d, d):
     (1−w)·pop_cov + w·class_cov + w(1−w)·md mdᵀ, with class_cov from
-    CENTERED rows in grid mode (sentinel slots masked back to zero) and
-    the one-hot masked reduction in the fallback."""
+    CENTERED rows: the class rows in grid mode (sentinel slots masked back
+    to zero), and in the fallback the one-hot masked reduction of the
+    rows centered on their own class's mean (``stat["centered"]``), whose
+    per-class Grams ``psum`` sums over the processes of a global batch."""
     mu = stat["class_mean"]  # (S, d)
     if class_l is not None:
         valid = (
             torch.arange(class_l, device=mu.device)[None, :] < stat["n_c"][:, None]
         ).to(mu.dtype)  # (S, L)
         rows_c = (stat["a_rows"] - mu[:, None, :]) * valid[:, :, None]
-        class_cov = torch.einsum("sld,sle->sde", rows_c, rows_c) / stat["n_c"][:, None, None]
+        g = torch.einsum("sld,sle->sde", rows_c, rows_c)
     else:
-        # masked full-batch reduction (C·N·d²): no row gather, so this
-        # keeps the subtraction form
-        g = torch.einsum("nd,ns,ne->sde", a_m, stat["onehot"], a_m)
-        class_cov = g / stat["n_c"][:, None, None] - torch.einsum("sd,se->sde", mu, mu)
+        rows_c = stat["centered"]
+        g = psum(torch.einsum("nd,ns,ne->sde", rows_c, stat["onehot"], rows_c))
+    class_cov = g / stat["n_c"][:, None, None]
     md = mu - pop_mean  # (S, d)
     return (
         (1 - w) * pop_cov[None]
@@ -269,12 +305,16 @@ def _weighted_bcd_fit(
     mixture_weight: float,
     class_chunk: int,
     init_xs=None,
+    psum=_local,
 ):
     """Weighted BCD body. ``class_l`` non-None means ``sort_idx`` lays the
     rows out as a class-sorted (C, class_l) grid (grid row r belongs to
     class r // class_l; sentinel indices point at an appended zero row);
-    None falls back to one-hot masked reductions over the batch. Returns
-    the per-block weights and the (C,) intercept."""
+    None falls back to one-hot masked reductions over the batch. ``psum``
+    (masked layout only) sums a contraction over rows across the
+    processes of a global batch (the identity in one process): every
+    count, mean and Gram is global before a centered sum or a solve uses
+    it. Returns the per-block weights and the (C,) intercept."""
     w = mixture_weight
     dtype, dev = data.dtype, data.device
     c = labels.shape[-1]
@@ -289,7 +329,7 @@ def _weighted_bcd_fit(
         mask = _row_mask(data.shape[0], n_valid, dtype, dev)
     blocks = _split_blocks(data, block_size)
     n_rows = blocks[0].shape[0]
-    n = mask.sum()
+    n = psum(mask.sum())
 
     def masked_rows(a):
         # grid mode: every gathered row is a real row or the all-zero
@@ -301,7 +341,7 @@ def _weighted_bcd_fit(
     else:
         class_idx = torch.argmax(labels, dim=-1)
     onehot = _one_hot(class_idx, c, dtype) * mask  # (N, C), pad rows zeroed
-    n_c = onehot.sum(0)  # (C,)
+    n_c = psum(onehot.sum(0))  # (C,)
     n_c_safe = torch.clamp_min(n_c, 1.0)
 
     # jointLabelMean[c] = 2w + 2(1−w)·n_c/n − 1
@@ -312,7 +352,7 @@ def _weighted_bcd_fit(
         # the population column mean of the residual (the JAX package's
         # deliberate fix of the reference's uniform per-class average)
         r_m = r if class_l is not None else r * mask
-        return r_m.sum(0) / n  # (C,)
+        return psum(r_m.sum(0)) / n  # (C,)
 
     res_mean = residual_mean(resid)
 
@@ -320,7 +360,7 @@ def _weighted_bcd_fit(
         """Per-class column sums of a row-major (N, ...) array → (C, ...)."""
         if class_l is not None:
             return x.reshape(c, class_l, *x.shape[1:]).sum(1)
-        return (onehot.T @ x.reshape(n_rows, -1)).reshape(c, *x.shape[1:])
+        return psum((onehot.T @ x.reshape(n_rows, -1)).reshape(c, *x.shape[1:]))
 
     # pass-invariant per-block statistics, plus — where the Woodbury path
     # applies — the stabilized inverse of its base B = (1−w)·pop_cov + λI
@@ -330,10 +370,11 @@ def _weighted_bcd_fit(
     pop_means, pop_covs, class_means, joint_means, b_invs = [], [], [], [], []
     for i, a in enumerate(blocks):
         a_m = masked_rows(a)
-        pop_mean = a_m.sum(0) / n
-        # covariance from CENTERED rows, not gram/n − μμᵀ (cancellation)
+        pop_mean = psum(a_m.sum(0)) / n
+        # covariance from CENTERED rows, not gram/n − μμᵀ (cancellation),
+        # centered on the global mean before the sum over processes
         a_cm = (a - pop_mean) * mask
-        pop_cov = (a_cm.T @ a_cm) / n
+        pop_cov = psum(a_cm.T @ a_cm) / n
         del a_cm
         class_mean = class_sum(a_m) / n_c_safe[:, None]  # (C, d)
         pop_means.append(pop_mean)
@@ -346,15 +387,24 @@ def _weighted_bcd_fit(
         else:
             b_invs.append(None)
 
-    def class_static_stats(i, a_m, lo, hi):
+    def class_centered(i, a_m):
+        """Masked layout: block i's rows centered on their own class's
+        (global) mean, pad rows zero, built once a block for every class
+        chunk; None in grid mode, which centers the class rows a chunk
+        at a time."""
+        if class_l is not None:
+            return None
+        return (a_m - class_means[i][class_idx]) * mask
+
+    def class_static_stats(i, a_m, lo, hi, centered=None):
         """Pass-invariant per-class stats of block i's classes [lo, hi):
-        means, counts, and the class rows (grid, a view) or one-hot
-        columns (masked)."""
+        means, counts, and the class rows (grid, a view) or the one-hot
+        columns and ``class_centered``'s rows (masked)."""
         stat = {"class_mean": class_means[i][lo:hi], "n_c": n_c_safe[lo:hi]}
         if class_l is not None:
             stat["a_rows"] = a_m.reshape(c, class_l, -1)[lo:hi]
         else:
-            stat["onehot"] = onehot[:, lo:hi]
+            stat["onehot"], stat["centered"] = onehot[:, lo:hi], centered
         return stat
 
     # Woodbury prep, once a fit: M_c = B + V Vᵀ with
@@ -401,12 +451,15 @@ def _weighted_bcd_fit(
             dense_pre.append(None)
             continue
         a_m = masked_rows(a)
+        centered = class_centered(i, a_m)
         chunks = []
         for lo, hi in _class_ranges(c, class_chunk):
             jxtx = _chunk_joint_xtx(
-                class_static_stats(i, a_m, lo, hi), a_m, pop_covs[i], pop_means[i], class_l, w
+                class_static_stats(i, a_m, lo, hi, centered), pop_covs[i], pop_means[i],
+                class_l, w, psum,
             )
             chunks.append({"lo": lo, "hi": hi, "jxtx": jxtx, "factor": ridge_factor(jxtx, lam)})
+        del centered
         dense_pre.append(chunks)
 
     xs = [torch.zeros((a.shape[-1], c), dtype=dtype, device=dev) for a in blocks]
@@ -448,7 +501,7 @@ def _weighted_bcd_fit(
     for _ in range(num_iter):
         for i, a in enumerate(blocks):
             a_m = masked_rows(a)
-            pop_xtr = (a_m.T @ resid) / n  # (d, C)
+            pop_xtr = psum(a_m.T @ resid) / n  # (d, C)
             # per-class residual stats restricted to own-class rows/column
             if class_l is not None:
                 # grid mode: row (c, l)'s own-class column IS column c
@@ -484,15 +537,17 @@ def _weighted_bcd_fit(
             else:
                 # dense per-class normal equations (big classes or the
                 # masked fallback), built and solved a chunk at a time
+                centered = class_centered(i, a_m)
                 for lo, hi in _class_ranges(c, class_chunk):
                     stat = stats_of(lo, hi)
-                    stat.update(class_static_stats(i, a_m, lo, hi))
-                    jxtx = _chunk_joint_xtx(stat, a_m, pop_covs[i], pop_means[i], class_l, w)
+                    stat.update(class_static_stats(i, a_m, lo, hi, centered))
+                    jxtx = _chunk_joint_xtx(stat, pop_covs[i], pop_means[i], class_l, w, psum)
                     rhs = chunk_rhs(stat)[:, :, None]
                     deltas.append(
                         ridge_solve_prefactored(ridge_factor(jxtx, lam), jxtx, rhs, lam)[:, :, 0]
                     )
                     del jxtx
+                del centered
             delta = torch.cat(deltas).T  # (d, C)
             xs[i] = xs[i] + delta
             resid = resid - a_m @ delta
@@ -510,9 +565,15 @@ def fit_path(est: BlockWeightedLeastSquaresEstimator, labels, d: int, n_valid=No
     labels and ``d`` float32 features: the ``layout`` (``grid`` or
     ``masked``), the grid's ``class_l``, and per feature block its
     ``width``, ``solve`` path (``woodbury``, ``dense_hoisted`` or
-    ``dense``) and count of ``class_chunks``."""
+    ``dense``) and count of ``class_chunks``. ``GlobalRows`` labels (a
+    global batch) take the masked layout."""
+    from keystone_tpu_torch.parallel.multihost import GlobalRows
+
+    if isinstance(labels, GlobalRows):
+        labels, perm = labels.local, None
+    else:
+        perm = _grid_of(labels, n_valid)
     c = labels.shape[-1]
-    perm = _grid_of(labels, n_valid)
     class_l = None if perm is None else perm.shape[1]
     widths = block_widths(d, est.block_size)
     plan = _solve_plan(class_l, widths, c, min(est.class_chunk, c), est.num_iter, 4)

@@ -10,10 +10,12 @@ from keystone_tpu_torch.parallel.mesh import (
     create_mesh,
     current_mesh,
     data_axis_size,
+    data_group,
     data_sharding,
     data_sharding_fn,
     model_sharding,
     pad_batch,
+    process_mesh,
     replicated_sharding,
     shard_batch,
     shard_chunk_size,
@@ -30,12 +32,14 @@ __all__ = [
     "create_mesh",
     "current_mesh",
     "data_axis_size",
+    "data_group",
     "data_sharding",
     "data_sharding_fn",
     "global_batch_from_local",
     "gpipe",
     "model_sharding",
     "pad_batch",
+    "process_mesh",
     "replicated_sharding",
     "shard_batch",
     "shard_chunk_size",

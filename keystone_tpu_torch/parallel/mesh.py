@@ -20,8 +20,14 @@ two layouts:
   (the reference's hybrid mesh keeps DCN on the data axis only). Every
   rank builds one process group per axis and position of the other axes,
   all in the same order (:meth:`Mesh.axis_group`). :func:`shard_batch`
-  gives this process its row block of the padded global batch, on its own
-  card, as a :class:`~keystone_tpu_torch.parallel.multihost.GlobalRows`.
+  gives this process the row block of its data position of the padded
+  global batch, on its own card, as a
+  :class:`~keystone_tpu_torch.parallel.multihost.GlobalRows`: the model
+  positions of one data row hold the same rows, and the fits, the merges
+  and the evaluator reduce over the data axis's group
+  (:func:`data_group`), so each row counts once. :func:`process_mesh`
+  lays the processes over any axes, such as the reference's 3-axis
+  ``("pipe", "data", "model")``.
 
 A device may appear more than once in a one-process mesh. That is the
 counterpart of the JAX package's forced host devices (its tests run an
@@ -229,11 +235,7 @@ def create_mesh(
                 f"a mesh across {world} processes has data x model = {world}, "
                 f"got {data}x{model}"
             )
-        order = mesh_order(multihost.group_hosts(), model)
-        devs = multihost.group_devices()
-        ranks = tuple(tuple(order[i * model + j] for j in range(model)) for i in range(data))
-        grid = tuple(tuple(devs[r] for r in row) for row in ranks)
-        return build_groups(Mesh(grid, ranks=ranks))
+        return process_mesh({DATA_AXIS: data, MODEL_AXIS: model})
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -251,6 +253,32 @@ def create_mesh(
         raise ValueError(f"mesh {data}x{model} needs {n} devices, have {len(devs)}")
     grid = tuple(tuple(devs[i * model : (i + 1) * model]) for i in range(data))
     return Mesh(grid)
+
+
+def process_mesh(axes: dict) -> Mesh:
+    """A mesh across the processes of the group over the named ``axes``
+    (name → size, outermost first, as ``{"pipe": 2, "data": 1, "model":
+    2}``), one position per rank, each naming that rank's card: the ranks
+    fill the grid in row-major order of :func:`mesh_order` (the last axis
+    stays within a host where the hosts allow it), and every rank builds
+    the process groups of every axis (:func:`build_groups`). The sizes
+    multiply to the group's size. :func:`create_mesh` builds its (data,
+    model) mesh across processes this way; a 3-axis mesh is the
+    reference's ``Mesh(devices.reshape(p, d, m), ("pipe", "data",
+    "model"))``."""
+    from keystone_tpu_torch.parallel import multihost
+
+    names, sizes = tuple(axes), tuple(int(n) for n in axes.values())
+    world = multihost.process_count()
+    if math.prod(sizes) != world or min(sizes, default=0) < 1:
+        raise ValueError(f"a mesh across {world} processes over {dict(axes)}")
+    order = mesh_order(multihost.group_hosts(), sizes[-1])
+    devs = multihost.group_devices()
+    ranks = np.asarray(order, dtype=object).reshape(sizes)
+    grid = np.empty(sizes, dtype=object)
+    for index in np.ndindex(*sizes):
+        grid[index] = devs[ranks[index]]
+    return build_groups(Mesh(grid, names, ranks=ranks))
 
 
 @contextlib.contextmanager
@@ -311,24 +339,35 @@ def model_sharding(mesh: Mesh | None = None, ndim: int = 2) -> tuple | None:
 def local_block(x, mesh: Mesh) -> tuple:
     """This process's row block of ``x`` (numpy array or tensor) zero-padded
     to a multiple of the data axis of a mesh across processes: ``(block,
-    lo)``, ``lo`` the global index of its first row."""
+    lo)``, ``lo`` the global index of its first row. The block is the one
+    of this process's data position: every model (and pipe) position of
+    one data row holds the same rows, as the reference's ``data_sharding``
+    replicates over ``model``."""
     from keystone_tpu_torch.parallel import multihost
 
-    others = {a: n for a, n in mesh.shape.items() if a != DATA_AXIS and n > 1}
-    if others:
-        # the fits and the evaluator merge every process's rows over the
-        # whole group: two processes of one data row would count its rows
-        # twice
-        raise NotImplementedError(
-            f"row blocks over a mesh across processes with axes {others} beside "
-            "'data': the fits take one process a data position (create_mesh() with "
-            "model=1); a model axis across processes is the LM's tensor parallelism "
-            "(shard_params, train)"
-        )
     n_data = data_axis_size(mesh)
     placed, _ = pad_batch(x, n_data)
     lo, hi = multihost.row_block(int(placed.shape[0]), local_position(mesh), n_data)
     return placed[lo:hi], lo
+
+
+def data_group(mesh: Mesh | None):
+    """The processes that hold a batch's row blocks once each: this
+    process's line along the data axis of a mesh across processes (an
+    :class:`~keystone_tpu_torch.parallel.collectives.AxisGroup` of one
+    process when the axis has one position), None without such a mesh
+    (every process, in rank order). A reduction over the rows runs over
+    this group, so the replicas of a data row along the other axes count
+    its rows once; every line computes the same bytes."""
+    if mesh is None or not mesh.spans_processes:
+        return None
+    group = mesh.axis_group(DATA_AXIS) if DATA_AXIS in mesh.axis_names else None
+    if group is None:
+        from keystone_tpu_torch.parallel import multihost
+        from keystone_tpu_torch.parallel.collectives import AxisGroup
+
+        return AxisGroup(None, (multihost.process_index(),), 0)
+    return group
 
 
 def replicated_sharding(mesh: Mesh | None = None) -> torch.device | None:
@@ -406,4 +445,5 @@ def shard_batch(x, mesh: Mesh | None = None, *, pad: bool = True, device=None):
     if not pad and x.shape[0] % n_data:
         raise ValueError(f"{x.shape[0]} rows do not split over {n_data} processes; pass pad=True")
     block, lo = local_block(x, mesh)
-    return multihost.GlobalRows(block.to(data_sharding(mesh, x.ndim)), int(x.shape[0]), lo)
+    return multihost.GlobalRows(block.to(data_sharding(mesh, x.ndim)), int(x.shape[0]), lo,
+                                data_group(mesh))

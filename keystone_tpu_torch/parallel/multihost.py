@@ -390,16 +390,27 @@ def _staged(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def all_reduce_(t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-    """Reduce ``t`` in place over the group (``sum`` or ``max``); returns
-    ``t``. A group of one leaves it as it is."""
+def _line(group) -> tuple:
+    """``(process group, size)`` of ``group``: an
+    :class:`~keystone_tpu_torch.parallel.collectives.AxisGroup` (a line of
+    a mesh), or None for every process of the group."""
+    if group is None:
+        return None, process_count()
+    return group.pg, group.size
+
+
+def all_reduce_(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
+    """Reduce ``t`` in place over the group (``sum`` or ``max``), or over
+    ``group`` (an ``AxisGroup``) when given; returns ``t``. A group of one
+    leaves it as it is."""
     import torch.distributed as dist
 
-    if process_count() == 1:
+    pg, size = _line(group)
+    if size == 1:
         return t
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     buf = _staged(t)
-    dist.all_reduce(buf, op=red)
+    dist.all_reduce(buf, op=red, group=pg)
     if buf is not t:
         t.copy_(buf)
     return t
@@ -418,44 +429,45 @@ def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:
     return t
 
 
-def all_gather(t: torch.Tensor) -> list[torch.Tensor]:
+def all_gather(t: torch.Tensor, group=None) -> list[torch.Tensor]:
     """Every rank's ``t`` (same shape and dtype on every rank), in rank
-    order, on ``t``'s device."""
+    order (``group``'s order when given), on ``t``'s device."""
     import torch.distributed as dist
 
-    if process_count() == 1:
+    pg, size = _line(group)
+    if size == 1:
         return [t]
     buf = _staged(t.contiguous())
-    outs = [torch.empty_like(buf) for _ in range(process_count())]
-    dist.all_gather(outs, buf)
+    outs = [torch.empty_like(buf) for _ in range(size)]
+    dist.all_gather(outs, buf, group=pg)
     return [o.to(t.device) for o in outs]
 
 
-def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
-    """Every rank's rows of ``t`` concatenated in rank order; the ranks
-    may hold different row counts (none at all included), and a rank with
-    no rows may hold a (0, 0) array."""
-    if process_count() == 1:
+def all_gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's rows of ``t`` (of ``group``'s ranks when given)
+    concatenated in order; the ranks may hold different row counts (none
+    at all included), and a rank with no rows may hold a (0, 0) array."""
+    if _line(group)[1] == 1:
         return t
     meta = torch.tensor([t.shape[0], *t.shape[1:]], dtype=torch.int64)
-    metas = all_gather_meta(meta)
+    metas = all_gather_meta(meta, group)
     counts = [int(m[0]) for m in metas]
     tail = tuple(int(v) for v in torch.stack(metas).max(0).values[1:])
     n_max = max(max(counts), 1)
     pad = torch.zeros((n_max, *tail), dtype=t.dtype, device=t.device)
     if t.numel():
         pad[tuple(slice(0, s) for s in t.shape)] = t
-    parts = all_gather(pad)
+    parts = all_gather(pad, group)
     return torch.cat([p[:c] for p, c in zip(parts, counts)], dim=0)
 
 
-def all_gather_meta(meta: torch.Tensor) -> list[torch.Tensor]:
+def all_gather_meta(meta: torch.Tensor, group=None) -> list[torch.Tensor]:
     """A small int64 vector from every rank (the same length on each),
     through the host."""
     dev = torch.device("cpu")
     if _backend() == "nccl":
         dev = torch.device("cuda", torch.cuda.current_device())
-    return [m.cpu() for m in all_gather(meta.to(dev))]
+    return [m.cpu() for m in all_gather(meta.to(dev), group)]
 
 
 def barrier(name: str, timeout_s: float = 60.0) -> None:
@@ -484,11 +496,21 @@ class GlobalRows:
     own card (a tensor, or a list of feature blocks of the same rows),
     ``n_global`` the valid rows of the whole batch and ``offset`` the
     global index of ``local``'s first row. Rows of ``local`` at or past
-    ``n_global - offset`` are padding."""
+    ``n_global - offset`` are padding.
+
+    ``group`` says which processes hold the row blocks once each: None
+    for every process in rank order, or an
+    :class:`~keystone_tpu_torch.parallel.collectives.AxisGroup`, this
+    process's line along the data axis of a mesh across processes
+    (:func:`keystone_tpu_torch.parallel.mesh.data_group`). On a mesh with a
+    model (or pipe) axis every position of one data row holds the same
+    rows, as the reference's ``data_sharding`` replicates over ``model``;
+    a consumer reduces over ``group`` and so counts each row once."""
 
     local: Any
     n_global: int
     offset: int
+    group: Any = None
 
     @property
     def n_local(self) -> int:
@@ -502,7 +524,7 @@ class GlobalRows:
 
     def gather(self) -> torch.Tensor:
         """Every valid row of the batch, in order, on every process."""
-        return all_gather_rows(self.local[: self.n_valid])
+        return all_gather_rows(self.local[: self.n_valid], self.group)
 
 
 def row_block(n: int, rank: int | None = None, world: int | None = None) -> tuple[int, int]:
@@ -519,17 +541,26 @@ def global_batch_from_local(local_batch, mesh=None, ndim: int | None = None) -> 
     """Assemble a global batch from this process's local rows (the
     counterpart of ``jax.make_array_from_process_local_data``): the rows
     go to this process's card, and every process learns the global row
-    count and its rows' offset. ``mesh`` and ``ndim`` are the reference's
-    arguments; the layout is one row block per process in rank order."""
-    del mesh, ndim
+    count and its rows' offset. Without a mesh every process holds one
+    row block, in rank order. Over a ``mesh`` across processes the blocks
+    lie along its data axis: the processes of one data row pass the same
+    rows (their replicas), and the rows are counted over one process a
+    data position. ``ndim`` is the reference's argument."""
+    del ndim
     import numpy as np
 
     x = torch.from_numpy(np.ascontiguousarray(local_batch)) if isinstance(
         local_batch, np.ndarray) else torch.as_tensor(local_batch)
     g = _require_group()
     x = x.to(g.device)
-    counts = [int(m[0]) for m in all_gather_meta(torch.tensor([x.shape[0]]))]
-    return GlobalRows(x, sum(counts), sum(counts[: g.rank]))
+    group, index = None, g.rank
+    if mesh is not None and mesh.spans_processes:
+        from keystone_tpu_torch.parallel.mesh import data_group
+
+        group = data_group(mesh)
+        index = group.index
+    counts = [int(m[0]) for m in all_gather_meta(torch.tensor([x.shape[0]]), group)]
+    return GlobalRows(x, sum(counts), sum(counts[:index]), group)
 
 
 # ------------------------------------------------------ metrics roll-up

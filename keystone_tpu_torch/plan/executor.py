@@ -21,11 +21,12 @@
   form of prefix sharing, one prefix apply feeding several branches.
 
 Over a mesh whose data axis spans processes (``plan.shard``), each
-process runs the plan on its row block of the padded global batch
-(:func:`_stage_input`), on its own card, and an apply returns a
-:class:`~keystone_tpu_torch.parallel.multihost.GlobalRows`;
+process runs the plan on the row block of its data position of the
+padded global batch (:func:`_stage_input`), on its own card, and an apply
+returns a :class:`~keystone_tpu_torch.parallel.multihost.GlobalRows`;
 :func:`fit_stream` folds this process's rows and merges the states over
-the process group, so every process finalizes the same model.
+the data axis's group, so every process finalizes the same model and the
+model positions of one data row count its rows once.
 
 Segments record ``plan.segment`` spans and chunked segments a
 ``source="plan"`` telemetry row when a sink is active; :func:`fit_stream`
@@ -36,6 +37,7 @@ records the reference's.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import itertools
 import time
 from typing import Any, Callable, Sequence
@@ -184,7 +186,7 @@ def _stage_input(plan: Plan, data: Any):
         return data
     if not isinstance(data, (np.ndarray, torch.Tensor)) or data.ndim < 1:
         return data
-    from keystone_tpu_torch.parallel.mesh import data_axis_size, local_block
+    from keystone_tpu_torch.parallel.mesh import data_axis_size, data_group, local_block
     from keystone_tpu_torch.parallel.multihost import GlobalRows
 
     reg = _metrics.get_registry()
@@ -198,7 +200,7 @@ def _stage_input(plan: Plan, data: Any):
         reg.counter("plan_shard_pad_rows").inc(-n % n_data)
     block, lo = local_block(data, plan.mesh)
     reg.counter("plan_shard_dispatches").inc()
-    return GlobalRows(block, n, lo)
+    return GlobalRows(block, n, lo, data_group(plan.mesh))
 
 
 def _exec_segment(seg, seg_pipe: Pipeline, data: Any, plan: Plan, chunk_ok: bool, reg) -> Any:
@@ -239,12 +241,10 @@ def run_plan(plan: Plan, data: Any) -> Any:
     staged = _stage_input(plan, data)
     if staged is data:
         return _run_plan_rows(plan, data)
-    from keystone_tpu_torch.parallel.multihost import GlobalRows
-
     out = _run_plan_rows(plan, staged.local)
     if isinstance(out, list):
-        return [GlobalRows(o, staged.n_global, staged.offset) for o in out]
-    return GlobalRows(out, staged.n_global, staged.offset)
+        return [dataclasses.replace(staged, local=o) for o in out]
+    return dataclasses.replace(staged, local=out)
 
 
 def _run_plan_rows(plan: Plan, data: Any) -> Any:
@@ -398,6 +398,7 @@ def apply_shared(
         from keystone_tpu_torch.parallel import multihost
         from keystone_tpu_torch.parallel.mesh import (
             data_axis_size,
+            data_group,
             data_sharding,
             local_block,
             shard_chunk_size,
@@ -408,7 +409,7 @@ def apply_shared(
         if mesh.spans_processes:
             n = int(data.shape[0])
             data, lo = local_block(data, mesh)
-            rows, target = (n, lo), target // data_axis_size(mesh)
+            rows, target = (n, lo, data_group(mesh)), target // data_axis_size(mesh)
     device = resolve_device(device)
 
     def chunks():
@@ -444,11 +445,13 @@ def fit_stream(plan: Plan, data: Any, labels: Any, *, n_valid=None, init_state=N
     so rows already inside the state are never featurized again (the
     ``plan_fused_fit_rows`` counter advances by exactly the new rows).
 
-    A sharded plan folds this process's row block of ``data`` (the global
-    batch, the same on every process), in chunks of its share of the
-    plan's chunk, and merges the states over the process group in rank
-    order: every process returns the same state. ``init_state`` is then
-    the global state so far, and only process 0 seeds the fold with it."""
+    A sharded plan folds the row block of this process's data position of
+    ``data`` (the global batch, the same on every process), in chunks of
+    its share of the plan's chunk, and merges the states over the data
+    axis's group in data order: every process returns the same state, and
+    the model positions of one data row count its rows once.
+    ``init_state`` is then the global state so far, and only data
+    position 0 seeds the fold with it."""
     from keystone_tpu_torch.ops.linear import _matmul_precision
     from keystone_tpu_torch.plan.fused_fit import StreamingFitSink
 
@@ -501,8 +504,9 @@ def fit_stream(plan: Plan, data: Any, labels: Any, *, n_valid=None, init_state=N
         )
     if plan.shard:
         from keystone_tpu_torch.learn.merge import merge_over_group
+        from keystone_tpu_torch.parallel.mesh import data_group
 
-        state = merge_over_group(state)
+        state = merge_over_group(state, data_group(plan.mesh))
     reg = _metrics.get_registry()
     reg.counter("plan_fused_fits").inc()
     reg.counter("plan_fused_fit_chunks").inc(-(-n // chunk) if n else 0)

@@ -321,17 +321,34 @@ def fit_streaming(
     protocol, a non-row-wise prefix, a state over the memory budget — the
     classic materialized fit runs on ``device`` instead, with the
     fallback recorded as a plan decision and counted under
-    ``plan_fit_materialized`` (the fused path never touches it)."""
+    ``plan_fit_materialized`` (the fused path never touches it).
+
+    Over a mesh across processes the fallback lays the batch out as the
+    reference's caller does (:func:`~keystone_tpu_torch.parallel.mesh.shard_batch`):
+    each process featurizes the row block of its data position and the
+    estimator's ``GlobalRows`` branch fits the global batch (the rows
+    counted under ``plan_fit_materialized_rows``). An estimator without
+    that branch raises ``TypeError``."""
     from keystone_tpu_torch.core.staging import to_device
 
     plan = plan_fit(chain, data, labels, device=device, n_valid=n_valid, **kw)
     info: FitPlanInfo = plan.fit
     if not info.fused:
-        _metrics.get_registry().counter("plan_fit_materialized").inc()
-        fit_kw = {} if n_valid is None else {"n_valid": n_valid}
-        fitted = chain.fit(
-            to_device(data, device), to_device(labels, device), **fit_kw
-        )
+        reg = _metrics.get_registry()
+        reg.counter("plan_fit_materialized").inc()
+        if plan.mesh is not None and plan.mesh.spans_processes:
+            from keystone_tpu_torch.parallel.mesh import shard_batch
+
+            rows = shard_batch(data, plan.mesh)
+            if n_valid is not None:
+                rows = dataclasses.replace(rows, n_global=min(int(n_valid), rows.n_global))
+            reg.counter("plan_fit_materialized_rows").inc(rows.n_valid)
+            fitted = chain.fit(rows, shard_batch(labels, plan.mesh))
+        else:
+            fit_kw = {} if n_valid is None else {"n_valid": n_valid}
+            fitted = chain.fit(
+                to_device(data, device), to_device(labels, device), **fit_kw
+            )
         return (fitted, plan) if return_plan else fitted
 
     from keystone_tpu_torch.plan import executor as _executor

@@ -2171,3 +2171,73 @@ def test_two_process_gloo_tp_serving_on_card(card, tmp_path):
         assert not rec["graphed"] and rec["k4"] > 0 and rec["k4"] % 12 == 0, rec
     assert recs[0]["tokens"] == recs[1]["tokens"] and recs[0]["loop"] == recs[1]["loop"]
     assert [len(t) for t in recs[0]["loop"]] == [8, 8]
+
+
+_WEIGHTED_SCRIPT = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from keystone_tpu_torch.ops import weighted_linear as wl
+from keystone_tpu_torch.parallel import multihost
+
+rank, port, out = int(sys.argv[2]), sys.argv[3], sys.argv[4]
+device = multihost.initialize(f"127.0.0.1:{port}", 2, rank, init_timeout_s=60, backend="gloo",
+                              device="cuda:0")
+rng = np.random.default_rng(11)
+n, d, c = 4096, 256, 12
+cls = rng.integers(0, c, size=n)
+a = (rng.normal(size=(c, d))[cls] * 2 + rng.normal(size=(n, d))).astype(np.float32)
+y = -np.ones((n, c), np.float32)
+y[np.arange(n), cls] = 1.0
+lo, hi = rank * n // 2, (rank + 1) * n // 2
+est = wl.BlockWeightedLeastSquaresEstimator(block_size=128, num_iter=2, lam=1e-2, class_chunk=4)
+rows = multihost.global_batch_from_local(a[lo:hi])
+got = est.fit(rows, torch.from_numpy(y[lo:hi]).to(device))
+one = est.fit(multihost.GlobalRows(torch.from_numpy(a).to(device), n, 0),
+              torch.from_numpy(y).to(device))
+w, w1 = torch.cat(list(got.xs)), torch.cat(list(one.xs))
+scale = float(w1.abs().max())
+rec = {"device": str(rows.local.device), "rows": rows.n_valid,
+       "err": float((w - w1).abs().max()) / scale,
+       "b_err": float((got.b - one.b).abs().max()) / max(scale, float(one.b.abs().max())),
+       "w": w.cpu().numpy().ravel()[:64].tolist()}
+with open(f"{out}/rank{rank}.json", "w") as f:
+    json.dump(rec, f)
+multihost.shutdown()
+"""
+
+
+def test_two_process_gloo_weighted_fit_on_card(card, tmp_path):
+    """Two processes on card 0 over gloo fit the class-weighted solver to a
+    global batch, half the rows each: the fit runs on the card on each
+    rank's own rows, both ranks hold the same model, and it is within 1e-4
+    of max|W| (``tests/test_torch_weighted.py``'s bar) of one process's
+    fit of the same rows as a global batch."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = str(Path(__file__).resolve().parent.parent)
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("KEYSTONE_", "KST_"))}
+    procs = [subprocess.Popen([sys.executable, "-c", _WEIGHTED_SCRIPT, root, str(r), str(port),
+                               str(tmp_path)], env=env, text=True, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        outs = [(p.communicate(timeout=240)[0], p.returncode) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for out, rc in outs:
+        assert rc == 0, out
+    recs = [json.loads((tmp_path / f"rank{r}.json").read_text()) for r in range(2)]
+    for rec in recs:
+        assert rec["device"] == "cuda:0" and rec["rows"] == 2048, rec
+        assert rec["err"] <= 1e-4 and rec["b_err"] <= 1e-4, rec
+    assert recs[0]["w"] == recs[1]["w"]

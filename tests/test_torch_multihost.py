@@ -56,6 +56,15 @@ MNIST_ARGV = ["--synthetic", "600", "--num-ffts", "2", "--block-size", "512"]
 # are the same
 MNIST_FIT_CHUNK = 150
 MERGE_ROWS = (40, 25)
+# the class-weighted fit over GlobalRows: one class holds 85 % of the rows
+# (tests/test_torch_weighted.py's masked cases), so the reference's own
+# one-process fit takes the masked layout too
+WEIGHTED = dict(n=512, d=64, c=6, dominant=0.85)
+WEIGHTED_EST = dict(block_size=32, num_iter=2, lam=0.1, mixture_weight=0.5, class_chunk=4)
+# the streamed fit forced onto its materialized fallback (a memory budget
+# below its state), against the fused fit of the same chain
+FALLBACK_EST = dict(block_size=8, num_iter=3, lam=0.1)
+FALLBACK_WIDTH = 20
 TP_PROCS = 4
 # held-out scoring (tests/test_torch_perplexity.py's shape, the LM's vocab)
 EVAL_SEQ, EVAL_BATCH, EVAL_CHUNK = 32, 2, 16
@@ -77,6 +86,40 @@ def _fit_data():
     labels = -np.ones((FIT_N, FIT_C), np.float32)
     labels[np.arange(FIT_N), cls] = 1.0
     return data, labels
+
+
+def _weighted_data():
+    """Class-clustered rows and ±1 indicators, ``WEIGHTED["dominant"]`` of
+    them in class 0 (tests/test_torch_weighted.py's ``_data``)."""
+    n, d, c = WEIGHTED["n"], WEIGHTED["d"], WEIGHTED["c"]
+    rng = np.random.default_rng(17)
+    cls = rng.integers(0, c, size=n)
+    cls[: int(WEIGHTED["dominant"] * n)] = 0
+    rng.shuffle(cls)
+    centers = rng.normal(size=(c, d)) * 2
+    a = (centers[cls] + rng.normal(size=(n, d))).astype(np.float32)
+    y = -np.ones((n, c), np.float32)
+    y[np.arange(n), cls] = 1.0
+    return a, y
+
+
+def _fallback_chain(seen: list):
+    """A chained block fit behind a row-wise featurizer (cos of a fixed
+    projection) that logs the rows of every batch it featurizes."""
+    import torch
+
+    from keystone_tpu_torch.core.pipeline import ChainedLabelEstimator, transformer
+    from keystone_tpu_torch.ops.linear import BlockLeastSquaresEstimator
+
+    proj = torch.from_numpy(
+        np.random.default_rng(23).normal(size=(FIT_D, FALLBACK_WIDTH)).astype(np.float32))
+
+    def cos_features(x):
+        seen.append(int(x.shape[0]))
+        return torch.cos(x @ proj.to(x.device))
+
+    return ChainedLabelEstimator(prefix=transformer(cos_features),
+                                 est=BlockLeastSquaresEstimator(**FALLBACK_EST))
 
 
 def _merge_chunk(rank: int):
@@ -161,6 +204,38 @@ def _w_fit(rank, world, out: Path) -> None:
     res["shard_layout"] = np.array([rows.n_global, rows.offset, rows.n_valid])
     res["shard_gather"] = rows.gather().numpy()
     res["plan_shards"] = plan_mod._shards(plan_mod.Plan(prefix=[], mesh=mesh))
+
+    # the class-weighted fit of a global batch: each process's half
+    from keystone_tpu_torch.ops.weighted_linear import BlockWeightedLeastSquaresEstimator
+
+    wa, wy = _weighted_data()
+    w_lo, w_hi = rank * len(wa) // world, (rank + 1) * len(wa) // world
+    t0 = time.perf_counter()
+    wmodel = BlockWeightedLeastSquaresEstimator(**WEIGHTED_EST).fit(
+        multihost.global_batch_from_local(wa[w_lo:w_hi]), torch.from_numpy(wy[w_lo:w_hi]))
+    res["weighted_s"] = time.perf_counter() - t0
+    res["weighted_x"] = torch.cat(list(wmodel.xs)).numpy()
+    res["weighted_b"] = wmodel.b.numpy()
+    res["weighted_equal"] = _replicas_equal([*wmodel.xs, wmodel.b])
+
+    # fit_streaming's materialized fallback under the process mesh: each
+    # process featurizes its row block only
+    from keystone_tpu_torch.observe import metrics as _m
+
+    seen: list = []
+    chain = _fallback_chain(seen)
+    fused, fused_plan = plan_mod.fit_streaming(chain, data, labels, device=torch.device("cpu"),
+                                               mesh=mesh, return_plan=True)
+    rows_before = _m.get_registry().counter("plan_fit_materialized_rows").value
+    fell, fell_plan = plan_mod.fit_streaming(chain, data, labels, device=torch.device("cpu"),
+                                             mesh=mesh, budget_bytes=1, return_plan=True)
+    res["fallback_fused"] = fused_plan.fit.fused and not fell_plan.fit.fused
+    res["fallback_reason"] = fell_plan.decision("fit_fallback")["reason"]
+    res["fallback_rows"] = np.array(multihost.all_gather_meta(torch.tensor(
+        [seen[-1], _m.get_registry().counter("plan_fit_materialized_rows").value - rows_before]
+    ))).reshape(world, 2)
+    res["fallback_w"] = torch.cat(list(fell[-1].xs)).numpy()
+    res["fused_w"] = torch.cat(list(fused[-1].xs)).numpy()
     for tag, env in (("classic", {}), ("streamed", {"KEYSTONE_PLAN": "1",
                                                     "KEYSTONE_GRAM_OP": "int8"})):
         os.environ.update(env)
@@ -283,7 +358,8 @@ def _w_tp(rank, world, out: Path) -> None:
     """Four processes: dp × tp on (2, 2) and TP on (1, 4), three steps
     each; the dp × pp forward and one dp × pp train step on (2, 2); a TP
     model's perplexity; every replica's hash and the gather of the
-    shards."""
+    shards; row blocks, MNIST's fits and its evaluator over a (data 2,
+    model 2) mesh; one pp × tp train step on (pipe 2, data 1, model 2)."""
     import torch
 
     from keystone_tpu_torch.evaluation import evaluate_perplexity
@@ -297,17 +373,12 @@ def _w_tp(rank, world, out: Path) -> None:
     )
     from keystone_tpu_torch.models.lm.sharding import gather_leaf, leaf_dims, local_leaf
     from keystone_tpu_torch.models.lm.train import _step_batch, synthetic_corpus
-    from keystone_tpu_torch.parallel import create_mesh, multihost, shard_batch
+    from keystone_tpu_torch.parallel import create_mesh, multihost, process_mesh, shard_batch
 
     res: dict = {}
     for tag, (n_data, n_model) in (("dptp", (2, 2)), ("tp4", (1, 4))):
         mesh = create_mesh(data=n_data, model=n_model)
         coords = mesh.coords()
-        try:
-            shard_batch(np.zeros((8, 2), np.float32), mesh)
-            res[f"{tag}_rows_refused"] = False
-        except NotImplementedError:
-            res[f"{tag}_rows_refused"] = True
         res[f"{tag}_coords"] = np.array([coords["data"], coords["model"]])
         model = shard_params(_lm_model(out, "lm_tp_in.npz"), mesh)
         dims = leaf_dims(model)
@@ -343,7 +414,63 @@ def _w_tp(rank, world, out: Path) -> None:
     res["pp_step_leaves"] = np.concatenate([t.detach().reshape(-1).numpy()
                                             for t in model.leaves()])
     res["pp_step_equal"] = _replicas_equal(model.leaves())
+
+    _w_data_model(res, world)
+
+    # pp × tp: two stages of two blocks, each stage's blocks split over a
+    # model axis of two
+    mesh = process_mesh({"pipe": 2, "data": 1, "model": 2})
+    coords = mesh.coords()
+    res["pptp_coords"] = np.array(multihost.all_gather_meta(torch.tensor(
+        [coords["pipe"], coords["data"], coords["model"]]))).reshape(world, 3)
+    optimizer = make_optimizer(LM_LR, weight_decay=1e-4)
+    model = shard_params(_lm_model(out, "lm_tp_in.npz"), mesh)
+    step = make_pp_train_step(optimizer, mesh, n_micro=2, axis="pipe", data_axis="data")
+    model, losses = _lm_steps(model, step, optimizer.init(model.leaves()), steps=1)
+    whole = unshard_params(model)
+    res["pptp_step_loss"] = np.asarray(losses)
+    res["pptp_step_leaves"] = np.concatenate([t.detach().reshape(-1).numpy()
+                                              for t in whole.leaves()])
+    res["pptp_equal"] = _replicas_equal(whole.leaves())
     _save(out, rank, res)
+
+
+def _w_data_model(res: dict, world: int) -> None:
+    """Row blocks over a (data 2, model 2) mesh across four processes, and
+    MNIST's classic and streamed int8 fits with their evaluator over it."""
+    import torch
+
+    from keystone_tpu_torch.models import mnist_random_fft
+    from keystone_tpu_torch.parallel import create_mesh, multihost, shard_batch
+    from keystone_tpu_torch.plan import fused_fit
+
+    mesh = create_mesh(data=2, model=2)
+    coords = mesh.coords()
+    x = np.arange(10, dtype=np.float32).reshape(5, 2)
+    rows = shard_batch(x, mesh)
+    # data row 0 passes 2 rows, data row 1 three: each model position of a
+    # data row passes the same rows
+    mine = x[:2] if coords["data"] == 0 else x[2:]
+    assembled = multihost.global_batch_from_local(mine, mesh)
+    res["dm_layout"] = np.array(multihost.all_gather_meta(torch.tensor(
+        [coords["data"], coords["model"], rows.offset, rows.n_local, rows.n_valid,
+         rows.n_global, assembled.offset, assembled.n_global]))).reshape(world, 8)
+    res["dm_local"] = np.stack([t.numpy() for t in multihost.all_gather(rows.local)])
+    res["dm_gather"] = rows.gather().numpy()
+    res["dm_assembled"] = assembled.gather().numpy()
+
+    fused_fit._DEFAULT_FIT_CHUNK = MNIST_FIT_CHUNK
+    for tag, env in (("classic", {}), ("streamed", {"KEYSTONE_PLAN": "1",
+                                                    "KEYSTONE_GRAM_OP": "int8"})):
+        os.environ.update(env)
+        with _finalized() as weights:
+            r = mnist_random_fft.main(MNIST_ARGV, device="cpu", mesh=mesh)
+        for k in env:
+            os.environ.pop(k)
+        res[f"dm_mnist_{tag}_w"] = weights[-1]
+        res[f"dm_mnist_{tag}_pred"] = r["test_predictions"]
+        res[f"dm_mnist_{tag}_err"] = np.array([r["train_error"], r["test_error"]])
+        res[f"dm_mnist_{tag}_equal"] = _replicas_equal([torch.from_numpy(weights[-1])])
 
 
 def _w_sp(rank, world, out: Path, ckdir: str) -> None:
@@ -984,8 +1111,9 @@ def test_four_process_tp_and_pp_across_processes(tp_run):
     """dp × tp on (2, 2) and TP on (1, 4) across four processes against the
     JAX package's one-process training on the same batches, and the dp × pp
     forward against the plain block chain (``tests/test_multihost.py:182``).
-    Rank r sits at (r // model, r % model); every replica ends equal; the
-    fits' row blocks refuse a mesh with a model axis across processes."""
+    Rank r sits at (r // model, r % model); every replica ends equal. (The
+    fits' row blocks over such a mesh are
+    ``test_four_process_rows_over_data_and_model``'s.)"""
     from _lm_worker_common import SEQ, build_tp, step_batch
 
     model, optimizer, step, corpus = build_tp()
@@ -1000,8 +1128,6 @@ def test_four_process_tp_and_pp_across_processes(tp_run):
         np.testing.assert_allclose(tp_run[f"{tag}_wq"], np.asarray(model.blocks[0].wq), atol=5e-5)
         np.testing.assert_allclose(tp_run[f"{tag}_embed"], np.asarray(model.embed), atol=5e-5)
         assert bool(tp_run[f"{tag}_equal"]) and bool(tp_run[f"{tag}_roundtrip"]), tag
-        # the fits' row blocks take one process a data position
-        assert bool(tp_run[f"{tag}_rows_refused"]), tag
     model2, _, _, _ = build_tp()
     toks_pp = step_batch(corpus, 99)[:, :SEQ].astype(np.int32)
     np.testing.assert_allclose(tp_run["pp"], np.asarray(model2(jnp.asarray(toks_pp))), atol=2e-4)
@@ -1021,6 +1147,164 @@ def test_four_process_pp_train_step_matches_local(tp_run):
     want = np.concatenate([np.asarray(x).reshape(-1) for x in jax.tree_util.tree_leaves(model)])
     np.testing.assert_allclose(tp_run["pp_step_leaves"], want, atol=5e-4)
     assert bool(tp_run["pp_step_equal"])
+
+
+def test_four_process_pp_tp_train_step_matches_local(tp_run):
+    """pp × tp across four processes: two pipeline stages, each stage's
+    blocks split over a model axis of two (a (pipe 2, data 1, model 2)
+    mesh, rank r at (r // 2, 0, r % 2)), one train step against the JAX
+    package's plain local step (``tests/test_lm_transformer.py:546``'s
+    bars: loss 1e-5, leaves 5e-4) and against the port's one-process step
+    on the same 3-axis mesh of CPU positions (loss 1e-5 relative); every
+    replica ends equal."""
+    import jax
+
+    from _lm_worker_common import build_tp, step_batch
+    from keystone_tpu_torch.models.lm import make_optimizer, make_pp_train_step, shard_params
+    from keystone_tpu_torch.parallel import Mesh
+
+    np.testing.assert_array_equal(tp_run["pptp_coords"],
+                                  [[0, 0, 0], [0, 0, 1], [1, 0, 0], [1, 0, 1]])
+    model, optimizer, step, corpus = build_tp()
+    batch = step_batch(corpus, 0)
+    model, _, loss = step(model, optimizer.init(model), jnp.asarray(batch))
+    np.testing.assert_allclose(tp_run["pptp_step_loss"], [float(loss)], atol=1e-5)
+    want = np.concatenate([np.asarray(x).reshape(-1) for x in jax.tree_util.tree_leaves(model)])
+    np.testing.assert_allclose(tp_run["pptp_step_leaves"], want, atol=5e-4)
+    assert bool(tp_run["pptp_equal"])
+
+    from keystone_tpu_torch import convert
+
+    jm = build_tp()[0]
+    leaves = {"embed": np.asarray(jm.embed), "pos_embed": np.asarray(jm.pos_embed),
+              "blocks": [{n: np.asarray(getattr(b, n)) for n in SERVE_WEIGHTS}
+                         for b in jm.blocks]}
+    one = convert.transformer_lm(leaves, num_heads=jm.num_heads, device="cpu")
+    mesh = Mesh([[["cpu"] * 2]] * 2, ("pipe", "data", "model"))
+    opt = make_optimizer(LM_LR, weight_decay=1e-4)
+    one = shard_params(one, mesh)
+    _, _, one_loss = make_pp_train_step(opt, mesh, n_micro=2, axis="pipe", data_axis="data")(
+        one, opt.init(one.leaves()), torch.from_numpy(np.asarray(batch)))
+    np.testing.assert_allclose(tp_run["pptp_step_loss"], [float(one_loss)], rtol=1e-5)
+
+
+def test_four_process_rows_over_data_and_model(tp_run):
+    """Row blocks over a (data 2, model 2) mesh across four processes lie
+    as the reference's ``shard_batch`` lays them: rank r at (r // 2, r % 2)
+    holds the block of its data position, the same rows on both model
+    positions of a data row (the replicas of ``P("data")``); ``gather``
+    and ``global_batch_from_local`` count each row once."""
+    import jax
+    from jax.sharding import PartitionSpec as P
+
+    from keystone_tpu.parallel import mesh as jmesh
+
+    x = np.arange(10, dtype=np.float32).reshape(5, 2)
+    jm = jcreate_mesh(data=2, model=2, devices=jax.devices()[:4])
+    placed = jmesh.shard_batch(x, jm)
+    assert placed.sharding.spec == P("data", None)
+    padded = np.asarray(placed)
+    by_device = {s.device: s.index[0] for s in placed.addressable_shards}
+    layout = tp_run["dm_layout"]
+    for r, (i, j, lo, n_local, n_valid, n_global, a_lo, a_n) in enumerate(layout):
+        want = by_device[jm.devices[i, j]]
+        assert (lo, lo + n_local) == (want.start, want.stop), (r, want)
+        np.testing.assert_array_equal(tp_run["dm_local"][r], padded[want])
+        assert (n_valid, n_global) == (min(n_local, 5 - lo), 5)
+        assert (a_lo, a_n) == ((0, 5) if i == 0 else (2, 5))
+    np.testing.assert_array_equal(layout[:, :2], [[0, 0], [0, 1], [1, 0], [1, 1]])
+    np.testing.assert_array_equal(tp_run["dm_gather"], x)
+    np.testing.assert_array_equal(tp_run["dm_assembled"], x)
+
+
+def test_four_process_mnist_over_data_and_model(tp_run, fit_run):
+    """MNIST's classic fit and its streamed int8 fit over a (data 2, model
+    2) mesh across four processes: each within 2e-4 (and 1e-3 of max|W|,
+    ``tests/test_torch_mnist.py``'s bar) of the JAX package's one-process
+    fit of the same features, and of the (data 2) fit across two
+    processes; the evaluator's train and test errors equal the (data 2)
+    fit's, and every rank holds the same weights."""
+    from keystone_tpu import plan as jplan
+    from keystone_tpu.core.pipeline import ChainedLabelEstimator as JChained
+    from keystone_tpu.core.pipeline import Identity as JIdentity
+    from keystone_tpu.ops.util import ClassLabelIndicators as JCLI
+    from keystone_tpu_torch.models import mnist_random_fft as tm
+
+    _, two = fit_run
+    conf = tm.parse_config(tm.MnistRandomFFTConfig, MNIST_ARGV)
+    train = tm._load(conf, "train")
+    bank = tm.build_batch_featurizers(conf.num_ffts, conf.block_size, conf.seed,
+                                      image_size=train.data.shape[-1], device="cpu")
+    feats = jnp.asarray(torch.cat(tm.featurize(bank, torch.from_numpy(train.data)), -1).numpy())
+    labels = JCLI(num_classes=10)(train.labels)
+    est = jlinear.BlockLeastSquaresEstimator(block_size=conf.block_size, num_iter=1,
+                                             lam=conf.lam)
+    streamed = jplan.fit_streaming(JChained(prefix=JIdentity(), est=est), feats, labels,
+                                   n_valid=len(train), gram="int8", chunk_size=MNIST_FIT_CHUNK)
+    want = {"classic": est.fit(feats, labels), "streamed": streamed[-1]}
+    for tag, jmodel in want.items():
+        w = np.concatenate([np.asarray(x) for x in jmodel.xs])
+        got = tp_run[f"dm_mnist_{tag}_w"]
+        for ref in (w, two[f"mnist_{tag}_w"]):
+            gap = np.abs(got - ref).max()
+            assert gap <= 2e-4 and gap <= 1e-3 * np.abs(ref).max(), (tag, gap)
+        np.testing.assert_array_equal(tp_run[f"dm_mnist_{tag}_err"], two[f"mnist_{tag}_err"])
+        agree = float(np.mean(tp_run[f"dm_mnist_{tag}_pred"] == two[f"mnist_{tag}_pred"]))
+        assert agree >= 0.995, (tag, agree)
+        assert bool(tp_run[f"dm_mnist_{tag}_equal"]), tag
+
+
+def test_two_process_weighted_fit_over_global_rows(fit_run):
+    """The class-weighted solver over a global batch whose rows are split
+    over two processes (one class holding 85 % of them), against the JAX
+    package's one-process fit and the port's (``tests/test_torch_weighted.py``'s
+    bar: 1e-4 of max|W|, intercepts 1e-4 of max(max|W|, max|b|)); both
+    processes hold the same model."""
+    from keystone_tpu.ops import weighted_linear as jw
+    from keystone_tpu_torch.ops import weighted_linear as tw
+
+    _, got = fit_run
+    a, y = _weighted_data()
+    jmodel = jw.BlockWeightedLeastSquaresEstimator(**WEIGHTED_EST).fit(jnp.asarray(a),
+                                                                       jnp.asarray(y))
+    est = tw.BlockWeightedLeastSquaresEstimator(**WEIGHTED_EST)
+    tmodel = est.fit(torch.from_numpy(a), torch.from_numpy(y))
+    for xs, b in ((jmodel.xs, jmodel.b), (tmodel.xs, tmodel.b)):
+        w = np.concatenate([np.asarray(x) for x in xs])
+        scale = np.abs(w).max()
+        assert np.abs(got["weighted_x"] - w).max() <= 1e-4 * scale
+        assert np.abs(got["weighted_b"] - np.asarray(b)).max() <= 1e-4 * max(
+            scale, np.abs(np.asarray(b)).max())
+    assert bool(got["weighted_equal"])
+    # the one-process fit takes the masked layout too: one fixed point
+    assert tw.fit_path(est, torch.from_numpy(y), WEIGHTED["d"])["layout"] == "masked"
+
+
+def test_two_process_streamed_fallback_fits_row_blocks(fit_run):
+    """``fit_streaming`` forced onto its materialized fallback (a memory
+    budget below the state) under a mesh across two processes: each
+    process featurizes its own 128 of the 256 rows, and the model equals
+    the fused two-process fit's within 2e-4
+    (``test_two_process_fit_matches_single_process``'s bar)."""
+    _, got = fit_run
+    assert bool(got["fallback_fused"]) and str(got["fallback_reason"]) == "state_over_budget"
+    np.testing.assert_array_equal(got["fallback_rows"], [[FIT_N // 2] * 2] * 2)
+    np.testing.assert_allclose(got["fallback_w"], got["fused_w"], atol=2e-4)
+
+
+def test_fallback_without_a_global_rows_branch_raises():
+    """An estimator without a ``GlobalRows`` fit refuses a global batch,
+    naming itself, rather than fit one process's block as the batch."""
+    from keystone_tpu_torch.core.pipeline import ChainedLabelEstimator, Identity, LabelEstimator
+    from keystone_tpu_torch.parallel import GlobalRows
+
+    class OwnRowsOnly(LabelEstimator):
+        def fit(self, data, labels, **kw):
+            raise AssertionError("fitted a global batch's block as the batch")
+
+    rows = GlobalRows(torch.zeros((4, 3)), 8, 0)
+    with pytest.raises(TypeError, match="OwnRowsOnly has no GlobalRows fit"):
+        ChainedLabelEstimator(prefix=Identity(), est=OwnRowsOnly()).fit(rows, torch.zeros((4, 2)))
 
 
 def test_four_process_tp_perplexity_matches_jax(tp_run):
