@@ -1,0 +1,16 @@
+"""The benchmark's own tests: CPU tests of the harness at tiny sizes, and
+tests marked ``cuda`` that need a card and skip without one."""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (skips where torch sees no CUDA device)",
+    )
